@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py      # from the repository root; needs one CUDA card
 
@@ -7,18 +7,25 @@ Phases, one line each (any failure raises and exits non-zero):
 
 1. device: the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
 2. build: every CUDA source under ``instageo_tpu_torch/ops/csrc``, in parallel;
-3. kernels: each kernel against its plain PyTorch version on the shapes the
-   serving path gives it, with its time, the plain version's, one PyTorch
+3. kernels: each kernel (attention forward, attention backward, fused
+   dropout) against its plain PyTorch version on the shapes the serving and
+   training paths give it, with its time, the plain version's, one PyTorch
    library call's (a yardstick only) and the card's bound for the same work;
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
    8 threads through the dynamic batcher and one batch run over synthetic
    18-band chip files; the kernel launch count of that run; kernel-vs-plain
    logits on one batch; chips/s at batch 16 and 64;
-5. one JSON line ``{"kernels": [...]}``;
-6. last line: ``{"ok": true, "device": {...}}``.
+5. train: the crop config (float32 parameters, bf16 compute, AdamW lr 1e-4,
+   wd 0.01, the config's class weights, ignore_index -1) through
+   ``Trainer``: 10 steps on one fixed batch of 8 with the launches per step,
+   one step with the kernels against one with the plain versions, a train
+   and an eval epoch (partial last batch), and chips/s at batch 8 and 32;
+6. one JSON line ``{"kernels": [...]}``;
+7. last line: ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX or of the JAX package.
+Each path runs with every launch count set to 0 just before it and read
+just after it. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -46,16 +53,58 @@ CROP_BANDS = list(range(18))
 CROP_MODEL = dict(variant="prithvi_eo_v1_100", num_classes=13, temporal_step=3,
                   image_size=224, num_bands=6)
 
-# (B, H, L, Dh, output layout): the slice's shape at batch 64 and 8 (L=589
-# and the T=1 length 197), and the 600M variant's heads-first shapes (Dh=80).
+# configs/multitemporal_crop_classification.yaml, train and model sections.
+CROP_CLASS_WEIGHTS = [0.386375, 0.661126, 0.548184, 0.640482, 0.876862, 0.925186,
+                      3.249462, 1.542289, 2.175141, 2.272419, 3.062762, 3.626097,
+                      1.198702]
+CROP_TRAIN_CFG = {
+    "train": {"learning_rate": 1e-4, "weight_decay": 0.01, "batch_size": 8,
+              "num_epochs": 1, "class_weights": CROP_CLASS_WEIGHTS,
+              "ignore_index": -1, "scheduler": False},
+    "model": {"num_classes": 13, "freeze_backbone": False, "weight_clip_range": None},
+}
+
+# (B, H, L, Dh, output layout): the serving shape at batch 64, the training
+# shape at batch 8, the T=1 length 197, and the 600M variant's heads-first
+# shapes (Dh=80).
 KERNEL_SHAPES = [
     (64, 12, 589, 64, "merged"),
+    (8, 12, 589, 64, "merged"),
     (8, 12, 197, 64, "merged"),
     (16, 16, 513, 80, "heads_first"),
     (4, 16, 1025, 80, "heads_first"),
 ]
+# (B, H, L, Dh, entry) of the backward: the training step at batch 8 and 32,
+# T=1, the 600M shapes heads-first (L=1025 trains on the card), and the
+# q-blocked entry.
+BWD_SHAPES = [
+    (8, 12, 589, 64, "merged"),
+    (32, 12, 589, 64, "merged"),
+    (8, 12, 197, 64, "merged"),
+    (8, 16, 513, 80, "heads_first"),
+    (2, 16, 1025, 80, "heads_first"),
+    (8, 16, 513, 80, "bloq"),
+]
+# The five dropout inputs of one batch-8 training step of the crop model: the
+# four upscaling blocks' ConvTranspose outputs and the head's last dropout.
+DROPOUT_SHAPES = [(8, 1152, 28, 28), (8, 576, 56, 56), (8, 288, 112, 112),
+                  (8, 144, 224, 224), (8, 144, 224, 224)]
 O_TOL = 3e-2    # bf16 output, atol = rtol (the JAX package's bf16 attention test)
 LSE_TOL = 1e-3  # float32 row statistics, other summation order
+# Backward kernel vs plain: both round dS and P to bf16 at the TPU kernel's
+# points but sum in other orders, so single elements can differ by a bf16
+# rounding; the whole gradient must agree to 1e-2 of its norm.
+BWD_REL_TOL = 1e-2
+KEEP_SIGMAS = 5.0  # dropout keep fraction within 5 binomial sigma of 1 - p
+# One bf16 training step with the kernels vs with the plain versions
+# (dropout off): other summation orders through 12 bf16 blocks. Gradients:
+# ‖Δ‖ ≤ tol·‖plain gradient‖ per parameter. The median parameter differs by
+# about 4e-3; the first head stage, which takes the encoder's bf16 output
+# through a BatchNorm, by up to 3.4e-2 on an H100 (a wrong stride or a
+# wrong wiring would give differences of order 1).
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_BN_REL_TOL = 2e-2
 # Kernel vs plain attention through 12 bf16 blocks: the two differ only in
 # summation order, so the logits may differ by a few bf16 roundings.
 LOGIT_TOL = 0.05         # max |logit diff| / max |logit|
@@ -89,12 +138,31 @@ def time_ms(fn, device, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def _bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def attention_bound(b: int, h: int, l: int, d: int):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     flops = 4.0 * b * h * l * l * d
     nbytes = 4.0 * b * h * l * d * 2 + b * h * l * 4  # q, k, v, O bf16; lse f32
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes)
+
+
+def attention_bwd_bound(b: int, h: int, l: int, d: int):
+    """The TPU backward kernel's work: five L x L x Dh products (S, dP, dq,
+    dk, dv); q, k, v, O, dO read and dq, dk, dv written in bf16, lse f32."""
+    return _bound(10.0 * b * h * l * l * d, 16.0 * b * h * l * d + 4.0 * b * h * l)
+
+
+def dropout_bound(numel: int):
+    """Bytes only: bf16 in, bf16 out, one mask byte."""
+    return _bound(0.0, 5.0 * numel)
+
+
+def _rel_err(x, ref) -> float:
+    return ((x.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30)).item()
 
 
 def kernel_phase(device, shapes, iters: int = 20) -> list:
@@ -136,13 +204,160 @@ def kernel_phase(device, shapes, iters: int = 20) -> list:
              ValueError, "Dh=72"),
         )
         for x, exc, what in refused:
+            o = torch.zeros((1, 33, 2 * x.shape[-1]), device=device, dtype=x.dtype)
+            lse = torch.zeros((1, 2, 33, 1), device=device)
+            for call in (lambda: tattn.flash_attention_fwd(x, x, x),
+                         lambda: tattn.flash_attention_bwd(x, x, x, o, o, lse, "merged")):
+                try:
+                    call()
+                except exc:
+                    continue
+                raise RuntimeError(f"an attention kernel wrapper took a {what} input")
+        print("[kernels] float32 and Dh=72 inputs on the card raise, forward and "
+              "backward", flush=True)
+    return results
+
+
+def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
+    """Hold the backward kernel against its plain version at ``shapes``, on
+    the forward kernel's O and lse and a random dO."""
+    import torch
+    import torch.nn.functional as F
+
+    from instageo_tpu_torch.ops import attention as tattn
+
+    results = []
+    for i, (b, h, l, d, entry) in enumerate(shapes):
+        layout = "heads_first" if entry == "heads_first" else "merged"
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        q, k, v = (torch.randn((b, h, l, d), generator=g, device=device)
+                   .to(torch.bfloat16) for _ in range(3))
+        o, lse = tattn.flash_attention_fwd(q, k, v, layout)
+        do = torch.randn(o.shape, generator=g, device=device).to(torch.bfloat16)
+        launched = tattn.bwd_launches.count
+        grads = tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)
+        launches = tattn.bwd_launches.count - launched
+        refs = tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, layout)
+        rel = {f"d{n}": _rel_err(x, r) for n, x, r in zip("qkv", grads, refs)}
+        err = max((x.float() - r.float()).abs().max().item() for x, r in zip(grads, refs))
+        check(all(bool(torch.isfinite(x).all()) for x in grads),
+              f"non-finite gradients at {(b, h, l, d, entry)}")
+        check(max(rel.values()) <= BWD_REL_TOL,
+              f"backward off the plain version at {(b, h, l, d, entry)}: {rel}")
+        del grads, refs
+        if entry == "bloq":
+            # The q-blocked entry end to end: autograd through both kernels
+            # against autograd through both plain versions.
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            tattn.flash_attention_bloq(*leaves).backward(do)
+            plain = [t.detach().requires_grad_() for t in (q, k, v)]
+            tattn.flash_attention_bloq(*plain, impl="plain").backward(do)
+            rel.update({f"entry_d{n}": _rel_err(a.grad, p.grad)
+                        for n, a, p in zip("qkv", leaves, plain)})
+            check(max(rel.values()) <= BWD_REL_TOL,
+                  f"flash_attention_bloq gradients off the plain entry: {rel}")
+            del leaves, plain
+        ms = time_ms(lambda: tattn.flash_attention_bwd(q, k, v, o, do, lse, layout),
+                     device, iters)
+        plain_ms = time_ms(lambda: tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, layout),
+                           device, max(2, iters // 4))
+        # Yardstick: SDPA's backward alone, on one SDPA forward.
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        do_hf = (do.view(b, l, h, d).permute(0, 2, 1, 3).contiguous()
+                 if layout == "merged" else do)
+        library_ms = time_ms(lambda: out.backward(do_hf, retain_graph=True), device, iters)
+        bound_ms, bound_by = attention_bwd_bound(b, h, l, d)
+        row = dict(shape=[b, h, l, d], entry=entry, rel_err=rel, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, launches=launches)
+        print("[kernels] flash_attn_bwd " + json.dumps(row), flush=True)
+        results.append(row)
+        del q, k, v, o, lse, do, qs, ks, vs, out, do_hf
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
+def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
+    """Hold the dropout kernel to ``dropout_apply`` on its own mask, bit for
+    bit, at ``shapes``; check its keep rate, streams and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from instageo_tpu_torch.ops import dropout as tdrop
+
+    results = []
+    for i, shape in enumerate(shapes):
+        g = torch.Generator(device=device).manual_seed(200 + i)
+        x = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+        n = x.numel()
+        launched = tdrop.launches.count
+        out, mask = tdrop.fused_dropout_fwd(x, p, seed=i)
+        launches = tdrop.launches.count - launched
+        check(out.dtype == x.dtype and mask.dtype == torch.bool, "dropout output types")
+        check(torch.equal(out, tdrop.dropout_apply(x, mask, p)),
+              f"dropout output is not x·1/(1-p) on its mask at {shape}")
+        keep = {}
+        for rate in (0.1, 0.5):
+            _, m = tdrop.fused_dropout_fwd(x, rate, seed=i)
+            keep[rate] = m.float().mean().item()
+            sigma = (rate * (1 - rate) / n) ** 0.5
+            check(abs(keep[rate] - (1 - rate)) <= KEEP_SIGMAS * sigma,
+                  f"keep fraction {keep[rate]} at p={rate}, {shape}")
+        same = tdrop.fused_dropout_fwd(x, p, seed=i)[1]
+        other = tdrop.fused_dropout_fwd(x, p, seed=i + 1000)[1]
+        check(torch.equal(same, mask) and not torch.equal(other, mask),
+              "one mask per seed, another for another seed")
+        out0, mask0 = tdrop.fused_dropout_fwd(x, 0.0, seed=i)
+        check(bool(mask0.all()) and torch.equal(out0, x), "p = 0 keeps everything")
+        xr = x.detach().requires_grad_()
+        grad = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+        tdrop.fused_dropout(xr, p, seed=i).backward(grad)
+        check(torch.equal(xr.grad, tdrop.dropout_apply(grad, mask, p)),
+              "dropout backward is where(mask, g/(1-p), 0)")
+        del xr, grad, out0, mask0, same, other
+        ms = time_ms(lambda: tdrop.fused_dropout_fwd(x, p, seed=i), device, iters)
+        gen = torch.Generator(device=device).manual_seed(i)
+        plain_ms = time_ms(lambda: tdrop.fused_dropout_plain(x, p, gen), device,
+                           max(2, iters // 4))
+        library_ms = time_ms(lambda: F.dropout(x, p, training=True), device, iters)
+        bound_ms, bound_by = dropout_bound(n)
+        row = dict(shape=list(shape), keep={str(k): v for k, v in keep.items()},
+                   max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, launches=launches)
+        print("[kernels] fused_dropout " + json.dumps(row), flush=True)
+        results.append(row)
+        del x, out, mask
+    if device.type == "cuda":
+        x = torch.zeros((3, 5), device=device)
+        for rate, dtype, exc in ((1.0, torch.bfloat16, ValueError),
+                                 (0.1, torch.float16, TypeError)):
             try:
-                tattn.flash_attention_fwd(x, x, x)
+                tdrop.fused_dropout_fwd(x.to(dtype), rate, seed=0)
             except exc:
                 continue
-            raise RuntimeError(f"the kernel wrapper took a {what} input")
-        print("[kernels] float32 and Dh=72 inputs on the card raise", flush=True)
+            raise RuntimeError(f"the dropout wrapper took rate {rate} in {dtype}")
+        print("[kernels] a dropout rate of 1.0 and a float16 input on the card raise",
+              flush=True)
     return results
+
+
+def _counters() -> dict:
+    from instageo_tpu_torch.ops import attention as tattn
+    from instageo_tpu_torch.ops import dropout as tdrop
+
+    return {"flash_attn_fwd": tattn.launches, "flash_attn_bwd": tattn.bwd_launches,
+            "fused_dropout": tdrop.launches}
+
+
+def reset_counts() -> None:
+    for counter in _counters().values():
+        counter.reset()
+
+
+def read_counts() -> dict:
+    return {name: counter.count for name, counter in _counters().items()}
 
 
 def _write_chips(root: str, n: int, raw: np.ndarray) -> list:
@@ -194,8 +409,8 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
         out_dir = os.path.join(tmp.name, "predictions")
         chips = [_normalise(raw[i % len(raw)], t) for i in range(n_requests)]
 
-        # --- the main path: counts from 0, read right after -------------
-        tattn.launches.reset()
+        # --- the serving path: counts from 0, read right after ----------
+        reset_counts()
         batcher = server.online_batcher(max_batch=batch)
         answers = [None] * n_requests
 
@@ -213,6 +428,7 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
         check(not any(th.is_alive() for th in threads), "an online client hung")
         run = server.chip_inference_from_paths(paths, out_dir, batch_size=batch)
         launches = tattn.launches.count
+        others = read_counts()
         forwards = batcher.batches_run + math.ceil(n_files / batch)
         health = server.health_check()
         # ------------------------------------------------------------------
@@ -232,6 +448,8 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
             check(int(pred.min()) >= 0 and int(pred.max()) < classes, f"{name}: class range")
         check(launches == depth * forwards,
               f"{launches} kernel launches for {forwards} forwards of {depth} blocks")
+        check(others["flash_attn_bwd"] == 0 and others["fused_dropout"] == 0,
+              f"serving launched training kernels: {others}")
         print(f"[slice] served {n_requests} online requests from {n_threads} threads in "
               f"{batcher.batches_run} batches ({online_s:.3f} s) and {n_files} chip files "
               f"({run['chips_per_sec']:.2f} chips/s incl. decode+write); "
@@ -284,8 +502,142 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
     finally:
         server.close()
         tmp.cleanup()
-    return dict(launches=launches, forwards=forwards, agreement=agree,
+    return dict(launches=launches, other_launches=others, forwards=forwards, agreement=agree,
                 max_logit_diff=diff, chips_per_s=rates, build_s=t_build)
+
+
+def _crop_batch(n: int, temporal_step: int, size: int, classes: int, seed: int):
+    """Synthetic crop chips: uint16 raw bands normalised on the host, and
+    labels constant over 16-px patches in [0, classes) with a band of -1
+    (ignored) rows at the top."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 10000, (n, 6 * temporal_step, size, size), dtype=np.uint16)
+    x = np.stack([_normalise(r, temporal_step) for r in raw])
+    patches = rng.integers(0, classes, (n, size // 16, size // 16))
+    y = np.repeat(np.repeat(patches, 16, axis=1), 16, axis=2).astype(np.int64)
+    y[:, :8] = -1
+    return x, y
+
+
+def train_phase(device, model_kw: dict, cfg: dict, fixed_steps: int = 10,
+                throughput_batches=(8, 32), throughput_steps: int = 6) -> dict:
+    """Train the crop model through ``Trainer`` and check what each part
+    gives (see the module docstring, phase 5)."""
+    import torch
+
+    from instageo_tpu_torch.models.seg import UpscalingBlock, create_prithvi_seg, train_mode
+    from instageo_tpu_torch.train.trainer import Trainer
+
+    t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
+    batch = cfg["train"]["batch_size"]
+    model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                               device=device, seed=0)
+    depth = len(model.prithvi_encoder.blocks)
+    trainer = Trainer(cfg, model, device=device)
+    x, y = _crop_batch(max(throughput_batches + (3 * batch,)), t, size, classes, seed=1)
+    xb, yb = trainer.prepare_batch(x[:batch], y[:batch], batch)
+    gen = torch.Generator().manual_seed(0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    # --- the training path: counts from 0, read right after -------------
+    reset_counts()
+    losses = [trainer.train_step(xb, yb, gen) for _ in range(fixed_steps)]
+    counts = read_counts()
+    # ----------------------------------------------------------------------
+    losses = [float(loss) for loss in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else 0.0
+    check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    per_step = {name: n / fixed_steps for name, n in counts.items()}
+    expected = {"flash_attn_fwd": depth, "flash_attn_bwd": depth, "fused_dropout": 5}
+    if device.type == "cuda":
+        check(per_step == expected, f"launches per step {per_step}, expected {expected}")
+    print(f"[train] {fixed_steps} steps at batch {batch} on one batch: losses "
+          f"{json.dumps([round(v, 6) for v in losses])}; launches per step {json.dumps(per_step)}; "
+          f"peak {peak_gb:.2f} GiB", flush=True)
+
+    # --- one step with the kernels vs one with the plain versions ---------
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    plain = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                               attn_impl="plain", dropout_impl="plain", device=device, seed=0)
+    plain.load_state_dict(state)
+    model.load_state_dict(state)
+    step = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        train_mode(m, torch.Generator(), dropout_rate=0.0)
+        tr = Trainer(cfg, m, device=device)
+        loss = float(tr.train_step(xb, yb, torch.Generator()))
+        step[name] = (loss, {n: p.grad for n, p in m.named_parameters()},
+                      {n: b for n, b in m.named_buffers() if "running" in n})
+    (loss_k, grads_k, bn_k), (loss_p, grads_p, bn_p) = step["kernel"], step["plain"]
+    # The bias of a conv that feeds a BatchNorm has an exact gradient of 0
+    # (BatchNorm subtracts each channel's batch mean), so both versions give
+    # rounding noise there: it is held against its conv weight's gradient.
+    scale_of = {f"{name}.2.bias": f"{name}.2.weight" for name, mod in model.named_modules()
+                if isinstance(mod, UpscalingBlock)}
+    grad_rel = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
+                    / grads_p[scale_of.get(n, n)].float().norm().clamp_min(1e-30)).item()
+                for n in grads_p}
+    bn_rel = {n: _rel_err(bn_k[n], bn_p[n]) for n in bn_p}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[train] kernel vs plain step (dropout off): loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.3g} <= {TRAIN_LOSS_REL_TOL}); gradient rel err max "
+          f"{worst[0][1]:.4g}, median {float(np.median(list(grad_rel.values()))):.4g} over "
+          f"{len(grad_rel)} params (<= {TRAIN_GRAD_REL_TOL}; the {len(scale_of)} conv biases "
+          f"ahead of BatchNorm against their weight's gradient; worst {json.dumps(worst)}); "
+          f"BN running stats rel err max {max(bn_rel.values()):.4g} (<= {TRAIN_BN_REL_TOL})",
+          flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL_TOL, f"kernel/plain loss {loss_k} vs {loss_p}")
+    check(worst[0][1] <= TRAIN_GRAD_REL_TOL, f"kernel/plain gradients differ: {worst}")
+    check(max(bn_rel.values()) <= TRAIN_BN_REL_TOL, f"BN running stats differ: {bn_rel}")
+    del plain, step, grads_k, grads_p, state
+    train_mode(model, gen, dropout_rate=0.1)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # --- loops: a train epoch with a partial last batch, an eval epoch ---
+    batches = [(x[i:i + batch], y[i:i + batch]) for i in (0, batch)]
+    tail = slice(2 * batch, 2 * batch + max(1, batch - 3))
+    batches.append((x[tail], y[tail]))
+    train_m = trainer.run_train_epoch(iter(batches), gen, batch)
+    val_m = trainer.run_eval_epoch(iter(batches), batch)
+    keys = ["train_loss", "val_loss", "val_IoU", "val_Acc"] + [
+        f"val_IoU_{c}" for c in range(classes)]
+    metrics = {**train_m, **val_m}
+    check(all(k in metrics and math.isfinite(metrics[k]) for k in keys),
+          f"missing or non-finite epoch metrics: { {k: metrics.get(k) for k in keys} }")
+    print(f"[train] epoch over {len(batches)} batches (last of {len(batches[-1][0])}, "
+          f"padded): train_loss {metrics['train_loss']:.6f}; eval: val_loss "
+          f"{metrics['val_loss']:.6f}, val_IoU {metrics['val_IoU']:.6f}, val_Acc "
+          f"{metrics['val_Acc']:.6f}", flush=True)
+
+    # --- throughput: host batches -> one optimizer step each (host clock,
+    # synchronised by reading the epoch's loss) --------------------------
+    rates = {}
+    for b in throughput_batches:
+        host = [(x[:b], y[:b])] * throughput_steps
+        trainer.run_train_epoch(iter(host[:2]), gen, b)
+        t0 = time.perf_counter()
+        trainer.run_train_epoch(iter(host), gen, b)
+        ms = (time.perf_counter() - t0) * 1e3 / throughput_steps
+        rates[b] = dict(ms_per_step=ms, chips_per_s=b * 1e3 / ms)
+        print(f"[train] batch {b}: {ms:.3f} ms per step, {b * 1e3 / ms:.2f} chips/s",
+              flush=True)
+    return dict(losses=losses, launches=counts, launches_per_step=per_step,
+                grad_rel_max=worst[0][1], loss_rel=loss_rel, rates=rates, peak_gb=peak_gb)
+
+
+def _kernel_row(name: str, source: str, replaces: str, also, row: dict,
+                launches: dict, rows: list) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "also_replaces": also, "launches": launches["train"], "launches_by_path": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
+    }
 
 
 def main() -> int:
@@ -317,27 +669,38 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     rows = kernel_phase(device, KERNEL_SHAPES)
-    got = slice_phase(device, CROP_MODEL)
+    bwd_rows = bwd_kernel_phase(device, BWD_SHAPES)
+    drop_rows = dropout_phase(device, DROPOUT_SHAPES)
+    served = slice_phase(device, CROP_MODEL)
     print(f"[slice] {smi}: chips/s " + ", ".join(
-        f"batch {b}: {r:.2f}" for b, r in got["chips_per_s"].items()), flush=True)
+        f"batch {b}: {r:.2f}" for b, r in served["chips_per_s"].items()), flush=True)
+    trained = train_phase(device, CROP_MODEL, CROP_TRAIN_CFG)
+    print(f"[train] {smi}: " + ", ".join(
+        f"batch {b}: {r['ms_per_step']:.3f} ms per step, {r['chips_per_s']:.2f} chips/s"
+        for b, r in trained["rates"].items()), flush=True)
 
-    main_row = rows[0]
-    kernels = [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "instageo_tpu_torch/ops/csrc/flash_attn_fwd.cu",
-        "replaces": "instageo_tpu/ops/attention.py:225",
-        "also_replaces": "instageo_tpu/ops/attention.py:162",
-        "launches": got["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"],
-        "card": smi,
-    }]
+    # Each kernel's row is at the training step's shape (batch 8).
+    at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
+    csrc = "instageo_tpu_torch/ops/csrc/"
+    kernels = [
+        _kernel_row("flash_attn_fwd", csrc + "flash_attn_fwd.cu",
+                    "instageo_tpu/ops/attention.py:225", "instageo_tpu/ops/attention.py:162",
+                    at(rows, (8, 12, 589, 64)),
+                    {"serve": served["launches"],
+                     "train": trained["launches"]["flash_attn_fwd"]}, rows),
+        _kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
+                    "instageo_tpu/ops/attention.py:260",
+                    ["instageo_tpu/ops/attention.py:187", "instageo_tpu/ops/attention.py:390"],
+                    at(bwd_rows, (8, 12, 589, 64)),
+                    {"serve": served["other_launches"]["flash_attn_bwd"],
+                     "train": trained["launches"]["flash_attn_bwd"]}, bwd_rows),
+        _kernel_row("fused_dropout", csrc + "dropout.cu", "instageo_tpu/ops/dropout.py:33",
+                    None, at(drop_rows, DROPOUT_SHAPES[-1]),
+                    {"serve": served["other_launches"]["fused_dropout"],
+                     "train": trained["launches"]["fused_dropout"]}, drop_rows),
+    ]
+    for k in kernels:
+        k["card"] = smi
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

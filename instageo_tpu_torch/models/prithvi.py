@@ -6,27 +6,28 @@ timm layout (``patch_embed.proj``, ``blocks.{i}.attn.qkv``, ...), so a
 converted state dict loads with ``strict=True``.
 
 Compute types follow the JAX ``dtype`` field: matmuls in the compute dtype
-(bf16 in serving), LayerNorm statistics and output in float32 (the caller
-casts), GELU and softmax statistics in float32, the residual stream in the
-compute dtype.
+``dtype`` (bf16 in serving and training), LayerNorm statistics and output in
+float32 (the caller casts), GELU and softmax statistics in float32, the
+residual stream in the compute dtype. The compute dtype is separate from the
+parameters' dtype, as the JAX model's ``param_dtype=float32`` is: weights are
+cast to ``dtype`` where they are used, and the cast is differentiable, so
+float32 parameters get float32 gradients. Serving may store the matmul
+weights in the compute dtype (``cast_matmul_weights``); the cast is then a
+no-op.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from instageo_tpu_torch.ops.attention import (
-    flash_attention_blo,
-    flash_attention_fwd_plain,
-)
-
-ATTN_IMPLS = ("kernel", "plain")
+from instageo_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
+from instageo_tpu_torch.ops.attention import flash_attention_blo
 
 # ---------------------------------------------------------------------------
 # Sincos positional embeddings (numpy; static per model config)
@@ -130,9 +131,14 @@ def cast_matmul_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``layer`` applied in its weight's dtype."""
-    return F.linear(x.to(layer.weight.dtype), layer.weight, layer.bias)
+def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(dtype)
+
+
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` applied in the compute ``dtype`` (input, weight and bias
+    cast to it)."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), _cast(layer.bias, dtype))
 
 
 class PatchEmbed3D(nn.Module):
@@ -141,14 +147,15 @@ class PatchEmbed3D(nn.Module):
     weight's contraction order). Tokens come out t-major, then h, then w."""
 
     def __init__(self, patch_size: Tuple[int, int, int], in_chans: int,
-                 embed_dim: int) -> None:
+                 embed_dim: int, dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
+        self.dtype = dtype
         self.patch_size = tuple(patch_size)
         self.proj = nn.Conv3d(in_chans, embed_dim, kernel_size=self.patch_size,
                               stride=self.patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, C, T, H, W) -> tokens (B, L, D) in the weight's dtype."""
+        """x: (B, C, T, H, W) -> tokens (B, L, D) in the compute dtype."""
         b, c, t, h, w = x.shape
         pt, ph, pw = self.patch_size
         # The border that does not fill a patch is ignored.
@@ -157,9 +164,9 @@ class PatchEmbed3D(nn.Module):
         x = x.reshape(b, c, gt, pt, gh, ph, gw, pw)
         x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
         x = x.reshape(b, gt * gh * gw, c * pt * ph * pw)
-        weight = self.proj.weight
-        return F.linear(x.to(weight.dtype), weight.reshape(weight.shape[0], -1),
-                        self.proj.bias)
+        weight = self.proj.weight.to(self.dtype)
+        return F.linear(x.to(self.dtype), weight.reshape(weight.shape[0], -1),
+                        _cast(self.proj.bias, self.dtype))
 
 
 class LayerNormF32(nn.LayerNorm):
@@ -177,57 +184,59 @@ class Attention(nn.Module):
     """Multi-head self-attention: fused ``qkv`` Linear(D, 3D) with output
     columns ordered (3, H, Dh), the fused attention op, then ``proj``.
 
-    ``attn_impl``: ``"kernel"`` runs ``flash_attention_blo`` (the Hopper
-    kernel on a CUDA tensor, its plain version on a CPU tensor); ``"plain"``
-    always runs the plain version.
+    ``attn_impl``: ``"kernel"`` runs ``flash_attention_blo`` through the
+    Hopper forward and backward kernels on a CUDA tensor (their plain
+    versions on a CPU tensor); ``"plain"`` runs the same autograd Function
+    on the plain versions everywhere.
     """
 
-    def __init__(self, dim: int, num_heads: int, attn_impl: str = "kernel") -> None:
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "kernel",
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of {ATTN_IMPLS}")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
+        self.dtype = dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, d = x.shape
         h = self.num_heads
-        qkv = _linear(x, self.qkv).view(b, l, 3, h, d // h)
+        qkv = _linear(x, self.qkv, self.dtype).view(b, l, 3, h, d // h)
         # Heads-first views of the projection output; no copies.
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        if self.attn_impl == "kernel":
-            out = flash_attention_blo(q, k, v)
-        else:
-            out = flash_attention_fwd_plain(q, k, v, "merged")[0]
-        return _linear(out, self.proj)
+        out = flash_attention_blo(q, k, v, self.attn_impl)
+        return _linear(out, self.proj, self.dtype)
 
 
 class Mlp(nn.Module):
     """fc1 -> exact-erf GELU in float32 -> fc2."""
 
-    def __init__(self, dim: int, hidden_dim: int) -> None:
+    def __init__(self, dim: int, hidden_dim: int,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _linear(x, self.fc1)
+        y = _linear(x, self.fc1, self.dtype)
         y = F.gelu(y.float()).to(y.dtype)
-        return _linear(y, self.fc2)
+        return _linear(y, self.fc2, self.dtype)
 
 
 class Block(nn.Module):
     """Pre-LN transformer block: x + Attn(LN(x)); x + MLP(LN(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attn_impl: str = "kernel") -> None:
+                 attn_impl: str = "kernel", dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.norm1 = LayerNormF32(dim)
-        self.attn = Attention(dim, num_heads, attn_impl)
+        self.attn = Attention(dim, num_heads, attn_impl, dtype)
         self.norm2 = LayerNormF32(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x).to(x.dtype))
@@ -239,8 +248,7 @@ class PrithviViT(nn.Module):
 
     Input (B, C, T, H, W), or (B, C, H, W) when the temporal patch is 1;
     output (B, 1 + T·h·w, D) float32 tokens, the cls token first. The
-    residual stream runs in the dtype of the matmul weights, which
-    ``cast_matmul_weights`` sets.
+    residual stream runs in the compute ``dtype``.
     """
 
     def __init__(
@@ -255,6 +263,7 @@ class PrithviViT(nn.Module):
         mlp_ratio: float = 4.0,
         coords_encoding: Sequence[str] = (),
         attn_impl: str = "kernel",
+        dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         if coords_encoding:
@@ -265,10 +274,10 @@ class PrithviViT(nn.Module):
         self.patch_size = tuple(patch_size)
         self.num_frames = num_frames
         self.embed_dim = embed_dim
-        self.patch_embed = PatchEmbed3D(self.patch_size, in_chans, embed_dim)
+        self.patch_embed = PatchEmbed3D(self.patch_size, in_chans, embed_dim, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, attn_impl) for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, attn_impl, dtype) for _ in range(depth))
         self.norm = LayerNormF32(embed_dim)
         self._pos_cache: Dict[tuple, torch.Tensor] = {}
 

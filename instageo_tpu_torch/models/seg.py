@@ -6,13 +6,18 @@ Conv2d(k, padding=1) → BatchNorm2d → ReLU) that halve the channel count, the
 Dropout and a 1×1 conv to the class logits. Regression is the same network
 with ``num_classes=1``. Submodule names follow the reference state dict
 (``prithvi_encoder.*``, ``segmentation_head.{i}.{j}.*``).
+
+Train mode follows the JAX model: the head's dropouts are ``Dropout``
+(the fused kernel of ``ops/dropout.py`` by default), and BatchNorm updates
+its running statistics as flax's ``nn.BatchNorm(momentum=0.9)`` does.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from instageo_tpu_torch.device import resolve_device
@@ -22,31 +27,101 @@ from instageo_tpu_torch.models.registry import (
     SEG_HEAD_KERNEL_SIZES,
     get_arch,
 )
+from instageo_tpu_torch.ops.dropout import IMPLS as DROPOUT_IMPLS
+from instageo_tpu_torch.ops.dropout import fused_dropout
+
+
+class Dropout(nn.Module):
+    """Dropout at rate ``p`` in train mode (counterpart of ``TPUDropout``).
+
+    ``impl``: ``"kernel"`` (the Hopper kernel on a CUDA tensor, its plain
+    version on a CPU tensor; the counterpart of ``"pallas"``) or ``"plain"``
+    (the torch-op version everywhere; the counterpart of ``"xla"``). Each
+    call draws its seed from ``generator``, a ``torch.Generator`` that
+    ``set_dropout_generator`` hands out; train mode with ``p > 0`` and no
+    generator raises. Eval mode and ``p == 0`` return the input; ``p >= 1``
+    returns zeros.
+    """
+
+    def __init__(self, p: float = 0.1, impl: str = "kernel") -> None:
+        super().__init__()
+        if impl not in DROPOUT_IMPLS:
+            raise ValueError(f"dropout_impl={impl!r}; expected one of {DROPOUT_IMPLS}")
+        self.p = p
+        self.impl = impl
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a torch.Generator: "
+                               "call set_dropout_generator(model, generator)")
+        seed = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
+        return fused_dropout(x, self.p, seed, self.impl)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}, impl={self.impl!r}"
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over (B, H, W) in float32 with flax's train-mode statistics.
+
+    Train mode normalises with the biased batch variance, as torch does, but
+    updates ``running_var`` with it too (flax ``nn.BatchNorm(momentum=0.9)``:
+    ``var ← 0.9·var + 0.1·biased var``), where torch would take the unbiased
+    variance. Eval mode normalises with the running statistics. Returns
+    float32.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5) -> None:
+        super().__init__(num_features, eps=eps, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class UpscalingBlock(nn.Sequential):
     """ConvT(k3, s2, p1, op1) → Dropout → Conv(k, p=1) → BN → ReLU.
 
     The padding stays 1 for every kernel size, so k=5/7 (the 600M variants)
-    shrink the map, as in the reference. BatchNorm computes in float32; the
-    block returns the convolutions' dtype.
+    shrink the map, as in the reference. The convolutions and the dropout run
+    in the compute ``dtype`` (weights cast at use), BatchNorm in float32; the
+    block returns ``dtype``.
     """
 
     def __init__(self, in_channels: int, out_channels: int, conv_kernel: int = 3,
-                 dropout_rate: float = 0.1) -> None:
+                 dropout_rate: float = 0.1, dtype: torch.dtype = torch.float32,
+                 dropout_impl: str = "kernel") -> None:
         super().__init__(
             nn.ConvTranspose2d(in_channels, out_channels, 3, stride=2, padding=1,
                                output_padding=1),
-            nn.Dropout(dropout_rate),
+            Dropout(dropout_rate, dropout_impl),
             nn.Conv2d(out_channels, out_channels, conv_kernel, padding=1),
-            nn.BatchNorm2d(out_channels, eps=1e-5),
+            BatchNorm2d(out_channels, eps=1e-5),
             nn.ReLU(),
         )
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self[0].weight.dtype
-        x = self[2](self[1](self[0](x.to(dtype))))
-        return self[4](self[3](x.float())).to(dtype)
+        dt = self.dtype
+        convt, conv = self[0], self[2]
+        x = F.conv_transpose2d(x.to(dt), convt.weight.to(dt), convt.bias.to(dt),
+                               stride=2, padding=1, output_padding=1)
+        x = self[1](x)
+        x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=conv.padding)
+        return self[4](self[3](x)).to(dt)
 
 
 class PrithviSeg(nn.Module):
@@ -66,8 +141,11 @@ class PrithviSeg(nn.Module):
         in_chans: int = 6,
         depth: int = -1,
         attn_impl: str = "kernel",
+        dtype: torch.dtype = torch.float32,
+        dropout_impl: str = "kernel",
     ) -> None:
         super().__init__()
+        self.dtype = dtype
         arch = get_arch(variant, in_chans=in_chans, num_frames=temporal_step,
                         img_size=image_size, depth=depth)
         self.arch = arch
@@ -83,21 +161,18 @@ class PrithviSeg(nn.Module):
             mlp_ratio=arch.mlp_ratio,
             coords_encoding=tuple(arch.coords_encoding),
             attn_impl=attn_impl,
+            dtype=dtype,
         )
         # embed_dims[i] = D·T / 2^i (reference model.py:380-383).
         embed_dims = [(arch.embed_dim * temporal_step) // (2**i) for i in range(5)]
         kernels = SEG_HEAD_KERNEL_SIZES[variant]
         self.segmentation_head = nn.Sequential(
-            *(UpscalingBlock(embed_dims[i], embed_dims[i + 1], kernels[i])
+            *(UpscalingBlock(embed_dims[i], embed_dims[i + 1], kernels[i], dtype=dtype,
+                             dropout_impl=dropout_impl)
               for i in range(4)),
-            nn.Dropout(0.1),
+            Dropout(0.1, dropout_impl),
             nn.Conv2d(embed_dims[4], num_classes, kernel_size=1),
         )
-
-    @property
-    def dtype(self) -> torch.dtype:
-        """The compute dtype (that of the matmul weights)."""
-        return self.segmentation_head[-1].weight.dtype
 
     def forward(self, img: torch.Tensor, return_features: bool = False,
                 channels_last: bool = False):
@@ -114,7 +189,9 @@ class PrithviSeg(nn.Module):
         head = self.segmentation_head
         for block in head[:-2]:
             x = block(x)
-        logits = head[-1](head[-2](x)).float()
+        conv = head[-1]
+        logits = F.conv2d(head[-2](x), conv.weight.to(self.dtype),
+                          conv.bias.to(self.dtype)).float()
         if channels_last:
             logits = logits.permute(0, 2, 3, 1)
             feature_map = feature_map.permute(0, 2, 3, 1)
@@ -157,21 +234,52 @@ def create_prithvi_seg(
     num_bands: int = 6,
     depth: int = -1,
     dtype: torch.dtype = torch.float32,
+    param_dtype: Optional[torch.dtype] = None,
     attn_impl: str = "kernel",
+    dropout_impl: str = "kernel",
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
 ) -> PrithviSeg:
     """Build a ``PrithviSeg`` in eval mode on ``device`` (``cuda`` unless
-    the caller asks for the CPU), randomly initialised from ``seed``, with
-    its matmul weights in ``dtype``. Load trained weights with
-    ``load_state_dict(..., strict=True)``."""
+    the caller asks for the CPU), randomly initialised from ``seed``.
+
+    ``dtype`` is the compute dtype. ``param_dtype`` is the dtype the matmul
+    weights are stored in: ``dtype`` by default (serving), float32 for
+    training, as the JAX model keeps float32 params; norms, BatchNorm and
+    the cls token are float32 either way. Load trained weights with
+    ``load_state_dict(..., strict=True)``; ``train_mode`` readies the model
+    for training."""
     if variant not in PRITHVI_ARCHS:
         raise KeyError(f"Unknown variant {variant!r}")
     dev = resolve_device(device)
     with torch.device("meta"):
         model = PrithviSeg(variant=variant, num_classes=num_classes,
                            temporal_step=temporal_step, image_size=image_size,
-                           in_chans=num_bands, depth=depth, attn_impl=attn_impl)
+                           in_chans=num_bands, depth=depth, attn_impl=attn_impl,
+                           dtype=dtype, dropout_impl=dropout_impl)
     model.to_empty(device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
-    return cast_matmul_weights(model, dtype).eval()
+    return cast_matmul_weights(model, param_dtype or dtype).eval()
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
+                          ) -> nn.Module:
+    """Every ``Dropout`` of ``model`` draws its seeds from ``generator``."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
+    return model
+
+
+def train_mode(model: nn.Module, generator: torch.Generator,
+               dropout_rate: Optional[float] = None) -> nn.Module:
+    """Put ``model`` in train mode: BatchNorm on batch statistics with
+    flax's running-statistics update (``BatchNorm2d``), every ``Dropout``
+    drawing its seeds from ``generator``, and optionally another dropout
+    rate."""
+    if dropout_rate is not None:
+        for module in model.modules():
+            if isinstance(module, Dropout):
+                module.p = dropout_rate
+    set_dropout_generator(model, generator)
+    return model.train()

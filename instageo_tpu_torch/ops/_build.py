@@ -25,6 +25,24 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+
+class LaunchCounter:
+    """Kernel launches since the last reset (thread-safe). Each wrapper adds
+    one where it launches its kernel, and nowhere else."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.count = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output per source name (ptxas register and shared-memory counts).

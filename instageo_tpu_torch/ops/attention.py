@@ -1,19 +1,25 @@
-"""Fused attention forward for the Prithvi ViT: Hopper kernel + plain version.
+"""Fused attention for the Prithvi ViT: Hopper kernels + plain versions.
 
-Counterpart of ``instageo_tpu/ops/attention.py``'s forward kernels. One CUDA
-kernel (``csrc/flash_attn_fwd.cu``) replaces both Pallas kernels:
+Counterpart of ``instageo_tpu/ops/attention.py``. Two CUDA kernels replace
+its five Pallas kernels:
 
-- ``_attn_kernel_blo`` (merged-heads output, entry ``flash_attention_blo``);
-- ``_attn_kernel`` (heads-first output, entry ``flash_attention_bhld``).
+- ``csrc/flash_attn_fwd.cu``: ``_attn_kernel_blo`` (merged-heads output)
+  and ``_attn_kernel`` (heads-first output);
+- ``csrc/flash_attn_bwd.cu``: ``_attn_bwd_kernel_blo`` (O and dO merged),
+  ``_attn_bwd_kernel`` (heads-first) and ``_attn_bwd_kernel_bloq`` (q rows
+  in blocks, dk/dv summed over them in float32).
 
-The layout only changes the output strides the kernel is given. q/k/v are
-(B, H, L, Dh) with any strides whose last one is 1, so the model passes
-views of its fused qkv projection output without copying them.
+A layout only changes the strides a kernel is given. q/k/v are (B, H, L, Dh)
+with any strides whose last one is 1, so the model passes views of its fused
+qkv projection output without copying them.
 
-``flash_attention_fwd`` is the wrapper: on a CPU tensor it runs
-``flash_attention_fwd_plain``; on a CUDA tensor it launches the kernel or
-raises. It never falls back. It is forward-only: there is no backward kernel
-yet, so it refuses inputs that require grad.
+``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers: on a
+CPU tensor they run ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``;
+on a CUDA tensor they launch the kernel or raise. They never fall back.
+``FlashAttention`` (an autograd Function) joins them, and the entries
+``flash_attention_blo``, ``flash_attention_bhld`` and ``flash_attention_bloq``
+are differentiable through it. The raw ``flash_attention_fwd`` refuses
+inputs that require grad.
 """
 
 from __future__ import annotations
@@ -21,32 +27,23 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 from typing import Tuple
 
 import torch
 
+from instageo_tpu_torch.ops._build import LaunchCounter
+
 LAYOUTS = ("merged", "heads_first")
+IMPLS = ("kernel", "plain")
 SUPPORTED_HEAD_DIMS = tuple(range(16, 129, 16))
 
-
-class _LaunchCounter:
-    """Kernel launches since the last reset (thread-safe)."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.count = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.count = 0
+launches = LaunchCounter()      # forward kernel
+bwd_launches = LaunchCounter()  # backward kernel (one per backward call)
 
 
-launches = _LaunchCounter()
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """The values of ``x`` in float32, or float64 where ``x`` is float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,20 +52,21 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The TPU kernel's math step by step, in plain PyTorch.
 
     q/k/v (B, H, L, Dh) -> (O, lse): O merged (B, L, H·Dh) or heads-first
-    (B, H, L, Dh) in q's dtype, lse (B, H, L, 1) float32. The products take
-    the input values exactly (float32 matmul of the input dtype's values);
-    the scale is applied to the float32 scores; P is cast to v's dtype for
-    the PV product; the float32 result is divided by the row sum, then cast.
+    (B, H, L, Dh) in q's dtype, lse (B, H, L, 1) float32 (float64 for
+    float64 inputs). The products take the input values exactly (float32
+    matmul of the input dtype's values); the scale is applied to the float32
+    scores; P is cast to v's dtype for the PV product; the float32 result is
+    divided by the row sum, then cast.
     """
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r}; expected one of {LAYOUTS}")
     b, h, l, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scores = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) * scale
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     denom = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    out = torch.matmul(_wide(p.to(v.dtype)), _wide(v))
     out = (out / denom).to(q.dtype)
     lse = m + torch.log(denom)
     if layout == "merged":
@@ -76,30 +74,82 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _heads_first(x: torch.Tensor, shape, layout: str) -> torch.Tensor:
+    """O or dO in ``layout`` as a (B, H, L, Dh) view."""
+    b, h, l, d = shape
+    if layout == "merged":
+        if tuple(x.shape) != (b, l, h * d):
+            raise ValueError(f"merged O/dO must be {(b, l, h * d)}; got {tuple(x.shape)}")
+        return x.reshape(b, l, h, d).permute(0, 2, 1, 3)
+    if tuple(x.shape) != (b, h, l, d):
+        raise ValueError(f"heads-first O/dO must be {(b, h, l, d)}; got {tuple(x.shape)}")
+    return x
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                              layout: str = "merged"
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The TPU backward kernels' math step by step, in plain PyTorch
+    (``_attn_bwd_kernel_blo``, ``attention.py:281-302``).
+
+    q/k/v (B, H, L, Dh); O and dO in ``layout``; lse (B, H, L, 1) from the
+    forward. Returns dq, dk, dv heads-first in dO's dtype: S = q·kᵀ in
+    float32, then scaled; P = exp(S − lse); dP = dO·vᵀ and δ = Σ dO∘O in
+    float32; dS = P∘(dP − δ) and P cast to q's dtype; dq = scale·(dS·k),
+    dk = scale·(dSᵀ·q), dv = Pᵀ·dO, each product in float32.
+    """
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout={layout!r}; expected one of {LAYOUTS}")
+    shape = tuple(q.shape)
+    scale = 1.0 / math.sqrt(shape[-1])
+    o4, do4 = (_wide(_heads_first(x, shape, layout)) for x in (o, do))
+    qf, kf, vf = _wide(q), _wide(k), _wide(v)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse)
+    dp = torch.matmul(do4, vf.transpose(-1, -2))
+    delta = (do4 * o4).sum(dim=-1, keepdim=True)
+    ds = _wide((p * (dp - delta)).to(q.dtype))
+    pq = _wide(p.to(q.dtype))
+    dq = (scale * torch.matmul(ds, kf)).to(do.dtype)
+    dk = (scale * torch.matmul(ds.transpose(-1, -2), qf)).to(do.dtype)
+    dv = torch.matmul(pq.transpose(-1, -2), do4).to(do.dtype)
+    return dq, dk, dv
+
+
+def _check_view(name: str, x: torch.Tensor, device: torch.device, shape) -> None:
+    """A (B, H, L, Dh) bf16 view the kernels can read or write."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, q on {device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the attention kernels take bfloat16; {name} is {x.dtype}")
+    if x.dim() != 4 or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}; expected "
+                         f"(B, H, L, Dh) = {tuple(shape)}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}'s last dim must be contiguous")
+    if x.data_ptr() % 16 or any(
+            s % 8 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1):
+        raise ValueError(f"{name} must be 16-byte aligned with strides "
+                         "that are multiples of 8 elements")
+    if max(s * (n - 1) for s, n in zip(x.stride(), x.shape)) >= 2**31:
+        raise ValueError(f"{name} spans more than 2**31 elements")
+
+
+def _check_head_dim(d: int) -> None:
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"the attention kernels take Dh in {SUPPORTED_HEAD_DIMS}; "
+                         f"got {d}")
+
+
 def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attn_fwd takes bfloat16; {name} is {x.dtype}")
-        if x.dim() != 4 or x.shape != q.shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}; expected "
-                             f"(B, H, L, Dh) equal to q's {tuple(q.shape)}")
-        if x.stride(-1) != 1:
-            raise ValueError(f"{name}'s last dim must be contiguous")
-        if x.data_ptr() % 16 or any(
-                s % 8 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1):
-            raise ValueError(f"{name} must be 16-byte aligned with strides "
-                             "that are multiples of 8 elements")
-        if max(s * (n - 1) for s, n in zip(x.stride(), x.shape)) >= 2**31:
-            raise ValueError(f"{name} spans more than 2**31 elements")
+        _check_view(name, x, q.device, q.shape)
         if x.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("flash_attn_fwd is forward-only; run it under "
+            raise RuntimeError("flash_attn_fwd is forward-only; differentiate "
+                               "through FlashAttention or run it under "
                                "torch.no_grad() or torch.inference_mode()")
-    d = q.shape[-1]
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attn_fwd takes Dh in {SUPPORTED_HEAD_DIMS}; "
-                         f"got {d}")
+    _check_head_dim(q.shape[-1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +162,19 @@ def _library() -> ctypes.CDLL:
     lib.flash_attn_fwd_bf16.restype = ctypes.c_int
     lib.flash_attn_error_string.argtypes = [ctypes.c_int]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    from instageo_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attn_bwd")
+    lib.flash_attn_bwd_bf16.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    lib.flash_attn_bwd_bf16.restype = ctypes.c_int
+    lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -155,13 +218,109 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_attention_fwd_cuda(q, k, v, layout)
 
 
-def flash_attention_blo(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                        ) -> torch.Tensor:
-    """Heads-first in, merged heads out: (B, H, L, Dh) -> (B, L, H·Dh)."""
-    return flash_attention_fwd(q, k, v, "merged")[0]
+def _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout):
+    shape = tuple(q.shape)
+    b, h, l, d = shape
+    views = {"q": q, "k": k, "v": v, "O": _heads_first(o, shape, layout),
+             "dO": _heads_first(do, shape, layout)}
+    for name, x in views.items():
+        _check_view(name, x, q.device, shape)
+    _check_head_dim(d)
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (b, h, l, 1) or not lse.is_contiguous()):
+        raise ValueError("lse must be the forward's contiguous float32 "
+                         f"(B, H, L, 1) = {(b, h, l, 1)} on {q.device}")
+    # dq, dk, dv heads-first; the kernel would take any strides (e.g. one
+    # (B, L, 3, H, Dh) buffer), the autograd Function wants separate tensors.
+    grads = [torch.empty(shape, dtype=do.dtype, device=q.device) for _ in range(3)]
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    tensors = list(views.values()) + grads
+    strides = (ctypes.c_longlong * (3 * len(tensors)))(
+        *(s for x in tensors for s in x.stride()[:3]))
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn_bwd_bf16(
+            *(x.data_ptr() for x in views.values()), lse.data_ptr(),
+            *(g.data_ptr() for g in grads), delta.data_ptr(),
+            b, h, l, d, ctypes.addressof(strides), stream)
+    if err != 0:
+        msg = lib.flash_attn_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attn_bwd launch failed: {msg} ({err})")
+    bwd_launches.add()
+    return tuple(grads)
 
 
-def flash_attention_bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                         ) -> torch.Tensor:
-    """Heads-first in and out: (B, H, L, Dh) -> (B, H, L, Dh)."""
-    return flash_attention_fwd(q, k, v, "heads_first")[0]
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        layout: str = "merged"
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv (heads-first, dO's dtype) of the forward that gave O and
+    lse. CPU tensors take the plain version; CUDA tensors launch the Hopper
+    kernel (bf16 q/k/v/O/dO, float32 lse, Dh a multiple of 16 up to 128) or
+    raise."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout={layout!r}; expected one of {LAYOUTS}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, layout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn_bwd runs on cuda or cpu, not {q.device}")
+    return _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout)
+
+
+class FlashAttention(torch.autograd.Function):
+    """(q, k, v, layout, impl) -> (O, lse), differentiable in q, k, v.
+
+    ``impl="kernel"`` runs the wrappers (the Hopper kernels on CUDA tensors,
+    the plain versions on CPU tensors); ``"plain"`` always runs the plain
+    versions. Both differentiate through the TPU kernels' rounding points.
+    lse is not differentiable.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, impl):
+        if impl not in IMPLS:
+            raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+        fwd = flash_attention_fwd if impl == "kernel" else flash_attention_fwd_plain
+        o, lse = fwd(q, k, v, layout)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.layout, ctx.impl = layout, impl
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if ctx.impl == "kernel" else flash_attention_bwd_plain
+        # The incoming gradient may be a broadcast or a strided view.
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, ctx.layout)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_blo(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        impl: str = "kernel") -> torch.Tensor:
+    """Heads-first in, merged heads out: (B, H, L, Dh) -> (B, L, H·Dh).
+    Counterpart of ``flash_attention_blo`` (TPU kernels #1 and #3)."""
+    return FlashAttention.apply(q, k, v, "merged", impl)[0]
+
+
+def flash_attention_bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         impl: str = "kernel") -> torch.Tensor:
+    """Heads-first in and out: (B, H, L, Dh) -> (B, H, L, Dh). Counterpart of
+    ``flash_attention_bhld`` (TPU kernels #2 and #4)."""
+    return FlashAttention.apply(q, k, v, "heads_first", impl)[0]
+
+
+def flash_attention_bloq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         impl: str = "kernel") -> torch.Tensor:
+    """Counterpart of the q-blocked ``_flash_bloq`` (TPU kernel #5):
+    (B, H, L, Dh) -> (B, L, H·Dh).
+
+    On the TPU, blocking the q rows was a separate kernel that padded them
+    to whole blocks. On Hopper it is the kernels' ordinary tiling: the
+    backward walks every 64-row q tile, sums dk and dv over the tiles in
+    float32 and rounds them once, gives rows past L P = 0 so they add
+    nothing, and returns dq for the L real rows. So this entry runs the same
+    forward and backward as ``flash_attention_blo``.
+    """
+    return FlashAttention.apply(q, k, v, "merged", impl)[0]

@@ -1,24 +1,35 @@
-"""Parity of the port's attention forward with the JAX Pallas kernels.
+"""Parity of the port's attention with the JAX Pallas kernels.
 
 The JAX side runs the Pallas kernels in interpret mode on the CPU; the port
-side runs ``flash_attention_fwd_plain`` (what the wrapper takes for a CPU
-tensor). Inputs are float32 from a seeded numpy generator. Tolerance: atol
-2e-5, rtol 1e-4, as ``tests/ops_tests/test_attention.py`` holds the kernels
-to the XLA reference in float32 (summation order differs).
+side runs ``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain``
+(what the wrappers take for a CPU tensor). Inputs are float32 from a seeded
+numpy generator. Tolerance: forward atol 2e-5, rtol 1e-4, as
+``tests/ops_tests/test_attention.py`` holds the kernels to the XLA reference
+in float32 (summation order differs); backward atol = rtol = 2e-4, as that
+file holds the Pallas gradients.
 """
 
+import jax
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 import torch
 
-from instageo_tpu.ops.attention import _flash_fwd_blo, flash_attention_bhld
+from instageo_tpu.ops.attention import (
+    _flash_bloq,
+    _flash_fwd_blo,
+    _merged_grouping,
+    _qblock_plan,
+    flash_attention_bhld,
+    flash_attention_blo,
+)
 from instageo_tpu_torch.ops import attention as tattn
 
 torch.set_num_threads(1)
 
 ATOL, RTOL = 2e-5, 1e-4
+GRAD_TOL = 2e-4
 
 
 def _qkv(shape, seed):
@@ -65,3 +76,85 @@ def test_plain_version_accepts_strided_qkv_views():
     o_view = tattn.flash_attention_blo(q, k, v)
     o_copy = tattn.flash_attention_blo(*(t.contiguous() for t in (q, k, v)))
     assert torch.equal(o_view, o_copy)
+
+
+def _port_grads(entry, q, k, v, do):
+    """Gradients of ``entry`` through ``FlashAttention`` for cotangent ``do``."""
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = entry(*leaves)
+    out.backward(torch.from_numpy(do))
+    return out.detach().numpy(), [t.grad.numpy() for t in leaves]
+
+
+def _jax_grads(fn, q, k, v, do):
+    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _assert_grads_close(grads, refs):
+    for name, g, ref in zip("qkv", grads, refs):
+        np.testing.assert_allclose(g, ref, atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b,h,l,d", [(2, 4, 37, 64), (1, 2, 21, 80)])
+def test_merged_backward_matches_jax_blo_kernel(b, h, l, d):
+    """The merged entry against ``_attn_bwd_kernel_blo`` (TPU kernel #3)
+    with a non-uniform merged cotangent."""
+    assert _merged_grouping(h, l, d) is not None  # JAX takes the merged kernels
+    q, k, v = _qkv((b, h, l, d), seed=l + 1)
+    do = np.random.default_rng(l).standard_normal((b, l, h * d)).astype(np.float32)
+    out_ref, refs = _jax_grads(lambda *a: flash_attention_blo(*a, interpret=True),
+                               q, k, v, do)
+    bwd0 = tattn.bwd_launches.count
+    out, grads = _port_grads(tattn.flash_attention_blo, q, k, v, do)
+    assert tattn.bwd_launches.count == bwd0  # CPU tensors: the plain backward
+    np.testing.assert_allclose(out, out_ref, atol=ATOL, rtol=RTOL)
+    _assert_grads_close(grads, refs)
+
+
+def test_heads_first_backward_matches_jax_bhld_kernel():
+    """The heads-first entry against ``_attn_bwd_kernel`` (TPU kernel #4)."""
+    q, k, v = _qkv((2, 3, 29, 64), seed=4)
+    do = np.random.default_rng(5).standard_normal((2, 3, 29, 64)).astype(np.float32)
+    _, refs = _jax_grads(lambda *a: flash_attention_bhld(*a, True), q, k, v, do)
+    _, grads = _port_grads(tattn.flash_attention_bhld, q, k, v, do)
+    _assert_grads_close(grads, refs)
+
+
+def test_bloq_backward_matches_jax_qblocked_kernel():
+    """The q-blocked entry against ``_attn_bwd_kernel_bloq`` (TPU kernel
+    #5): two q blocks with padded rows, dk/dv summed over them."""
+    b, h, l, d = 1, 8, 413, 16
+    _, bq, nq = _qblock_plan(h, l, d)
+    assert nq == 2 and nq * bq > l
+    q, k, v = _qkv((b, h, l, d), seed=6)
+    do = np.random.default_rng(7).standard_normal((b, l, h * d)).astype(np.float32)
+    out_ref, refs = _jax_grads(lambda *a: _flash_bloq(*a, True), q, k, v, do)
+    out, grads = _port_grads(tattn.flash_attention_bloq, q, k, v, do)
+    np.testing.assert_allclose(out, out_ref, atol=ATOL, rtol=RTOL)
+    _assert_grads_close(grads, refs)
+
+
+@pytest.mark.parametrize("layout", tattn.LAYOUTS)
+def test_backward_is_the_exact_gradient_in_float64(layout):
+    """In float64 every rounding point of the TPU kernels' math is exact,
+    so the plain backward is the gradient of the plain forward."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 5, 8))).requires_grad_()
+               for _ in range(3))
+    entry = tattn.flash_attention_blo if layout == "merged" else tattn.flash_attention_bhld
+    assert torch.autograd.gradcheck(entry, (q, k, v))
+
+
+def test_both_impls_differentiate_alike_on_cpu():
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv((1, 2, 9, 16), seed=8))
+    out_k = tattn.flash_attention_blo(q, k, v, impl="kernel")
+    out_p = tattn.flash_attention_blo(q, k, v, impl="plain")
+    assert torch.equal(out_k, out_p)
+    grads_k = torch.autograd.grad(out_k.sum(), (q, k, v))
+    grads_p = torch.autograd.grad(out_p.sum(), (q, k, v))
+    assert all(torch.equal(a, b) for a, b in zip(grads_k, grads_p))
+    with pytest.raises(ValueError):
+        tattn.flash_attention_blo(q, k, v, impl="pallas")
+    o, lse = tattn.FlashAttention.apply(q, k, v, "merged", "kernel")
+    assert o.requires_grad and not lse.requires_grad

@@ -151,6 +151,7 @@ def test_server_chip_inference_roundtrip(models, tmp_path):
 
 def test_port_imports_nothing_of_jax():
     code = ("import sys, instageo_tpu_torch.serve.server\n"
+            "import instageo_tpu_torch.train.trainer, instageo_tpu_torch.ops.dropout\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'instageo_tpu')\n"
             "       or m.startswith(('jax.', 'flax.', 'instageo_tpu.'))]\n"
             "assert not bad, bad\n")
