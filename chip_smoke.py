@@ -11,10 +11,14 @@ Phases, one line each (any failure raises and exits non-zero):
    dropout) against its plain PyTorch version on the shapes the serving and
    training paths give it, with its time, the plain version's, one PyTorch
    library call's (a yardstick only) and the card's bound for the same work;
+   the forward's route by head dim (wgmma for Dh 64 and 80), its device
+   time per launch from ``torch.profiler``, and the mma.sync design's times
+   at the same shapes in turns;
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
    8 threads through the dynamic batcher and one batch run over synthetic
-   18-band chip files; the kernel launch count of that run; kernel-vs-plain
+   18-band chip files; the kernel launch count of that run (every forward
+   launch on the wgmma route, none on mma.sync); kernel-vs-plain
    logits on one batch; chips/s at batch 16 and 64;
 5. train: the crop config (float32 parameters, bf16 compute, AdamW lr 1e-4,
    wd 0.01, the config's class weights, ignore_index -1) through
@@ -64,16 +68,21 @@ CROP_TRAIN_CFG = {
     "model": {"num_classes": 13, "freeze_backbone": False, "weight_clip_range": None},
 }
 
-# (B, H, L, Dh, output layout): the serving shape at batch 64, the training
-# shape at batch 8, the T=1 length 197, and the 600M variant's heads-first
-# shapes (Dh=80).
+# (B, H, L, Dh, output layout, inputs): the serving shape at batch 64, also
+# as the model passes q/k/v ("qkv": views of one (B, L, 3, H, Dh) projection
+# buffer, models/prithvi.py), the training shape at batch 8, the T=1 length
+# 197, and the 600M variant's heads-first shapes (Dh=80); other rows take
+# contiguous q/k/v.
 KERNEL_SHAPES = [
-    (64, 12, 589, 64, "merged"),
-    (8, 12, 589, 64, "merged"),
-    (8, 12, 197, 64, "merged"),
-    (16, 16, 513, 80, "heads_first"),
-    (4, 16, 1025, 80, "heads_first"),
+    (64, 12, 589, 64, "merged", "contiguous"),
+    (64, 12, 589, 64, "merged", "qkv"),
+    (8, 12, 589, 64, "merged", "contiguous"),
+    (8, 12, 197, 64, "merged", "contiguous"),
+    (16, 16, 513, 80, "heads_first", "contiguous"),
+    (4, 16, 1025, 80, "heads_first", "contiguous"),
 ]
+# The forward kernels' symbols, by route, as the profiler names them.
+FWD_KERNEL_SYMBOL = {"wgmma": "flash_attn_fwd_sm90_kernel", "mma_sync": "flash_attn_fwd_kernel"}
 # (B, H, L, Dh, entry) of the backward: the training step at batch 8 and 32,
 # T=1, the 600M shapes heads-first (L=1025 trains on the card), and the
 # q-blocked entry.
@@ -138,6 +147,43 @@ def time_ms(fn, device, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 2, match=None, attempts: int = 3) -> float:
+    """Mean device time per call of ``fn`` from a ``torch.profiler`` trace of
+    ``iters`` calls. Unlike ``time_ms`` it leaves out the host's time and the
+    gaps between launches. With ``match``, ``fn`` launches one kernel whose
+    name holds it: the mean over its traced launches (the trace may miss a
+    launch). Without, every kernel counts, summed over ``iters``: a trace in
+    which the longest kernel does not run a whole number of times per call
+    lost events and is taken again, up to ``attempts`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if match is not None:
+            times = [t for name, ts in by_name.items() if match in name for t in ts]
+            if len(times) >= iters // 2:
+                return sum(times) / len(times) / 1e3
+        elif by_name:
+            longest = max(by_name.values(), key=sum)
+            if len(longest) % iters == 0:
+                return sum(map(sum, by_name.values())) / 1e3 / iters
+        print(f"[kernels] the profiler traced {sum(map(len, by_name.values()))} kernels "
+              f"(match {match!r}) for {iters} calls (attempt {attempt + 1})", flush=True)
+    raise RuntimeError(f"chip_smoke check failed: no whole trace of {match!r} "
+                       f"in {attempts} attempts")
+
+
 def _bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -165,35 +211,82 @@ def _rel_err(x, ref) -> float:
     return ((x.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30)).item()
 
 
+def _fwd_inputs(device, b: int, h: int, l: int, d: int, inputs: str, seed: int):
+    """q, k, v (B, H, L, Dh) bf16: contiguous, or views of one (B, L, 3, H,
+    Dh) buffer as the model's qkv projection gives them."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    if inputs == "qkv":
+        qkv = torch.randn((b, l, 3, h, d), generator=g, device=device).to(torch.bfloat16)
+        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+    return tuple(torch.randn((b, h, l, d), generator=g, device=device).to(torch.bfloat16)
+                 for _ in range(3))
+
+
 def kernel_phase(device, shapes, iters: int = 20) -> list:
-    """Hold the attention kernel against its plain version at ``shapes``."""
+    """Hold the attention forward against its plain version at ``shapes``.
+    Per shape: the route ``fwd_route`` gives; the wrapper's time (CUDA
+    events around back-to-back calls, host cost included) and the kernel's
+    device time (``torch.profiler``, per launch); at a wgmma head dim the
+    mma.sync design's times too ("prev"), in turns new, prev, prev, new."""
     import torch
     import torch.nn.functional as F
 
     from instageo_tpu_torch.ops import attention as tattn
 
+    on_card = device.type == "cuda"
     results = []
-    for i, (b, h, l, d, layout) in enumerate(shapes):
-        g = torch.Generator(device=device).manual_seed(i)
-        q, k, v = (torch.randn((b, h, l, d), generator=g, device=device)
-                   .to(torch.bfloat16) for _ in range(3))
-        launched = tattn.launches.count
+    for i, (b, h, l, d, layout, inputs) in enumerate(shapes):
+        q, k, v = _fwd_inputs(device, b, h, l, d, inputs, seed=i)
+        route = tattn.fwd_route(d)
+        launched, mma0 = tattn.launches.count, tattn.fwd_mma_launches.count
         o, lse = tattn.flash_attention_fwd(q, k, v, layout)
+        launches = tattn.launches.count - launched
+        mma_launches = tattn.fwd_mma_launches.count - mma0
         o_ref, lse_ref = tattn.flash_attention_fwd_plain(q, k, v, layout)
         err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
+        what = (b, h, l, d, layout, inputs)
         check(torch.allclose(o.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL),
-              f"O off the plain version at {(b, h, l, d, layout)}: max {err}")
-        check(lse_err <= LSE_TOL, f"lse off by {lse_err} at {(b, h, l, d)}")
-        ms = time_ms(lambda: tattn.flash_attention_fwd(q, k, v, layout), device, iters)
-        plain_ms = time_ms(lambda: tattn.flash_attention_fwd_plain(q, k, v, layout),
-                           device, max(2, iters // 4))
-        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), device, iters)
-        bound_ms, bound_by = attention_bound(b, h, l, d)
-        row = dict(shape=[b, h, l, d], layout=layout, max_abs_err=err,
-                   lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
-                   library_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   launches=tattn.launches.count - launched)
+              f"O off the plain version at {what}: max {err}")
+        check(lse_err <= LSE_TOL, f"lse off by {lse_err} at {what}")
+        if on_card:
+            check(launches == 1 and mma_launches == (route == "mma_sync"),
+                  f"{launches} launches, {mma_launches} on mma.sync, at {what} ({route})")
+        new = lambda: tattn.flash_attention_fwd(q, k, v, layout)  # noqa: E731
+        row = dict(shape=[b, h, l, d], layout=layout, inputs=inputs, route=route,
+                   max_abs_err=err, lse_max_abs_err=lse_err, launches=launches)
+        if route == "wgmma" and on_card:
+            prev = lambda: tattn._flash_attention_fwd_cuda(q, k, v, layout, "mma_sync")  # noqa: E731
+            o_prev, lse_prev = prev()
+            row["prev_max_abs_err"] = (o_prev.float() - o_ref.float()).abs().max().item()
+            check(torch.allclose(o_prev.float(), o_ref.float(), atol=O_TOL, rtol=O_TOL)
+                  and (lse_prev - lse_ref).abs().max().item() <= LSE_TOL,
+                  f"the mma.sync design is off the plain version at {what}")
+            del o_prev, lse_prev
+            turns = {"new": [], "prev": []}
+            for name in ("new", "prev", "prev", "new"):
+                fn = new if name == "new" else prev
+                symbol = FWD_KERNEL_SYMBOL["wgmma" if name == "new" else "mma_sync"]
+                turns[name].append((time_ms(fn, device, iters),
+                                    device_ms(fn, iters, match=symbol)))
+            mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+            row.update(ms=mean([t[0] for t in turns["new"]]),
+                       device_ms=mean([t[1] for t in turns["new"]]),
+                       prev_ms=mean([t[0] for t in turns["prev"]]),
+                       prev_device_ms=mean([t[1] for t in turns["prev"]]),
+                       turns=turns)
+        else:
+            row.update(ms=time_ms(new, device, iters),
+                       device_ms=(device_ms(new, iters, match=FWD_KERNEL_SYMBOL[route])
+                                  if on_card else None))
+        row["plain_ms"] = time_ms(lambda: tattn.flash_attention_fwd_plain(q, k, v, layout),
+                                  device, max(2, iters // 4))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        row["library_ms"] = time_ms(sdpa, device, iters)
+        row["library_device_ms"] = device_ms(sdpa, iters) if on_card else None
+        row["bound_ms"], row["bound_by"] = attention_bound(b, h, l, d)
         print("[kernels] flash_attn_fwd " + json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, o, lse, o_ref, lse_ref
@@ -347,8 +440,8 @@ def _counters() -> dict:
     from instageo_tpu_torch.ops import attention as tattn
     from instageo_tpu_torch.ops import dropout as tdrop
 
-    return {"flash_attn_fwd": tattn.launches, "flash_attn_bwd": tattn.bwd_launches,
-            "fused_dropout": tdrop.launches}
+    return {"flash_attn_fwd": tattn.launches, "flash_attn_fwd_mma": tattn.fwd_mma_launches,
+            "flash_attn_bwd": tattn.bwd_launches, "fused_dropout": tdrop.launches}
 
 
 def reset_counts() -> None:
@@ -450,10 +543,13 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
               f"{launches} kernel launches for {forwards} forwards of {depth} blocks")
         check(others["flash_attn_bwd"] == 0 and others["fused_dropout"] == 0,
               f"serving launched training kernels: {others}")
+        check(others["flash_attn_fwd_mma"] == 0,
+              f"serving took the mma.sync forward: {others}")
         print(f"[slice] served {n_requests} online requests from {n_threads} threads in "
               f"{batcher.batches_run} batches ({online_s:.3f} s) and {n_files} chip files "
               f"({run['chips_per_sec']:.2f} chips/s incl. decode+write); "
-              f"{launches} attention launches = {depth} x {forwards} forwards; "
+              f"{launches} attention launches = {depth} x {forwards} forwards, "
+              f"{others['flash_attn_fwd_mma']} of them on mma.sync; "
               f"health {json.dumps(health['device'])}", flush=True)
         server.close()
 
@@ -550,7 +646,8 @@ def train_phase(device, model_kw: dict, cfg: dict, fixed_steps: int = 10,
     check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     per_step = {name: n / fixed_steps for name, n in counts.items()}
-    expected = {"flash_attn_fwd": depth, "flash_attn_bwd": depth, "fused_dropout": 5}
+    expected = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
+                "fused_dropout": 5}
     if device.type == "cuda":
         check(per_step == expected, f"launches per step {per_step}, expected {expected}")
     print(f"[train] {fixed_steps} steps at batch {batch} on one batch: losses "
@@ -637,6 +734,7 @@ def _kernel_row(name: str, source: str, replaces: str, also, row: dict,
         "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
+        "device_ms": row.get("device_ms"), "library_device_ms": row.get("library_device_ms"),
     }
 
 
@@ -665,7 +763,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in names:
         for line in _build.build_logs.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "setmaxnreg" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     rows = kernel_phase(device, KERNEL_SHAPES)
@@ -682,12 +780,23 @@ def main() -> int:
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
     csrc = "instageo_tpu_torch/ops/csrc/"
+    # The forward's two routes: wgmma (every launch of the main paths) and
+    # mma.sync (timed beside it at the same shapes, launched by neither path).
+    fwd = at(rows, (8, 12, 589, 64))
+    mma = {"serve": served["other_launches"]["flash_attn_fwd_mma"],
+           "train": trained["launches"]["flash_attn_fwd_mma"]}
+    wgmma_rows = [r for r in rows if r["route"] == "wgmma"]
+    prev_rows = [dict(r, ms=r["prev_ms"], device_ms=r["prev_device_ms"],
+                      max_abs_err=r["prev_max_abs_err"]) for r in wgmma_rows]
     kernels = [
+        _kernel_row("flash_attn_fwd_sm90", csrc + "flash_attn_fwd_sm90.cu",
+                    "instageo_tpu/ops/attention.py:225", "instageo_tpu/ops/attention.py:162",
+                    fwd, {"serve": served["launches"] - mma["serve"],
+                          "train": trained["launches"]["flash_attn_fwd"] - mma["train"]},
+                    wgmma_rows),
         _kernel_row("flash_attn_fwd", csrc + "flash_attn_fwd.cu",
                     "instageo_tpu/ops/attention.py:225", "instageo_tpu/ops/attention.py:162",
-                    at(rows, (8, 12, 589, 64)),
-                    {"serve": served["launches"],
-                     "train": trained["launches"]["flash_attn_fwd"]}, rows),
+                    prev_rows[wgmma_rows.index(fwd)], mma, prev_rows),
         _kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
                     "instageo_tpu/ops/attention.py:260",
                     ["instageo_tpu/ops/attention.py:187", "instageo_tpu/ops/attention.py:390"],
@@ -699,6 +808,10 @@ def main() -> int:
                     {"serve": served["other_launches"]["fused_dropout"],
                      "train": trained["launches"]["fused_dropout"]}, drop_rows),
     ]
+    kernels[0]["by_shape"] = [
+        {key: r[key] for key in ("shape", "inputs", "device_ms", "prev_device_ms",
+                                 "library_device_ms", "ms", "prev_ms", "library_ms")}
+        for r in wgmma_rows]
     for k in kernels:
         k["card"] = smi
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,14 @@
 """Fused attention for the Prithvi ViT: Hopper kernels + plain versions.
 
-Counterpart of ``instageo_tpu/ops/attention.py``. Two CUDA kernels replace
-its five Pallas kernels:
+Counterpart of ``instageo_tpu/ops/attention.py``. CUDA kernels replace its
+five Pallas kernels:
 
-- ``csrc/flash_attn_fwd.cu``: ``_attn_kernel_blo`` (merged-heads output)
-  and ``_attn_kernel`` (heads-first output);
+- the forward, ``_attn_kernel_blo`` (merged-heads output) and
+  ``_attn_kernel`` (heads-first output), takes one of two routes by head
+  dim (``fwd_route``): ``csrc/flash_attn_fwd_sm90.cu`` (TMA, wgmma, a
+  producer warpgroup and two consumer warpgroups) for Dh in
+  ``SM90_HEAD_DIMS``, which are every head dim of the model registry;
+  ``csrc/flash_attn_fwd.cu`` (mma.sync) for the other supported ones;
 - ``csrc/flash_attn_bwd.cu``: ``_attn_bwd_kernel_blo`` (O and dO merged),
   ``_attn_bwd_kernel`` (heads-first) and ``_attn_bwd_kernel_bloq`` (q rows
   in blocks, dk/dv summed over them in float32).
@@ -36,9 +40,11 @@ from instageo_tpu_torch.ops._build import LaunchCounter
 LAYOUTS = ("merged", "heads_first")
 IMPLS = ("kernel", "plain")
 SUPPORTED_HEAD_DIMS = tuple(range(16, 129, 16))
+SM90_HEAD_DIMS = (64, 80)  # the forward's TMA + wgmma route
 
-launches = LaunchCounter()      # forward kernel
-bwd_launches = LaunchCounter()  # backward kernel (one per backward call)
+launches = LaunchCounter()          # forward kernel, either route
+fwd_mma_launches = LaunchCounter()  # forward kernel, mma.sync route only
+bwd_launches = LaunchCounter()      # backward kernel (one per backward call)
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -123,16 +129,24 @@ def _check_view(name: str, x: torch.Tensor, device: torch.device, shape) -> None
         raise ValueError(f"{name} is on {x.device}, q on {device}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the attention kernels take bfloat16; {name} is {x.dtype}")
-    if x.dim() != 4 or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}; expected "
-                         f"(B, H, L, Dh) = {tuple(shape)}")
-    if x.stride(-1) != 1:
-        raise ValueError(f"{name}'s last dim must be contiguous")
-    if x.data_ptr() % 16 or any(
-            s % 8 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1):
+    _check_layout(name, tuple(x.shape), x.stride(), tuple(shape))
+    if x.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned with strides "
                          "that are multiples of 8 elements")
-    if max(s * (n - 1) for s, n in zip(x.stride(), x.shape)) >= 2**31:
+
+
+@functools.lru_cache(maxsize=256)
+def _check_layout(name: str, shape: tuple, stride: tuple, expected: tuple) -> None:
+    """The shape and stride checks of ``_check_view``, once per layout (a
+    layout that fails raises every time: ``lru_cache`` keeps no exception)."""
+    if len(shape) != 4 or shape != expected:
+        raise ValueError(f"{name} has shape {shape}; expected (B, H, L, Dh) = {expected}")
+    if stride[-1] != 1:
+        raise ValueError(f"{name}'s last dim must be contiguous")
+    if any(s % 8 for s, n in zip(stride[:3], shape[:3]) if n > 1):
+        raise ValueError(f"{name} must be 16-byte aligned with strides "
+                         "that are multiples of 8 elements")
+    if max(s * (n - 1) for s, n in zip(stride, shape)) >= 2**31:
         raise ValueError(f"{name} spans more than 2**31 elements")
 
 
@@ -152,17 +166,71 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Non
     _check_head_dim(q.shape[-1])
 
 
+def fwd_route(d: int) -> str:
+    """The forward kernel that head dim ``d`` takes on the card: ``"wgmma"``
+    (``csrc/flash_attn_fwd_sm90.cu``) for Dh in ``SM90_HEAD_DIMS``,
+    ``"mma_sync"`` (``csrc/flash_attn_fwd.cu``) for the other supported
+    head dims."""
+    _check_head_dim(d)
+    return "wgmma" if d in SM90_HEAD_DIMS else "mma_sync"
+
+
+def tma_boxes(d: int) -> tuple:
+    """(first column, columns, swizzle bytes) of each TMA box that loads one
+    128-row tile of a Dh-wide operand: columns 0-63 under a 128-byte swizzle
+    (wgmma's widest swizzle atom), and for Dh = 80 columns 64-79 under a
+    32-byte swizzle."""
+    if d not in SM90_HEAD_DIMS:
+        raise ValueError(f"the wgmma forward takes Dh in {SM90_HEAD_DIMS}; got {d}")
+    return ((0, 64, 128),) + (((64, 16, 32),) if d == 80 else ())
+
+
+def tma_description(x: torch.Tensor) -> tuple:
+    """The 14 fields of a (B, H, L, Dh) operand's tensor maps that
+    ``csrc/flash_attn_fwd_sm90.cu`` encodes: dims (Dh, L, H, B), innermost
+    first; the byte strides of L, H and B; the number of boxes; each box
+    of ``tma_boxes`` as (first column, columns, swizzle bytes), zeros for a
+    missing second box. The view is read where it lies: a dim of size 1,
+    whose stride is never used, gets Dh's bytes (TMA wants multiples of 16).
+    """
+    return _tma_fields(tuple(x.shape), x.stride(), x.element_size())
+
+
+@functools.lru_cache(maxsize=256)
+def _tma_fields(shape: tuple, stride: tuple, size: int) -> tuple:
+    b, h, l, d = shape
+    strides = tuple(s * size if n > 1 else d * size
+                    for s, n in zip(stride[2::-1], (l, h, b)))
+    boxes = tma_boxes(d)
+    fields = [f for box in boxes for f in box] + [0] * 3 * (2 - len(boxes))
+    return (d, l, h, b) + strides + (len(boxes),) + tuple(fields)
+
+
+@functools.lru_cache(maxsize=256)
+def _tma_array(q_fields: tuple, k_fields: tuple, v_fields: tuple):
+    """The C entry's ``desc`` argument: q's, k's and v's fields, one array
+    per combination of layouts (the data pointers are passed apart)."""
+    return (ctypes.c_longlong * 42)(*q_fields, *k_fields, *v_fields)
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _fwd_entry(route: str):
+    """(C entry, error-string function) of a forward route, bound once."""
     from instageo_tpu_torch.ops import _build
 
-    lib = _build.load("flash_attn_fwd")
-    lib.flash_attn_fwd_bf16.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p])
-    lib.flash_attn_fwd_bf16.restype = ctypes.c_int
-    lib.flash_attn_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attn_error_string.restype = ctypes.c_char_p
-    return lib
+    if route == "wgmma":
+        lib = _build.load("flash_attn_fwd_sm90")
+        fn, err = lib.flash_attn_fwd_sm90_bf16, lib.flash_attn_sm90_error_string
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    else:
+        lib = _build.load("flash_attn_fwd")
+        fn, err = lib.flash_attn_fwd_bf16, lib.flash_attn_error_string
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,7 +246,10 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _flash_attention_fwd_cuda(q, k, v, layout):
+def _flash_attention_fwd_cuda(q, k, v, layout, route):
+    """Launch the forward on ``route`` ("wgmma" or "mma_sync"). The wrapper
+    passes ``fwd_route(Dh)``; a measurement of the mma.sync design at a
+    wgmma head dim passes "mma_sync"."""
     _check_cuda_inputs(q, k, v)
     b, h, l, d = q.shape
     if layout == "merged":
@@ -188,18 +259,25 @@ def _flash_attention_fwd_cuda(q, k, v, layout):
         out = torch.empty((b, h, l, d), dtype=q.dtype, device=q.device)
         o_strides = (h * l * d, l * d, d)
     lse = torch.empty((b, h, l, 1), dtype=torch.float32, device=q.device)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, l, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o_strides,
-            stream)
+    fn, error_string = _fwd_entry(route)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    if route == "wgmma":
+        desc = _tma_array(tma_description(q), tma_description(k), tma_description(v))
+        args = (*ptrs, b, h, l, d, ctypes.addressof(desc), *o_strides)
+    else:
+        args = (*ptrs, b, h, l, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *o_strides)
+    if q.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        msg = lib.flash_attn_error_string(err).decode()
-        raise RuntimeError(f"flash_attn_fwd launch failed: {msg} ({err})")
+        msg = error_string(err).decode()
+        raise RuntimeError(f"flash_attn_fwd ({route}) launch failed: {msg} ({err})")
     launches.add()
+    if route == "mma_sync":
+        fwd_mma_launches.add()
     return out, lse
 
 
@@ -208,14 +286,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q/k/v (B, H, L, Dh) -> (O, lse), O in ``layout`` (see the plain
     version). CPU tensors take the plain version; CUDA tensors launch the
-    Hopper kernel (bf16, Dh a multiple of 16 up to 128) or raise."""
+    Hopper kernel of ``fwd_route(Dh)`` (bf16, Dh a multiple of 16 up to
+    128) or raise."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r}; expected one of {LAYOUTS}")
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd runs on cuda or cpu, not {q.device}")
-    return _flash_attention_fwd_cuda(q, k, v, layout)
+    return _flash_attention_fwd_cuda(q, k, v, layout, fwd_route(q.shape[-1]))
 
 
 def _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout):

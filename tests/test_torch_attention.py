@@ -67,6 +67,52 @@ def test_cpu_wrapper_takes_plain_path_without_launching():
         tattn.flash_attention_fwd(q, k, v, "bhld")
 
 
+@pytest.mark.parametrize("d", tattn.SUPPORTED_HEAD_DIMS)
+def test_forward_route_by_head_dim(d):
+    """Every head dim of the model registry (64, 80) takes the wgmma
+    kernel; the other supported ones the mma.sync kernel."""
+    assert tattn.fwd_route(d) == ("wgmma" if d in (64, 80) else "mma_sync")
+
+
+def test_forward_route_refuses_unsupported_head_dims():
+    for d in (8, 72, 144):
+        with pytest.raises(ValueError):
+            tattn.fwd_route(d)
+    with pytest.raises(ValueError):
+        tattn.tma_boxes(128)
+
+
+# The boxes' fields of a description: how many, then (first column,
+# columns, swizzle bytes) of each, room for two.
+TMA_BOXES = {64: (1, 0, 64, 128, 0, 0, 0), 80: (2, 0, 64, 128, 64, 16, 32)}
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_tma_description_of_contiguous_operand(d):
+    b, h, l = 3, 5, 589
+    x = torch.zeros((b, h, l, d), dtype=torch.bfloat16)
+    row = 2 * d
+    assert tattn.tma_description(x) == (d, l, h, b, row, l * row, h * l * row) + TMA_BOXES[d]
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_tma_description_of_qkv_views(d):
+    """The model's q/k/v are views of one (B, L, 3, H, Dh) buffer: row
+    stride 3·H·Dh, head stride Dh, batch stride L·3·H·Dh elements, and the
+    base of k and v Dh·H elements past the last."""
+    b, l, h = 2, 197, 12
+    qkv = torch.zeros((b, l, 3, h, d), dtype=torch.bfloat16)
+    views = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    descs = [tattn.tma_description(x) for x in views]
+    assert all(desc == descs[0] for desc in descs)
+    assert descs[0][:7] == (d, l, h, b, 2 * 3 * h * d, 2 * d, 2 * l * 3 * h * d)
+    assert descs[0][7:] == TMA_BOXES[d]
+    assert [x.data_ptr() - qkv.data_ptr() for x in views] == [0, 2 * h * d, 4 * h * d]
+    # Every stride TMA is given is a multiple of 16 bytes, also for dims of size 1.
+    one = tattn.tma_description(qkv[:1, :1, 0].transpose(1, 2)[:, :1])
+    assert one[1:4] == (1, 1, 1) and all(s % 16 == 0 for s in one[4:7])
+
+
 def test_plain_version_accepts_strided_qkv_views():
     """The model hands the kernel views of its fused qkv output."""
     rng = np.random.default_rng(9)

@@ -61,6 +61,85 @@ def test_kernel_reads_strided_qkv_views(cuda):
     torch.testing.assert_close(o, o_copy, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("layout", tattn.LAYOUTS)
+@pytest.mark.parametrize("l", [1, 77, 127, 128, 129, 197, 589])
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_wgmma_route_matches_plain(cuda, layout, l, d):
+    """Lengths on both sides of the 128-row tiles, L = 1 included (O = v,
+    lse = scale·q·k)."""
+    q, k, v = _qkv((2, 3, l, d), cuda, seed=l)
+    o, lse = tattn.flash_attention_fwd(q, k, v, layout)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tattn.flash_attention_fwd_plain(q, k, v, layout)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_wgmma_route_on_large_scores(cuda, d):
+    """Inputs ×8 give scores of order 64·√Dh: the exp2 fold of the scale
+    and the running max still match the plain version."""
+    q, k, v = (8 * x for x in _qkv((2, 2, 197, d), cuda, seed=3))
+    o, lse = tattn.flash_attention_fwd(q, k, v, "merged")
+    o_ref, lse_ref = tattn.flash_attention_fwd_plain(q, k, v, "merged")
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("layout", tattn.LAYOUTS)
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_wgmma_route_reads_qkv_views(cuda, layout, d):
+    """q/k/v as the model passes them, views of one (B, L, 3, H, Dh)
+    buffer, give the same bits as contiguous copies."""
+    b, l, h = 2, 197, 3
+    qkv = torch.randn((b, l, 3, h, d), device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    o, lse = tattn.flash_attention_fwd(q, k, v, layout)
+    o_copy, lse_copy = tattn.flash_attention_fwd(*(t.contiguous() for t in (q, k, v)), layout)
+    assert torch.equal(o, o_copy) and torch.equal(lse, lse_copy)
+
+
+@pytest.mark.parametrize("d,route", [(64, "wgmma"), (80, "wgmma"), (128, "mma_sync")])
+def test_forward_route_counters(cuda, d, route):
+    assert tattn.fwd_route(d) == route
+    q, k, v = _qkv((1, 2, 33, d), cuda)
+    fwd0, mma0 = tattn.launches.count, tattn.fwd_mma_launches.count
+    tattn.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert tattn.launches.count - fwd0 == 1
+    assert tattn.fwd_mma_launches.count - mma0 == (route == "mma_sync")
+
+
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_mma_sync_route_still_matches_plain_at_wgmma_head_dims(cuda, d):
+    """The mma.sync design, timed beside the wgmma one at Dh 64 and 80."""
+    q, k, v = _qkv((2, 3, 197, d), cuda)
+    o, lse = tattn._flash_attention_fwd_cuda(q, k, v, "merged", "mma_sync")
+    o_ref, lse_ref = tattn.flash_attention_fwd_plain(q, k, v, "merged")
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_autograd_through_wgmma_forward(cuda, d):
+    """The wgmma forward's O and lse feed the unchanged backward kernel."""
+    b, l, h = 2, 197, 3
+    qkv = torch.randn((b, l, 3, h, d), device=cuda).to(torch.bfloat16).requires_grad_()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    mma0 = tattn.fwd_mma_launches.count
+    out = tattn.flash_attention_blo(q, k, v)
+    do = torch.randn(out.shape, device=cuda).to(torch.bfloat16)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert tattn.fwd_mma_launches.count == mma0
+    leaf = qkv.detach().requires_grad_()
+    out_p = tattn.flash_attention_blo(*(leaf[:, :, i].transpose(1, 2) for i in range(3)),
+                                      impl="plain")
+    out_p.backward(do)
+    torch.testing.assert_close(out.float(), out_p.float(), atol=3e-2, rtol=3e-2)
+    assert _rel_err(qkv.grad, leaf.grad) <= BWD_REL_TOL
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv((1, 2, 33, 64), cuda)
     with pytest.raises(TypeError):
