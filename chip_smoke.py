@@ -11,9 +11,11 @@ Phases, one line each (any failure raises and exits non-zero):
    dropout) against its plain PyTorch version on the shapes the serving and
    training paths give it, with its time, the plain version's, one PyTorch
    library call's (a yardstick only) and the card's bound for the same work;
-   the forward's route by head dim (wgmma for Dh 64 and 80), its device
-   time per launch from ``torch.profiler``, and the mma.sync design's times
-   at the same shapes in turns;
+   each kernel's device time per call from ``torch.profiler`` beside its
+   earlier design's at the same shapes, in turns: the attention routes by
+   head dim (wgmma for Dh 64 and 80, beside the mma.sync kernels); the
+   backward's dq run to run; the dropout's mask equal to the plain Philox
+   stream bit for bit (and the earlier 4-element design's);
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
    8 threads through the dynamic batcher and one batch run over synthetic
@@ -22,7 +24,8 @@ Phases, one line each (any failure raises and exits non-zero):
    logits on one batch; chips/s at batch 16 and 64;
 5. train: the crop config (float32 parameters, bf16 compute, AdamW lr 1e-4,
    wd 0.01, the config's class weights, ignore_index -1) through
-   ``Trainer``: 10 steps on one fixed batch of 8 with the launches per step,
+   ``Trainer``: 10 steps on one fixed batch of 8 with the launches per step
+   (none on either mma.sync route),
    one step with the kernels against one with the plain versions, a train
    and an eval epoch (partial last batch), and chips/s at batch 8 and 32;
 6. one JSON line ``{"kernels": [...]}``;
@@ -83,6 +86,9 @@ KERNEL_SHAPES = [
 ]
 # The forward kernels' symbols, by route, as the profiler names them.
 FWD_KERNEL_SYMBOL = {"wgmma": "flash_attn_fwd_sm90_kernel", "mma_sync": "flash_attn_fwd_kernel"}
+# The dropout kernels' symbols: the wrapper's (8 elements per thread) and
+# the earlier design's (4).
+DROPOUT_SYMBOL = ("fused_dropout_kernel", "fused_dropout_x4_kernel")
 # (B, H, L, Dh, entry) of the backward: the training step at batch 8 and 32,
 # T=1, the 600M shapes heads-first (L=1025 trains on the card), and the
 # q-blocked entry.
@@ -104,6 +110,11 @@ LSE_TOL = 1e-3  # float32 row statistics, other summation order
 # points but sum in other orders, so single elements can differ by a bf16
 # rounding; the whole gradient must agree to 1e-2 of its norm.
 BWD_REL_TOL = 1e-2
+# The wgmma backward adds dQ's f32 partial sums in an order that changes from
+# run to run: a dq element stays within one bf16 step of itself, or, where
+# the partial sums cancel, within a few float32 roundings of them, far below
+# this share of its row's largest |dq|.
+DQ_RUN_TO_RUN_ROW = 2.0 ** -16
 KEEP_SIGMAS = 5.0  # dropout keep fraction within 5 binomial sigma of 1 - p
 # One bf16 training step with the kernels vs with the plain versions
 # (dropout off): other summation orders through 12 bf16 blocks. Gradients:
@@ -265,18 +276,8 @@ def kernel_phase(device, shapes, iters: int = 20) -> list:
                   and (lse_prev - lse_ref).abs().max().item() <= LSE_TOL,
                   f"the mma.sync design is off the plain version at {what}")
             del o_prev, lse_prev
-            turns = {"new": [], "prev": []}
-            for name in ("new", "prev", "prev", "new"):
-                fn = new if name == "new" else prev
-                symbol = FWD_KERNEL_SYMBOL["wgmma" if name == "new" else "mma_sync"]
-                turns[name].append((time_ms(fn, device, iters),
-                                    device_ms(fn, iters, match=symbol)))
-            mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
-            row.update(ms=mean([t[0] for t in turns["new"]]),
-                       device_ms=mean([t[1] for t in turns["new"]]),
-                       prev_ms=mean([t[0] for t in turns["prev"]]),
-                       prev_device_ms=mean([t[1] for t in turns["prev"]]),
-                       turns=turns)
+            row.update(_in_turns(new, prev, device, iters,
+                                 (FWD_KERNEL_SYMBOL["wgmma"], FWD_KERNEL_SYMBOL["mma_sync"])))
         else:
             row.update(ms=time_ms(new, device, iters),
                        device_ms=(device_ms(new, iters, match=FWD_KERNEL_SYMBOL[route])
@@ -311,32 +312,89 @@ def kernel_phase(device, shapes, iters: int = 20) -> list:
     return results
 
 
+def _run_to_run(a, b) -> dict:
+    """How far two runs' bf16 dq lie apart: the largest |Δ| in bf16 steps of
+    the element (2⁻⁷ of its magnitude), how many elements differ by more,
+    and the largest |Δ| over its row's largest |dq|."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    step = a.abs().maximum(b.abs()) * 2.0 ** -7
+    row = a.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return dict(max_bf16_steps=(diff / step.clamp_min(1e-30)).max().item(),
+                over_one_step=int((diff > step).sum()), max_of_row_max=(diff / row).max().item(),
+                within=bool((diff <= step.maximum(row * DQ_RUN_TO_RUN_ROW)).all()))
+
+
+def _in_turns(new, prev, device, iters: int, symbols=(None, None)) -> dict:
+    """A kernel (``new``) and its earlier design (``prev``) timed in turns
+    (new, prev, prev, new): wrapper ms by CUDA events and device ms per call
+    by ``torch.profiler`` (of the kernel named by ``symbols``' entry, else
+    of every kernel a call launches), each turn and the means."""
+    turns = {"new": [], "prev": []}
+    for name in ("new", "prev", "prev", "new"):
+        fn = new if name == "new" else prev
+        symbol = symbols[0] if name == "new" else symbols[1]
+        turns[name].append((time_ms(fn, device, iters), device_ms(fn, iters, match=symbol)))
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return dict(ms=mean([t[0] for t in turns["new"]]),
+                device_ms=mean([t[1] for t in turns["new"]]),
+                prev_ms=mean([t[0] for t in turns["prev"]]),
+                prev_device_ms=mean([t[1] for t in turns["prev"]]), turns=turns)
+
+
 def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
-    """Hold the backward kernel against its plain version at ``shapes``, on
-    the forward kernel's O and lse and a random dO."""
+    """Hold the backward kernels against their plain version at ``shapes``,
+    on the forward kernel's O and lse and a random dO. Per shape: the route
+    ``bwd_route`` gives; at a wgmma head dim dq run to run within one bf16
+    step and dk, dv equal, and the mma.sync design ("prev") checked too and
+    timed in turns with the wgmma kernel (new, prev, prev, new), by wrapper
+    ms and by device ms per call (all three launches summed); SDPA's
+    backward on its own forward, by wrapper ms and device ms."""
     import torch
     import torch.nn.functional as F
 
     from instageo_tpu_torch.ops import attention as tattn
 
+    on_card = device.type == "cuda"
     results = []
     for i, (b, h, l, d, entry) in enumerate(shapes):
         layout = "heads_first" if entry == "heads_first" else "merged"
+        what = (b, h, l, d, entry)
+        route = tattn.bwd_route(d)
         g = torch.Generator(device=device).manual_seed(100 + i)
         q, k, v = (torch.randn((b, h, l, d), generator=g, device=device)
                    .to(torch.bfloat16) for _ in range(3))
         o, lse = tattn.flash_attention_fwd(q, k, v, layout)
         do = torch.randn(o.shape, generator=g, device=device).to(torch.bfloat16)
-        launched = tattn.bwd_launches.count
+        launched, mma0 = tattn.bwd_launches.count, tattn.bwd_mma_launches.count
         grads = tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)
         launches = tattn.bwd_launches.count - launched
+        mma_launches = tattn.bwd_mma_launches.count - mma0
         refs = tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, layout)
         rel = {f"d{n}": _rel_err(x, r) for n, x, r in zip("qkv", grads, refs)}
         err = max((x.float() - r.float()).abs().max().item() for x, r in zip(grads, refs))
         check(all(bool(torch.isfinite(x).all()) for x in grads),
-              f"non-finite gradients at {(b, h, l, d, entry)}")
+              f"non-finite gradients at {what}")
         check(max(rel.values()) <= BWD_REL_TOL,
-              f"backward off the plain version at {(b, h, l, d, entry)}: {rel}")
+              f"backward off the plain version at {what}: {rel}")
+        if on_card:
+            check(launches == 1 and mma_launches == (route == "mma_sync"),
+                  f"{launches} backward launches, {mma_launches} on mma.sync, at {what} ({route})")
+        row = dict(shape=[b, h, l, d], entry=entry, route=route, rel_err=rel, max_abs_err=err,
+                   launches=launches)
+        if route == "wgmma" and on_card:
+            again = tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)
+            row["dq_run_to_run"] = _run_to_run(grads[0], again[0])
+            check(row["dq_run_to_run"]["within"]
+                  and torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2]),
+                  f"run to run: dq {row['dq_run_to_run']}, or dk/dv differ, at {what}")
+            prev = tattn._flash_attention_bwd_cuda(q, k, v, o, do, lse, layout, "mma_sync")
+            row["prev_rel_err"] = {f"d{n}": _rel_err(x, r) for n, x, r in zip("qkv", prev, refs)}
+            row["prev_max_abs_err"] = max((x.float() - r.float()).abs().max().item()
+                                          for x, r in zip(prev, refs))
+            check(max(row["prev_rel_err"].values()) <= BWD_REL_TOL,
+                  f"the mma.sync backward is off the plain version at {what}")
+            del again, prev
         del grads, refs
         if entry == "bloq":
             # The q-blocked entry end to end: autograd through both kernels
@@ -350,36 +408,45 @@ def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
             check(max(rel.values()) <= BWD_REL_TOL,
                   f"flash_attention_bloq gradients off the plain entry: {rel}")
             del leaves, plain
-        ms = time_ms(lambda: tattn.flash_attention_bwd(q, k, v, o, do, lse, layout),
-                     device, iters)
-        plain_ms = time_ms(lambda: tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, layout),
-                           device, max(2, iters // 4))
+        new = lambda: tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)  # noqa: E731
+        if route == "wgmma" and on_card:
+            row.update(_in_turns(new, lambda: tattn._flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, layout, "mma_sync"), device, iters))
+        else:
+            row.update(ms=time_ms(new, device, iters),
+                       device_ms=device_ms(new, iters) if on_card else None)
+        row["plain_ms"] = time_ms(
+            lambda: tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, layout), device,
+            max(2, iters // 4))
         # Yardstick: SDPA's backward alone, on one SDPA forward.
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qs, ks, vs)
         do_hf = (do.view(b, l, h, d).permute(0, 2, 1, 3).contiguous()
                  if layout == "merged" else do)
-        library_ms = time_ms(lambda: out.backward(do_hf, retain_graph=True), device, iters)
-        bound_ms, bound_by = attention_bwd_bound(b, h, l, d)
-        row = dict(shape=[b, h, l, d], entry=entry, rel_err=rel, max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, launches=launches)
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qs, ks, vs), do_hf, retain_graph=True)  # noqa: E731
+        row["library_ms"] = time_ms(sdpa_bwd, device, iters)
+        row["library_device_ms"] = device_ms(sdpa_bwd, iters) if on_card else None
+        row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, l, d)
         print("[kernels] flash_attn_bwd " + json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, o, lse, do, qs, ks, vs, out, do_hf
-        if device.type == "cuda":
+        if on_card:
             torch.cuda.empty_cache()
     return results
 
 
 def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
-    """Hold the dropout kernel to ``dropout_apply`` on its own mask, bit for
-    bit, at ``shapes``; check its keep rate, streams and backward."""
+    """Hold the dropout kernel's mask to the plain Philox stream and its
+    output to ``dropout_apply`` on that mask, bit for bit, at ``shapes``;
+    check its keep rate, streams and backward. Times the kernel and the
+    earlier design ("prev", 4 elements per thread and step) in turns (new,
+    prev, prev, new), by wrapper ms and device ms, beside ``F.dropout``."""
     import torch
     import torch.nn.functional as F
 
     from instageo_tpu_torch.ops import dropout as tdrop
 
+    on_card = device.type == "cuda"
     results = []
     for i, shape in enumerate(shapes):
         g = torch.Generator(device=device).manual_seed(200 + i)
@@ -389,8 +456,19 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         out, mask = tdrop.fused_dropout_fwd(x, p, seed=i)
         launches = tdrop.launches.count - launched
         check(out.dtype == x.dtype and mask.dtype == torch.bool, "dropout output types")
+        _, plain_mask = tdrop.fused_dropout_seeded_plain(x, p, seed=i)
+        check(torch.equal(mask, plain_mask),
+              f"dropout mask is not the plain Philox stream at {shape}: "
+              f"{(mask != plain_mask).sum().item()} of {n} differ")
         check(torch.equal(out, tdrop.dropout_apply(x, mask, p)),
               f"dropout output is not x·1/(1-p) on its mask at {shape}")
+        del plain_mask
+        if on_card:
+            check(launches == 1, f"{launches} dropout launches at {shape}")
+            prev_out, prev_mask = tdrop._fused_dropout_cuda(x, p, i, "x4")
+            check(torch.equal(prev_mask, mask) and torch.equal(prev_out, out),
+                  f"the earlier dropout design gives other bits at {shape}")
+            del prev_out, prev_mask
         keep = {}
         for rate in (0.1, 0.5):
             _, m = tdrop.fused_dropout_fwd(x, rate, seed=i)
@@ -410,19 +488,24 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         check(torch.equal(xr.grad, tdrop.dropout_apply(grad, mask, p)),
               "dropout backward is where(mask, g/(1-p), 0)")
         del xr, grad, out0, mask0, same, other
-        ms = time_ms(lambda: tdrop.fused_dropout_fwd(x, p, seed=i), device, iters)
-        gen = torch.Generator(device=device).manual_seed(i)
-        plain_ms = time_ms(lambda: tdrop.fused_dropout_plain(x, p, gen), device,
-                           max(2, iters // 4))
-        library_ms = time_ms(lambda: F.dropout(x, p, training=True), device, iters)
-        bound_ms, bound_by = dropout_bound(n)
+        new = lambda: tdrop.fused_dropout_fwd(x, p, seed=i)  # noqa: E731
         row = dict(shape=list(shape), keep={str(k): v for k, v in keep.items()},
-                   max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, launches=launches)
+                   max_abs_err=0.0, launches=launches)
+        if on_card:
+            row.update(_in_turns(new, lambda: tdrop._fused_dropout_cuda(x, p, i, "x4"), device,
+                                 iters, DROPOUT_SYMBOL))
+        else:
+            row.update(ms=time_ms(new, device, iters), device_ms=None)
+        row["plain_ms"] = time_ms(lambda: tdrop.fused_dropout_seeded_plain(x, p, i), device,
+                                  max(2, iters // 4))
+        library = lambda: F.dropout(x, p, training=True)  # noqa: E731
+        row["library_ms"] = time_ms(library, device, iters)
+        row["library_device_ms"] = device_ms(library, iters) if on_card else None
+        row["bound_ms"], row["bound_by"] = dropout_bound(n)
         print("[kernels] fused_dropout " + json.dumps(row), flush=True)
         results.append(row)
         del x, out, mask
-    if device.type == "cuda":
+    if on_card:
         x = torch.zeros((3, 5), device=device)
         for rate, dtype, exc in ((1.0, torch.bfloat16, ValueError),
                                  (0.1, torch.float16, TypeError)):
@@ -441,7 +524,8 @@ def _counters() -> dict:
     from instageo_tpu_torch.ops import dropout as tdrop
 
     return {"flash_attn_fwd": tattn.launches, "flash_attn_fwd_mma": tattn.fwd_mma_launches,
-            "flash_attn_bwd": tattn.bwd_launches, "fused_dropout": tdrop.launches}
+            "flash_attn_bwd": tattn.bwd_launches, "flash_attn_bwd_mma": tattn.bwd_mma_launches,
+            "fused_dropout": tdrop.launches}
 
 
 def reset_counts() -> None:
@@ -647,7 +731,7 @@ def train_phase(device, model_kw: dict, cfg: dict, fixed_steps: int = 10,
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     per_step = {name: n / fixed_steps for name, n in counts.items()}
     expected = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
-                "fused_dropout": 5}
+                "flash_attn_bwd_mma": 0, "fused_dropout": 5}
     if device.type == "cuda":
         check(per_step == expected, f"launches per step {per_step}, expected {expected}")
     print(f"[train] {fixed_steps} steps at batch {batch} on one batch: losses "
@@ -780,38 +864,48 @@ def main() -> int:
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
     csrc = "instageo_tpu_torch/ops/csrc/"
-    # The forward's two routes: wgmma (every launch of the main paths) and
-    # mma.sync (timed beside it at the same shapes, launched by neither path).
+    # Each redesigned kernel beside its earlier design ("prev"), timed in
+    # turns at the same shapes; the earlier design of the attention kernels
+    # stays the route of the other head dims and is launched by neither path.
+    prev = lambda rows: [dict(r, ms=r["prev_ms"], device_ms=r["prev_device_ms"],  # noqa: E731
+                              max_abs_err=r["prev_max_abs_err"]) for r in rows]
     fwd = at(rows, (8, 12, 589, 64))
-    mma = {"serve": served["other_launches"]["flash_attn_fwd_mma"],
-           "train": trained["launches"]["flash_attn_fwd_mma"]}
+    fwd_mma = {"serve": served["other_launches"]["flash_attn_fwd_mma"],
+               "train": trained["launches"]["flash_attn_fwd_mma"]}
     wgmma_rows = [r for r in rows if r["route"] == "wgmma"]
-    prev_rows = [dict(r, ms=r["prev_ms"], device_ms=r["prev_device_ms"],
-                      max_abs_err=r["prev_max_abs_err"]) for r in wgmma_rows]
+    bwd = at(bwd_rows, (8, 12, 589, 64))
+    bwd_mma = {"serve": served["other_launches"]["flash_attn_bwd_mma"],
+               "train": trained["launches"]["flash_attn_bwd_mma"]}
+    bwd_wgmma_rows = [r for r in bwd_rows if r["route"] == "wgmma"]
+    drop = at(drop_rows, DROPOUT_SHAPES[-1])
+    drop_launches = {"serve": served["other_launches"]["fused_dropout"],
+                     "train": trained["launches"]["fused_dropout"]}
+    bwd_replaces = ("instageo_tpu/ops/attention.py:260",
+                    ["instageo_tpu/ops/attention.py:187", "instageo_tpu/ops/attention.py:390"])
     kernels = [
         _kernel_row("flash_attn_fwd_sm90", csrc + "flash_attn_fwd_sm90.cu",
                     "instageo_tpu/ops/attention.py:225", "instageo_tpu/ops/attention.py:162",
-                    fwd, {"serve": served["launches"] - mma["serve"],
-                          "train": trained["launches"]["flash_attn_fwd"] - mma["train"]},
+                    fwd, {"serve": served["launches"] - fwd_mma["serve"],
+                          "train": trained["launches"]["flash_attn_fwd"] - fwd_mma["train"]},
                     wgmma_rows),
         _kernel_row("flash_attn_fwd", csrc + "flash_attn_fwd.cu",
                     "instageo_tpu/ops/attention.py:225", "instageo_tpu/ops/attention.py:162",
-                    prev_rows[wgmma_rows.index(fwd)], mma, prev_rows),
-        _kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu",
-                    "instageo_tpu/ops/attention.py:260",
-                    ["instageo_tpu/ops/attention.py:187", "instageo_tpu/ops/attention.py:390"],
-                    at(bwd_rows, (8, 12, 589, 64)),
-                    {"serve": served["other_launches"]["flash_attn_bwd"],
-                     "train": trained["launches"]["flash_attn_bwd"]}, bwd_rows),
+                    prev(wgmma_rows)[wgmma_rows.index(fwd)], fwd_mma, prev(wgmma_rows)),
+        _kernel_row("flash_attn_bwd_sm90", csrc + "flash_attn_bwd_sm90.cu", *bwd_replaces,
+                    bwd, {"serve": served["other_launches"]["flash_attn_bwd"] - bwd_mma["serve"],
+                          "train": trained["launches"]["flash_attn_bwd"] - bwd_mma["train"]},
+                    bwd_wgmma_rows),
+        _kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu", *bwd_replaces,
+                    prev(bwd_wgmma_rows)[bwd_wgmma_rows.index(bwd)], bwd_mma,
+                    prev(bwd_wgmma_rows)),
         _kernel_row("fused_dropout", csrc + "dropout.cu", "instageo_tpu/ops/dropout.py:33",
-                    None, at(drop_rows, DROPOUT_SHAPES[-1]),
-                    {"serve": served["other_launches"]["fused_dropout"],
-                     "train": trained["launches"]["fused_dropout"]}, drop_rows),
+                    None, drop, drop_launches, drop_rows),
     ]
-    kernels[0]["by_shape"] = [
-        {key: r[key] for key in ("shape", "inputs", "device_ms", "prev_device_ms",
-                                 "library_device_ms", "ms", "prev_ms", "library_ms")}
-        for r in wgmma_rows]
+    by_shape = ("shape", "device_ms", "prev_device_ms", "library_device_ms", "ms", "prev_ms",
+                "library_ms", "bound_ms")
+    for k, rs in ((kernels[0], wgmma_rows), (kernels[2], bwd_wgmma_rows), (kernels[4], drop_rows)):
+        k["by_shape"] = [{key: r.get(key) for key in by_shape + ("inputs", "entry")
+                          if key in r} for r in rs]
     for k in kernels:
         k["card"] = smi
     print(json.dumps({"kernels": kernels}), flush=True)

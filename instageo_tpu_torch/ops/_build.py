@@ -43,6 +43,22 @@ class LaunchCounter:
             self.count = 0
 
 
+def call_on_device(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C entry's launch on ``device``'s current
+    stream (the raw ``cudaStream_t`` as an int), entering the device's
+    context only when it is not the current one. torch's C-level queries
+    skip the ``torch.cuda.Stream`` object that ``torch.cuda.current_stream``
+    builds at every call."""
+    import torch
+
+    current = torch._C._cuda_getDevice()
+    index = device.index if device.index is not None else current
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output per source name (ptxas register and shared-memory counts).

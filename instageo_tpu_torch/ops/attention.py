@@ -9,9 +9,13 @@ five Pallas kernels:
   producer warpgroup and two consumer warpgroups) for Dh in
   ``SM90_HEAD_DIMS``, which are every head dim of the model registry;
   ``csrc/flash_attn_fwd.cu`` (mma.sync) for the other supported ones;
-- ``csrc/flash_attn_bwd.cu``: ``_attn_bwd_kernel_blo`` (O and dO merged),
+- the backward, ``_attn_bwd_kernel_blo`` (O and dO merged),
   ``_attn_bwd_kernel`` (heads-first) and ``_attn_bwd_kernel_bloq`` (q rows
-  in blocks, dk/dv summed over them in float32).
+  in blocks, dk/dv summed over them in float32), takes one of two routes by
+  head dim (``bwd_route``): ``csrc/flash_attn_bwd_sm90.cu`` (TMA, wgmma,
+  five tile products per tile pair, dQ summed by bulk reduce-adds) for Dh
+  in ``SM90_HEAD_DIMS``; ``csrc/flash_attn_bwd.cu`` (mma.sync, a dK/dV pass
+  and a dQ pass) for the other supported ones.
 
 A layout only changes the strides a kernel is given. q/k/v are (B, H, L, Dh)
 with any strides whose last one is 1, so the model passes views of its fused
@@ -35,16 +39,18 @@ from typing import Tuple
 
 import torch
 
-from instageo_tpu_torch.ops._build import LaunchCounter
+from instageo_tpu_torch.ops._build import LaunchCounter, call_on_device
 
 LAYOUTS = ("merged", "heads_first")
 IMPLS = ("kernel", "plain")
 SUPPORTED_HEAD_DIMS = tuple(range(16, 129, 16))
-SM90_HEAD_DIMS = (64, 80)  # the forward's TMA + wgmma route
+SM90_HEAD_DIMS = (64, 80)  # the TMA + wgmma routes, forward and backward
+BWD_TILE_Q = 64            # q rows per tile of the wgmma backward
 
 launches = LaunchCounter()          # forward kernel, either route
 fwd_mma_launches = LaunchCounter()  # forward kernel, mma.sync route only
-bwd_launches = LaunchCounter()      # backward kernel (one per backward call)
+bwd_launches = LaunchCounter()      # backward kernels, either route (one per call)
+bwd_mma_launches = LaunchCounter()  # backward kernels, mma.sync route only
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -175,6 +181,44 @@ def fwd_route(d: int) -> str:
     return "wgmma" if d in SM90_HEAD_DIMS else "mma_sync"
 
 
+def bwd_route(d: int) -> str:
+    """The backward kernels that head dim ``d`` takes on the card: the
+    forward's route, ``"wgmma"`` (``csrc/flash_attn_bwd_sm90.cu``) or
+    ``"mma_sync"`` (``csrc/flash_attn_bwd.cu``)."""
+    return fwd_route(d)
+
+
+def bwd_scratch_shapes(b: int, h: int, l: int, d: int) -> tuple:
+    """The float32 scratch of one wgmma backward call: (lse·log2 e, δ) per
+    q row, padded to whole 64-row tiles, (2, B, H, Lp); and the dQ
+    accumulator, one block of 64·Dh values per (b, h, q tile) in the
+    consumers' fragment order (``dq_accumulator_index``)."""
+    tiles = -(-l // BWD_TILE_Q)
+    return (2, b, h, tiles * BWD_TILE_Q), (b, h, tiles, BWD_TILE_Q * d)
+
+
+def dq_accumulator_index(d: int) -> torch.Tensor:
+    """Where each value of one 64·Dh block of the wgmma backward's dQ
+    accumulator belongs in the (64, Dh) tile, as row·Dh + column.
+
+    Both consumer warpgroups add a whole 64 × Dh tile in wgmma's accumulator
+    layout; each of their four warps adds one contiguous run of 32 · Dh/2
+    values, 16 bytes per thread at a time: position (j·32 + lane)·4 + e of
+    warp w's run is register 4j + e of that lane, row 16·w + lane/4 (+8 for
+    e ≥ 2), column 8j + 2·(lane % 4) + e % 2. The post-pass of
+    ``csrc/flash_attn_bwd_sm90.cu`` inverts it.
+    """
+    if d not in SM90_HEAD_DIMS:
+        raise ValueError(f"the wgmma backward takes Dh in {SM90_HEAD_DIMS}; got {d}")
+    f = torch.arange(BWD_TILE_Q * d)
+    run = 32 * (d // 2)
+    warp, o2 = f // run, f % run
+    j, lane, e = o2 // 128, (o2 // 4) % 32, o2 % 4
+    row = 16 * warp + lane // 4 + 8 * (e // 2)
+    col = 8 * j + 2 * (lane % 4) + e % 2
+    return row * d + col
+
+
 def tma_boxes(d: int) -> tuple:
     """(first column, columns, swizzle bytes) of each TMA box that loads one
     128-row tile of a Dh-wide operand: columns 0-63 under a 128-byte swizzle
@@ -207,10 +251,17 @@ def _tma_fields(shape: tuple, stride: tuple, size: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=256)
-def _tma_array(q_fields: tuple, k_fields: tuple, v_fields: tuple):
-    """The C entry's ``desc`` argument: q's, k's and v's fields, one array
-    per combination of layouts (the data pointers are passed apart)."""
-    return (ctypes.c_longlong * 42)(*q_fields, *k_fields, *v_fields)
+def _tma_array(*fields: tuple):
+    """A C entry's ``desc`` argument: the operands' fields in turn, one
+    array per combination of layouts (the data pointers are passed apart)."""
+    flat = [f for fs in fields for f in fs]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+@functools.lru_cache(maxsize=256)
+def _int64_array(values: tuple):
+    """A C entry's int64 array argument (strides), one per distinct tuple."""
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,16 +285,22 @@ def _fwd_entry(route: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_library() -> ctypes.CDLL:
+def _bwd_entry(route: str):
+    """(C entry, error-string function) of a backward route, bound once."""
     from instageo_tpu_torch.ops import _build
 
-    lib = _build.load("flash_attn_bwd")
-    lib.flash_attn_bwd_bf16.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-    lib.flash_attn_bwd_bf16.restype = ctypes.c_int
-    lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    if route == "wgmma":
+        lib = _build.load("flash_attn_bwd_sm90")
+        fn, err = lib.flash_attn_bwd_sm90_bf16, lib.flash_attn_bwd_sm90_error_string
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+    else:
+        lib = _build.load("flash_attn_bwd")
+        fn, err = lib.flash_attn_bwd_bf16, lib.flash_attn_bwd_error_string
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
 def _flash_attention_fwd_cuda(q, k, v, layout, route):
@@ -267,11 +324,7 @@ def _flash_attention_fwd_cuda(q, k, v, layout, route):
     else:
         args = (*ptrs, b, h, l, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *o_strides)
-    if q.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    else:
-        with torch.cuda.device(q.device):
-            err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    err = call_on_device(q.device, fn, *args)
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(f"flash_attn_fwd ({route}) launch failed: {msg} ({err})")
@@ -297,7 +350,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_attention_fwd_cuda(q, k, v, layout, fwd_route(q.shape[-1]))
 
 
-def _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout):
+def _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout, route):
+    """Launch the backward on ``route`` ("wgmma" or "mma_sync"). The wrapper
+    passes ``bwd_route(Dh)``; a measurement of the mma.sync design at a
+    wgmma head dim passes "mma_sync"."""
     shape = tuple(q.shape)
     b, h, l, d = shape
     views = {"q": q, "k": k, "v": v, "O": _heads_first(o, shape, layout),
@@ -309,25 +365,35 @@ def _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout):
             or tuple(lse.shape) != (b, h, l, 1) or not lse.is_contiguous()):
         raise ValueError("lse must be the forward's contiguous float32 "
                          f"(B, H, L, 1) = {(b, h, l, 1)} on {q.device}")
-    # dq, dk, dv heads-first; the kernel would take any strides (e.g. one
+    # dq, dk, dv heads-first; the kernels would take any strides (e.g. one
     # (B, L, 3, H, Dh) buffer), the autograd Function wants separate tensors.
-    grads = [torch.empty(shape, dtype=do.dtype, device=q.device) for _ in range(3)]
-    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    tensors = list(views.values()) + grads
-    strides = (ctypes.c_longlong * (3 * len(tensors)))(
-        *(s for x in tensors for s in x.stride()[:3]))
-    lib = _bwd_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_bwd_bf16(
-            *(x.data_ptr() for x in views.values()), lse.data_ptr(),
-            *(g.data_ptr() for g in grads), delta.data_ptr(),
-            b, h, l, d, ctypes.addressof(strides), stream)
+    grads = torch.empty((3,) + shape, dtype=do.dtype, device=q.device).unbind(0)
+    fn, error_string = _bwd_entry(route)
+    if route == "wgmma":
+        stats_shape, acc_shape = bwd_scratch_shapes(b, h, l, d)
+        stats = torch.empty(stats_shape, dtype=torch.float32, device=q.device)
+        dq_acc = torch.empty(acc_shape, dtype=torch.float32, device=q.device)
+        o4, do4 = views["O"], views["dO"]
+        desc = _tma_array(*(tma_description(x) for x in (q, k, v, do4)))
+        strides = _int64_array(tuple(s for x in (o4, do4) + grads for s in x.stride()[:3]))
+        err = call_on_device(q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o4.data_ptr(), do4.data_ptr(), lse.data_ptr(),
+                         *(g.data_ptr() for g in grads), stats.data_ptr(), dq_acc.data_ptr(),
+                         b, h, l, d, ctypes.addressof(desc), ctypes.addressof(strides))
+    else:
+        delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+        tensors = list(views.values()) + list(grads)
+        strides = _int64_array(tuple(s for x in tensors for s in x.stride()[:3]))
+        err = call_on_device(q.device, fn, *(x.data_ptr() for x in views.values()),
+                         lse.data_ptr(), *(g.data_ptr() for g in grads), delta.data_ptr(),
+                         b, h, l, d, ctypes.addressof(strides))
     if err != 0:
-        msg = lib.flash_attn_bwd_error_string(err).decode()
-        raise RuntimeError(f"flash_attn_bwd launch failed: {msg} ({err})")
+        msg = error_string(err).decode()
+        raise RuntimeError(f"flash_attn_bwd ({route}) launch failed: {msg} ({err})")
     bwd_launches.add()
-    return tuple(grads)
+    if route == "mma_sync":
+        bwd_mma_launches.add()
+    return grads
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -336,15 +402,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv (heads-first, dO's dtype) of the forward that gave O and
     lse. CPU tensors take the plain version; CUDA tensors launch the Hopper
-    kernel (bf16 q/k/v/O/dO, float32 lse, Dh a multiple of 16 up to 128) or
-    raise."""
+    kernels of ``bwd_route(Dh)`` (bf16 q/k/v/O/dO, float32 lse, Dh a
+    multiple of 16 up to 128) or raise."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout={layout!r}; expected one of {LAYOUTS}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd runs on cuda or cpu, not {q.device}")
-    return _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout)
+    return _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout, bwd_route(q.shape[-1]))
 
 
 class FlashAttention(torch.autograd.Function):

@@ -50,9 +50,7 @@
 // One CTA fills an SM (producer 24 registers, consumers 240).
 //
 // The tensor maps are encoded on the host at every call, from the description
-// the caller computes (ops/attention.py:tma_description), through
-// cuTensorMapEncodeTiled reached with cudaGetDriverEntryPoint: the library is
-// built by nvcc alone and needs no link against libcuda.
+// the caller computes (ops/attention.py:tma_description), by sm90::encode.
 
 #include <math.h>
 
@@ -73,9 +71,6 @@ constexpr int kWideCols = 64;              // columns of the 128-byte-swizzled b
 constexpr int kWideBytes = kBlockN * 128;  // one such box of 128 rows
 constexpr int kNarrowBytes = kBlockN * 32;  // 16 columns under a 32-byte swizzle
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Fields of one operand's tensor-map description (ops/attention.py).
-constexpr int kMapFields = 14;
 
 template <int D>
 struct Tile {
@@ -424,66 +419,6 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __r
 
 // ---- host side -----------------------------------------------------------
 
-// Error codes of the C entry besides cudaError_t values (which are >= 0).
-constexpr int kErrNoEncoder = -1;       // cuTensorMapEncodeTiled not found
-constexpr int kErrEncode = -2;          // the driver refused a tensor map
-constexpr int kErrDescription = -3;     // the boxes do not match this kernel
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
-}
-
-// The boxes each head dim's kernel loads: (first column, columns, swizzle bytes).
-bool boxes_match(int D, const long long* f) {
-  const long long wide[3] = {0, kWideCols, 128}, narrow[3] = {kWideCols, 16, 32};
-  const int boxes = D == 80 ? 2 : 1;
-  if (f[0] != D || f[7] != boxes) return false;
-  for (int i = 0; i < 3; ++i) {
-    if (f[8 + i] != wide[i]) return false;
-    if (boxes == 2 && f[11 + i] != narrow[i]) return false;
-  }
-  return true;
-}
-
-// One operand's tensor map for box `box` of its description `f`: dims (Dh, L,
-// H, B), byte strides of L, H and B, then the boxes.
-int encode(CUtensorMap* map, const void* base, const long long* f, int box) {
-  const EncodeTiledFn fn = encoder();
-  if (fn == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[4] = {(cuuint64_t)f[0], (cuuint64_t)f[1], (cuuint64_t)f[2],
-                              (cuuint64_t)f[3]};
-  const cuuint64_t strides[3] = {(cuuint64_t)f[4], (cuuint64_t)f[5], (cuuint64_t)f[6]};
-  const cuuint32_t box_dim[4] = {(cuuint32_t)f[9 + 3 * box], (cuuint32_t)kBlockN, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  // boxes_match allows the swizzles 128 (wide box) and 32 (narrow box).
-  const CUtensorMapSwizzle mode =
-      f[10 + 3 * box] == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box_dim, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int L,
            const long long* desc, long long sob, long long soh, long long sol,
@@ -496,7 +431,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
     const long long* f = desc + i * kMapFields;
     if (!boxes_match(D, f) || f[1] != L || f[2] != H || f[3] != B) return kErrDescription;
     for (int box = 0; box < T::kBoxes; ++box) {
-      const int err = encode(&dst[i][box], bases[i], f, box);
+      const int err = encode(&dst[i][box], bases[i], f, box, kBlockN);
       if (err != 0) return err;
     }
   }
@@ -550,13 +485,6 @@ int flash_attn_fwd_sm90_bf16(const void* q, const void* k, const void* v, void* 
   }
 }
 
-const char* flash_attn_sm90_error_string(int err) {
-  switch (err) {
-    case kErrNoEncoder: return "cuTensorMapEncodeTiled not found in the CUDA driver";
-    case kErrEncode: return "cuTensorMapEncodeTiled refused a q/k/v tensor map";
-    case kErrDescription: return "the tensor-map description does not match the kernel";
-    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
-  }
-}
+const char* flash_attn_sm90_error_string(int err) { return sm90::error_string(err); }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's kernels:
-// mbarriers with phase parity, TMA tensor loads, wgmma shared-memory
-// descriptors and the wgmma instructions, fences, named barriers and register
-// reallocation.
+// mbarriers with phase parity, TMA tensor loads, bulk copies and bulk f32
+// reduce-adds, wgmma shared-memory descriptors and the wgmma instructions,
+// fences, named barriers and register reallocation; on the host, the
+// tensor-map encoder.
 //
 // Conventions:
 // - An mbarrier's phase starts at 0. mbar_wait(bar, parity) returns once the
@@ -88,6 +89,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) of
+// contiguous global memory into shared memory; completion is counted in bytes
+// on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Adds `bytes` (a multiple of 16, both addresses 16-byte aligned) of f32 from
+// shared memory into global memory, element by element, atomically with
+// respect to other reductions; tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the calling thread's bulk groups still read their
+// shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma operands read from shared memory, bulk copies).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma -------------------------------------------------------------
@@ -245,6 +284,142 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TransB));
+}
+
+// D(64 x N, f32) {=, +=} A(64 x 16) * B(16 x N), A and B bf16 in shared memory;
+// scale_d = 0 overwrites D. TransA = 1 reads A MN-major (M contiguous),
+// TransB = 1 reads B MN-major (N contiguous).
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// ---- host side: tensor maps ---------------------------------------------
+
+// Error codes of the C entries besides cudaError_t values (which are >= 0).
+constexpr int kErrNoEncoder = -1;    // cuTensorMapEncodeTiled not found
+constexpr int kErrEncode = -2;       // the driver refused a tensor map
+constexpr int kErrDescription = -3;  // the boxes do not match the kernel
+
+// Fields of one operand's tensor-map description (ops/attention.py:
+// tma_description): dims (Dh, L, H, B), byte strides of L, H and B, the number
+// of boxes, then (first column, columns, swizzle bytes) of each, room for two.
+constexpr int kMapFields = 14;
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime so that a library built
+// by nvcc alone needs no link against libcuda.
+inline EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// The boxes the Dh 64 / 80 kernels load: columns 0-63 under a 128-byte
+// swizzle, and for Dh = 80 columns 64-79 under a 32-byte swizzle.
+inline bool boxes_match(int D, const long long* f) {
+  const long long wide[3] = {0, 64, 128}, narrow[3] = {64, 16, 32};
+  const int boxes = D == 80 ? 2 : 1;
+  if (f[0] != D || f[7] != boxes) return false;
+  for (int i = 0; i < 3; ++i) {
+    if (f[8 + i] != wide[i]) return false;
+    if (boxes == 2 && f[11 + i] != narrow[i]) return false;
+  }
+  return true;
+}
+
+// One bf16 operand's tensor map for box `box` of its description `f`, `rows`
+// rows per box.
+inline int encode(CUtensorMap* map, const void* base, const long long* f, int box, int rows) {
+  const EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)f[0], (cuuint64_t)f[1], (cuuint64_t)f[2],
+                              (cuuint64_t)f[3]};
+  const cuuint64_t strides[3] = {(cuuint64_t)f[4], (cuuint64_t)f[5], (cuuint64_t)f[6]};
+  const cuuint32_t box_dim[4] = {(cuuint32_t)f[9 + 3 * box], (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  // boxes_match allows the swizzles 128 (wide box) and 32 (narrow box).
+  const CUtensorMapSwizzle mode =
+      f[10 + 3 * box] == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box_dim, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+inline const char* error_string(int err) {
+  switch (err) {
+    case kErrNoEncoder: return "cuTensorMapEncodeTiled not found in the CUDA driver";
+    case kErrEncode: return "cuTensorMapEncodeTiled refused a tensor map";
+    case kErrDescription: return "the tensor-map description does not match the kernel";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
 }  // namespace sm90

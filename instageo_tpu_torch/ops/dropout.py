@@ -9,13 +9,18 @@ bits; out = x·(1/(1−p)) in float32 where kept, else 0, cast to x's dtype;
 the mask is bool. The backward is the plain ``where(mask, g/(1−p), 0)``,
 as in JAX.
 
-The stream is a function of (seed, element index) only, so a seed gives
-one mask whatever the grid. It is not JAX's stream, nor torch's: tests
-compare the keep rate, the scale and the mask's use, not the bits.
+The stream: element i takes 32-bit word i % 4 of Philox4x32-10(counter =
+(i / 4 as (lo, hi), 0, 0), key = seed as (lo, hi)). It is a function of
+(seed, element index) only, so a seed gives one mask whatever the grid,
+the vector width or the tensor's shape. ``philox_bits`` computes the same
+stream in plain PyTorch (int64 arithmetic on uint32 words), so the plain
+version (``fused_dropout_seeded_plain``, what a CPU tensor takes) and the
+kernel give the same mask for a seed. It is not JAX's stream nor torch's:
+tests against JAX compare the keep rate, the scale and the mask's use.
 
-``fused_dropout_fwd`` is the wrapper: on a CPU tensor it runs
-``fused_dropout_plain`` with a generator seeded from ``seed``; on a CUDA
-tensor it launches the kernel (bf16 or float32, any numel) or raises.
+``fused_dropout_fwd`` is the wrapper: on a CPU tensor it runs the plain
+version; on a CUDA tensor it launches the kernel (bf16 or float32, any
+numel) or raises.
 """
 
 from __future__ import annotations
@@ -26,12 +31,17 @@ from typing import Tuple
 
 import torch
 
-from instageo_tpu_torch.ops._build import LaunchCounter
+from instageo_tpu_torch.ops._build import LaunchCounter, call_on_device
 
 IMPLS = ("kernel", "plain")
+DESIGNS = ("x8", "x4")  # elements per thread and step: the kernel, the earlier design
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def _check_rate(p: float) -> None:
@@ -47,57 +57,99 @@ def threshold(p: float) -> int:
     return min(int(round(p * (1 << 32))), (1 << 32) - 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _rate_args(p: float) -> Tuple[int, float]:
+    """(threshold, scale) of rate ``p``, checked once per rate."""
+    _check_rate(p)
+    return threshold(p), 1.0 / (1.0 - p)
+
+
+def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of m·x for uint32 words ``x`` in int64,
+    without overflowing int64: x is split into 16-bit halves."""
+    a = m * (x & 0xFFFF)          # < 2^48
+    b = m * (x >> 16)             # < 2^48
+    low = a + ((b & 0xFFFF) << 16)
+    return (b >> 16) + (low >> 32), low & _M32
+
+
+def philox4x32_10(counter, key) -> torch.Tensor:
+    """Philox4x32-10 of counters (..., 4) under keys (..., 2): uint32 words
+    held in int64 tensors; returns (..., 4) words."""
+    c0, c1, c2, c3 = counter.unbind(-1)
+    k0, k1 = key.unbind(-1)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+    return torch.stack((c0, c1, c2, c3), dim=-1)
+
+
+def philox_bits(n: int, seed: int, device=None, start: int = 0) -> torch.Tensor:
+    """The kernel's stream: n uint32 words (int64) for element indices
+    start..start+n−1, word i % 4 of Philox4x32-10((i / 4 as (lo, hi), 0, 0),
+    seed as (lo, hi))."""
+    seed %= 1 << 64
+    first = start // 4
+    groups = torch.arange(first, (start + n + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(groups)
+    counter = torch.stack((groups & _M32, groups >> 32, zero, zero), dim=-1)
+    key = torch.tensor([seed & _M32, seed >> 32], dtype=torch.int64, device=device)
+    words = philox4x32_10(counter, key.expand(len(groups), 2)).reshape(-1)
+    return words[start - 4 * first:][:n]
+
+
 def dropout_apply(x: torch.Tensor, mask: torch.Tensor, p: float) -> torch.Tensor:
     """``where(mask, x·(1/(1−p)), 0)`` computed in float32, in x's dtype: the
     forward's output given its mask, and the backward of a gradient."""
     return torch.where(mask, x.float() * (1.0 / (1.0 - p)), 0.0).to(x.dtype)
 
 
-def fused_dropout_plain(x: torch.Tensor, p: float, generator: torch.Generator
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's math in plain PyTorch: uint32 bits from ``generator``
-    (on x's device) -> (out, mask)."""
+def fused_dropout_seeded_plain(x: torch.Tensor, p: float, seed: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel in plain PyTorch: its Philox stream for ``seed``
+    (``philox_bits``) -> (out, mask), bit for bit what the kernel gives."""
     _check_rate(p)
-    bits = torch.randint(0, 1 << 32, x.shape, dtype=torch.int64, device=x.device,
-                         generator=generator)
-    mask = bits >= threshold(p)
+    mask = philox_bits(x.numel(), seed, x.device).reshape(x.shape) >= threshold(p)
     return dropout_apply(x, mask, p), mask
 
 
-def _plain_from_seed(x: torch.Tensor, p: float, seed: int):
-    return fused_dropout_plain(x, p, torch.Generator(device=x.device).manual_seed(seed))
-
-
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _entry(design: str):
+    """(C entry, error-string function) of a kernel design, bound once."""
     from instageo_tpu_torch.ops import _build
 
     lib = _build.load("dropout")
-    lib.fused_dropout.argtypes = [
+    fn = lib.fused_dropout if design == "x8" else lib.fused_dropout_x4
+    fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint64,
         ctypes.c_int, ctypes.c_void_p]
-    lib.fused_dropout.restype = ctypes.c_int
-    lib.fused_dropout_error_string.argtypes = [ctypes.c_int]
-    lib.fused_dropout_error_string.restype = ctypes.c_char_p
-    return lib
+    fn.restype = ctypes.c_int
+    err = lib.fused_dropout_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
-def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: int):
-    if x.dtype not in _DTYPE_CODES:
+def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: int, design: str = "x8"):
+    """Launch the kernel of ``design`` ("x8", the wrapper's; "x4", the
+    earlier design, for measurements)."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(f"the dropout kernel takes float32 or bfloat16; x is {x.dtype}")
+    bits_threshold, scale = _rate_args(p)
     x = x.contiguous()
     out = torch.empty_like(x)
-    mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
-    vec = all(t.data_ptr() % (4 * t.element_size()) == 0 for t in (x, out, mask))
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_dropout(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), mask.data_ptr(),
-            x.numel(), threshold(p), 1.0 / (1.0 - p), seed % (1 << 64), int(vec), stream)
+    mask = torch.empty_like(x, dtype=torch.bool)
+    # out and mask are fresh allocations, aligned for any vector.
+    vec = x.data_ptr() % 16 == 0
+    fn, error_string = _entry(design)
+    err = call_on_device(x.device, fn, code, x.data_ptr(), out.data_ptr(), mask.data_ptr(),
+                         x.numel(), bits_threshold, scale, seed % (1 << 64), vec)
     if err != 0:
-        msg = lib.fused_dropout_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"fused_dropout launch failed: {msg} ({err})")
     launches.add()
     return out, mask
@@ -106,26 +158,26 @@ def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: int):
 def fused_dropout_fwd(x: torch.Tensor, p: float, seed: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, mask) of dropout at rate ``p`` with the stream of ``seed``. CPU
-    tensors take the plain version (bits from a generator seeded with
-    ``seed``); CUDA tensors launch the Hopper kernel or raise."""
-    _check_rate(p)
-    if x.device.type == "cpu":
-        return _plain_from_seed(x, p, seed)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_dropout runs on cuda or cpu, not {x.device}")
-    return _fused_dropout_cuda(x, p, seed)
+    tensors take the plain version (the same Philox stream); CUDA tensors
+    launch the Hopper kernel or raise."""
+    kind = x.device.type
+    if kind == "cuda":
+        return _fused_dropout_cuda(x, p, seed)
+    if kind == "cpu":
+        return fused_dropout_seeded_plain(x, p, seed)
+    raise ValueError(f"fused_dropout runs on cuda or cpu, not {x.device}")
 
 
 class FusedDropout(torch.autograd.Function):
     """(x, p, seed, impl) -> (out, mask); the mask is saved for the backward
     and is not differentiable. ``impl="plain"`` always runs the plain
-    version (bits from a generator on x's device seeded with ``seed``)."""
+    version (the kernel's Philox stream in plain PyTorch)."""
 
     @staticmethod
     def forward(ctx, x, p, seed, impl):
         if impl not in IMPLS:
             raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
-        fwd = fused_dropout_fwd if impl == "kernel" else _plain_from_seed
+        fwd = fused_dropout_fwd if impl == "kernel" else fused_dropout_seeded_plain
         out, mask = fwd(x, p, seed)
         ctx.save_for_backward(mask)
         ctx.mark_non_differentiable(mask)

@@ -204,3 +204,58 @@ def test_both_impls_differentiate_alike_on_cpu():
         tattn.flash_attention_blo(q, k, v, impl="pallas")
     o, lse = tattn.FlashAttention.apply(q, k, v, "merged", "kernel")
     assert o.requires_grad and not lse.requires_grad
+
+
+@pytest.mark.parametrize("d", tattn.SUPPORTED_HEAD_DIMS)
+def test_backward_route_by_head_dim(d):
+    """Dh 64 and 80 take the wgmma backward, the other supported head dims
+    the mma.sync one."""
+    assert tattn.bwd_route(d) == ("wgmma" if d in tattn.SM90_HEAD_DIMS else "mma_sync")
+
+
+def test_backward_route_refuses_unsupported_head_dims():
+    for d in (8, 72, 144):
+        with pytest.raises(ValueError):
+            tattn.bwd_route(d)
+    with pytest.raises(ValueError):
+        tattn.dq_accumulator_index(128)
+
+
+@pytest.mark.parametrize("layout", tattn.LAYOUTS)
+@pytest.mark.parametrize("d", [64, 80])
+def test_tma_description_of_backward_operands(layout, d):
+    """O and dO as the backward reads them: a merged (B, L, H·Dh) tensor is
+    read as (B, H, L, Dh) with row stride H·Dh and head stride Dh."""
+    b, h, l = 2, 3, 513
+    shape = (b, h, l, d)
+    x = torch.zeros((b, l, h * d) if layout == "merged" else shape, dtype=torch.bfloat16)
+    view = tattn._heads_first(x, shape, layout)
+    row, head, batch = ((h * d, d, l * h * d) if layout == "merged"
+                        else (d, l * d, h * l * d))
+    assert tattn.tma_description(view) == (
+        (d, l, h, b, 2 * row, 2 * head, 2 * batch) + TMA_BOXES[d])
+    assert view.data_ptr() == x.data_ptr()
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_dq_accumulator_layout(d):
+    """The wgmma backward's f32 scratch: (lse, δ) padded to whole 64-row q
+    tiles, and a dQ block of 64·Dh values per q tile whose fragment order
+    is a permutation of the (64, Dh) tile, each warp's run 16 whole rows."""
+    b, h, l = 2, 3, 589
+    stats, acc = tattn.bwd_scratch_shapes(b, h, l, d)
+    assert stats == (2, b, h, 640) and acc == (b, h, 10, 64 * d)
+    index = tattn.dq_accumulator_index(d)
+    assert torch.equal(index.sort().values, torch.arange(64 * d))
+    runs = (index // d).reshape(4, 16 * d)
+    assert all(set(r.tolist()) == set(range(16 * w, 16 * w + 16)) for w, r in enumerate(runs))
+    # Each thread's 16 bytes: rows g and g + 8 of two neighbouring columns.
+    rows, cols = index // d, index % d
+    assert rows[:4].tolist() == [0, 0, 8, 8] and cols[:4].tolist() == [0, 1, 0, 1]
+    assert rows[4:8].tolist() == [0, 0, 8, 8] and cols[4:8].tolist() == [2, 3, 2, 3]
+
+
+@pytest.mark.parametrize("l,tiles", [(1, 1), (64, 1), (65, 2), (197, 4), (1025, 17)])
+def test_backward_scratch_covers_whole_q_tiles(l, tiles):
+    stats, acc = tattn.bwd_scratch_shapes(1, 2, l, 80)
+    assert stats == (2, 1, 2, 64 * tiles) and acc == (1, 2, tiles, 64 * 80)

@@ -9,8 +9,10 @@ Tolerance: bf16 outputs atol = rtol = 3e-2 (as the JAX package's bf16
 attention test), lse atol 1e-3 (float32 statistics, other summation order).
 Backward: dq, dk, dv within ‖Δ‖/‖ref‖ ≤ 1e-2 of the plain version (both
 round dS and P to bf16, but at other summation orders, so single elements
-can differ by a bf16 rounding). Dropout: bit for bit, given the kernel's
-own mask.
+can differ by a bf16 rounding); the wgmma backward's dq from one run to
+the next within one bf16 step (its f32 reduce-adds arrive in any order),
+dk and dv bit for bit. Dropout: the mask bit for bit equal to the plain
+Philox stream, the output bit for bit given the mask.
 """
 
 import pytest
@@ -177,18 +179,21 @@ def test_bwd_kernel_matches_plain(cuda, layout, b, h, l, d):
         assert _rel_err(g, ref) <= BWD_REL_TOL, f"d{name}: {_rel_err(g, ref)}"
 
 
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
 @pytest.mark.parametrize("entry", [tattn.flash_attention_blo, tattn.flash_attention_bhld,
                                    tattn.flash_attention_bloq])
-def test_autograd_through_both_kernels(cuda, entry):
-    b, l, h, d = 2, 99, 4, 64
+def test_autograd_through_both_kernels(cuda, entry, d):
+    b, l, h = 2, 99, 4
     qkv = torch.randn((b, l, 3, h, d), device=cuda).to(torch.bfloat16).requires_grad_()
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     fwd0, bwd0 = tattn.launches.count, tattn.bwd_launches.count
+    mma0 = tattn.bwd_mma_launches.count
     out = entry(q, k, v)
     do = torch.randn(out.shape, device=cuda).to(torch.bfloat16)
     out.backward(do)
     torch.cuda.synchronize()
     assert (tattn.launches.count - fwd0, tattn.bwd_launches.count - bwd0) == (1, 1)
+    assert tattn.bwd_mma_launches.count == mma0
     leaf = qkv.detach().requires_grad_()
     qp, kp, vp = (leaf[:, :, i].transpose(1, 2) for i in range(3))
     entry(qp, kp, vp, impl="plain").backward(do)
@@ -205,6 +210,78 @@ def test_bwd_kernel_refuses_what_it_does_not_take(cuda):
     lse72 = torch.zeros((1, 2, 33, 1), device=cuda)
     with pytest.raises(ValueError):
         tattn.flash_attention_bwd(x, x, x, o72, o72, lse72, "merged")
+
+
+@pytest.mark.parametrize("layout", tattn.LAYOUTS)
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 128, 129, 197, 589])
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_wgmma_backward_matches_plain(cuda, layout, l, d):
+    """Lengths on both sides of the 64-row q tiles and the 128-key tiles."""
+    q, k, v, o, do, lse = _bwd_inputs((2, 3, l, d), layout, cuda, seed=l)
+    mma0 = tattn.bwd_mma_launches.count
+    grads = tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)
+    torch.cuda.synchronize()
+    assert tattn.bwd_mma_launches.count == mma0
+    refs = tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, layout)
+    for name, g, ref in zip("qkv", grads, refs):
+        assert torch.isfinite(g).all()
+        if l == 1 and name != "v":
+            # One key: P = 1 and dS = dP − δ = 0 up to the summation order,
+            # so dq and dk are rounding noise on both sides.
+            assert g.abs().max().item() <= 1e-3 and ref.abs().max().item() <= 1e-3
+            continue
+        assert _rel_err(g, ref) <= BWD_REL_TOL, f"d{name}: {_rel_err(g, ref)}"
+
+
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_wgmma_backward_run_to_run(cuda, d):
+    """dq within one bf16 step of itself from run to run, or, where its f32
+    partial sums cancel, within 2⁻¹⁶ of its row's largest |dq| (a few f32
+    roundings of the partial sums, whose order changes); dk, dv equal."""
+    q, k, v, o, do, lse = _bwd_inputs((4, 12, 589, d), "merged", cuda, seed=d)
+    first = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+    for _ in range(3):
+        again = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+        assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+        a, b = first[0].float(), again[0].float()
+        step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7  # one bf16 step, or less
+        row = a.abs().amax(-1, keepdim=True) * 2.0 ** -16
+        assert bool(((a - b).abs() <= torch.maximum(step, row)).all())
+
+
+@pytest.mark.parametrize("d,route", [(64, "wgmma"), (80, "wgmma"), (128, "mma_sync")])
+def test_backward_route_counters(cuda, d, route):
+    assert tattn.bwd_route(d) == route
+    q, k, v, o, do, lse = _bwd_inputs((1, 2, 33, d), "merged", cuda)
+    bwd0, mma0 = tattn.bwd_launches.count, tattn.bwd_mma_launches.count
+    tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+    torch.cuda.synchronize()
+    assert tattn.bwd_launches.count - bwd0 == 1
+    assert tattn.bwd_mma_launches.count - mma0 == (route == "mma_sync")
+
+
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_mma_sync_backward_still_matches_plain_at_wgmma_head_dims(cuda, d):
+    """The mma.sync design, timed beside the wgmma one at Dh 64 and 80."""
+    q, k, v, o, do, lse = _bwd_inputs((2, 3, 197, d), "merged", cuda)
+    grads = tattn._flash_attention_bwd_cuda(q, k, v, o, do, lse, "merged", "mma_sync")
+    refs = tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, "merged")
+    for g, ref in zip(grads, refs):
+        assert _rel_err(g, ref) <= BWD_REL_TOL
+
+
+@pytest.mark.parametrize("design", tdrop.DESIGNS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 4099, 1 << 20])
+def test_dropout_mask_is_the_plain_stream(cuda, design, dtype, n):
+    """Bit for bit the plain Philox stream, with ragged tails and, one
+    element in, unaligned starts (the scalar path)."""
+    x = torch.randn(n + 1, device=cuda).to(dtype)
+    for view in (x[:n], x[1:]):
+        out, mask = tdrop._fused_dropout_cuda(view, 0.3, 12345678901, design)
+        _, ref = tdrop.fused_dropout_seeded_plain(view, 0.3, 12345678901)
+        assert torch.equal(mask, ref)
+        assert torch.equal(out, tdrop.dropout_apply(view, mask, 0.3))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
