@@ -28,8 +28,18 @@ Phases, one line each (any failure raises and exits non-zero):
    (none on either mma.sync route),
    one step with the kernels against one with the plain versions, a train
    and an eval epoch (partial last batch), and chips/s at batch 8 and 32;
-6. one JSON line ``{"kernels": [...]}``;
-7. last line: ``{"ok": true, "device": {...}}``.
+6. run: the run CLI (``python -m instageo_tpu_torch.train.run``, called
+   in-process) on the crop config over 48 train and 16 val synthetic
+   18-band chips and their CSVs: ``stats``, ``train`` (one epoch), ``eval``
+   on the best checkpoint, ``chip_inference``; each mode's launches (every
+   attention launch on the wgmma route, 5 dropout launches per step), eval
+   against the saved epoch's validation metrics, the CLI's predictions
+   against ``ModelServer``'s; chips/s and wall seconds per mode;
+7. one JSON line ``{"kernels": [...]}``;
+8. last line: ``{"ok": true, "device": {...}}``.
+
+The model and data settings come from the port's
+``configs/multitemporal_crop_classification.yaml``.
 
 Each path runs with every launch count set to 0 just before it and read
 just after it. Imports nothing of JAX or of the JAX package.
@@ -53,23 +63,8 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# configs/multitemporal_crop_classification.yaml, dataloader section.
-CROP_MEAN = [494.905781, 815.239594, 924.335066, 2968.881459, 2634.621962, 1739.579917]
-CROP_STD = [284.925432, 357.84876, 575.566823, 896.601013, 951.900334, 921.407808]
-CROP_BANDS = list(range(18))
-CROP_MODEL = dict(variant="prithvi_eo_v1_100", num_classes=13, temporal_step=3,
-                  image_size=224, num_bands=6)
-
-# configs/multitemporal_crop_classification.yaml, train and model sections.
-CROP_CLASS_WEIGHTS = [0.386375, 0.661126, 0.548184, 0.640482, 0.876862, 0.925186,
-                      3.249462, 1.542289, 2.175141, 2.272419, 3.062762, 3.626097,
-                      1.198702]
-CROP_TRAIN_CFG = {
-    "train": {"learning_rate": 1e-4, "weight_decay": 0.01, "batch_size": 8,
-              "num_epochs": 1, "class_weights": CROP_CLASS_WEIGHTS,
-              "ignore_index": -1, "scheduler": False},
-    "model": {"num_classes": 13, "freeze_backbone": False, "weight_clip_range": None},
-}
+# The configuration every path runs, from the port's config files.
+CROP_CONFIG = "multitemporal_crop_classification"
 
 # (B, H, L, Dh, output layout, inputs): the serving shape at batch 64, also
 # as the model passes q/k/v ("qkv": views of one (B, L, 3, H, Dh) projection
@@ -130,6 +125,10 @@ TRAIN_BN_REL_TOL = 2e-2
 LOGIT_TOL = 0.05         # max |logit diff| / max |logit|
 DECIDED_GAP = 0.01       # pixels whose top-2 gap is at least this x max |logit| ...
 ARGMAX_AGREEMENT = 0.99  # ... agree at least this often
+# mode=eval on the saved checkpoint vs that epoch's validation metrics: the
+# same chips, weights and batches (bf16 weights cast once at load instead of
+# at each use), so they differ only by rounding.
+EVAL_TOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -549,16 +548,42 @@ def _write_chips(root: str, n: int, raw: np.ndarray) -> list:
     return paths
 
 
-def _normalise(raw: np.ndarray, temporal_step: int) -> np.ndarray:
+def crop_setup():
+    """The crop config from the port's config file: the config, the model's
+    keyword arguments, the train phase's trainer config, and the
+    dataloader's mean, std and bands."""
+    from instageo_tpu_torch.configs.config import load_config
+    from instageo_tpu_torch.train.factory import model_channels
+
+    cfg = load_config(CROP_CONFIG)
+    model_kw = dict(variant=str(cfg.model.model_name), num_classes=int(cfg.model.num_classes),
+                    temporal_step=int(cfg.dataloader.temporal_dim),
+                    image_size=int(cfg.dataloader.img_size), num_bands=model_channels(cfg))
+    train_cfg = {
+        "train": {"learning_rate": cfg.train.learning_rate,
+                  "weight_decay": cfg.train.weight_decay,
+                  "batch_size": cfg.train.batch_size, "num_epochs": 1,
+                  "class_weights": list(cfg.train.class_weights),
+                  "ignore_index": cfg.train.ignore_index, "scheduler": cfg.train.scheduler},
+        "model": {"num_classes": cfg.model.num_classes,
+                  "freeze_backbone": cfg.model.freeze_backbone,
+                  "weight_clip_range": cfg.model.weight_clip_range},
+    }
+    data = dict(mean=list(cfg.dataloader.mean), std=list(cfg.dataloader.std),
+                bands=list(cfg.dataloader.bands))
+    return cfg, model_kw, train_cfg, data
+
+
+def _normalise(raw: np.ndarray, temporal_step: int, data: dict) -> np.ndarray:
     """Host normalisation of one raw chip (T·C, H, W) -> (C, T, H, W)."""
-    c = len(CROP_MEAN)
+    c = len(data["mean"])
     x = raw.astype(np.float32).reshape(temporal_step, c, *raw.shape[-2:])
-    mean = np.asarray(CROP_MEAN, np.float32)[None, :, None, None]
-    std = np.asarray(CROP_STD, np.float32)[None, :, None, None]
+    mean = np.asarray(data["mean"], np.float32)[None, :, None, None]
+    std = np.asarray(data["std"], np.float32)[None, :, None, None]
     return ((x - mean) / std).transpose(1, 0, 2, 3)
 
 
-def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8,
+def slice_phase(device, model_kw: dict, data: dict, n_requests: int = 24, n_threads: int = 8,
                 n_files: int = 32, batch: int = 16, throughput_batches=(16, 64),
                 throughput_iters: int = 5) -> dict:
     """Serve the model: online requests + a batch run over chip files."""
@@ -575,16 +600,16 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
     t_build = time.perf_counter() - t_build
     depth = len(model.prithvi_encoder.blocks)
     t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
-    pre = dict(temporal_size=t, bands=CROP_BANDS[: 6 * t], constant_multiplier=1.0,
+    pre = dict(temporal_size=t, bands=data["bands"][: 6 * t], constant_multiplier=1.0,
                img_size=size)
-    server = ModelServer(model, mean=CROP_MEAN, std=CROP_STD, device=device, **pre)
+    server = ModelServer(model, mean=data["mean"], std=data["std"], device=device, **pre)
     rng = np.random.default_rng(0)
     raw = rng.integers(0, 10000, (8, 6 * t, size, size), dtype=np.uint16)
     tmp = tempfile.TemporaryDirectory()
     try:
         paths = _write_chips(tmp.name, n_files, raw)
         out_dir = os.path.join(tmp.name, "predictions")
-        chips = [_normalise(raw[i % len(raw)], t) for i in range(n_requests)]
+        chips = [_normalise(raw[i % len(raw)], t, data) for i in range(n_requests)]
 
         # --- the serving path: counts from 0, read right after ----------
         reset_counts()
@@ -666,7 +691,7 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
         # --- throughput: raw uint16 chips in host memory -> int8 classes in
         # host memory, through the fused predict (host clock, synchronised
         # by the copy back) -----------------------------------------------
-        predict = make_fused_predict_fn(model, CROP_MEAN, CROP_STD, **pre)
+        predict = make_fused_predict_fn(model, data["mean"], data["std"], **pre)
         rates = {}
         for b in throughput_batches:
             batch_raw = raw[np.arange(b) % len(raw)]
@@ -686,20 +711,20 @@ def slice_phase(device, model_kw: dict, n_requests: int = 24, n_threads: int = 8
                 max_logit_diff=diff, chips_per_s=rates, build_s=t_build)
 
 
-def _crop_batch(n: int, temporal_step: int, size: int, classes: int, seed: int):
+def _crop_batch(n: int, temporal_step: int, size: int, classes: int, seed: int, data: dict):
     """Synthetic crop chips: uint16 raw bands normalised on the host, and
     labels constant over 16-px patches in [0, classes) with a band of -1
     (ignored) rows at the top."""
     rng = np.random.default_rng(seed)
     raw = rng.integers(0, 10000, (n, 6 * temporal_step, size, size), dtype=np.uint16)
-    x = np.stack([_normalise(r, temporal_step) for r in raw])
+    x = np.stack([_normalise(r, temporal_step, data) for r in raw])
     patches = rng.integers(0, classes, (n, size // 16, size // 16))
     y = np.repeat(np.repeat(patches, 16, axis=1), 16, axis=2).astype(np.int64)
     y[:, :8] = -1
     return x, y
 
 
-def train_phase(device, model_kw: dict, cfg: dict, fixed_steps: int = 10,
+def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int = 10,
                 throughput_batches=(8, 32), throughput_steps: int = 6) -> dict:
     """Train the crop model through ``Trainer`` and check what each part
     gives (see the module docstring, phase 5)."""
@@ -714,7 +739,8 @@ def train_phase(device, model_kw: dict, cfg: dict, fixed_steps: int = 10,
                                device=device, seed=0)
     depth = len(model.prithvi_encoder.blocks)
     trainer = Trainer(cfg, model, device=device)
-    x, y = _crop_batch(max(throughput_batches + (3 * batch,)), t, size, classes, seed=1)
+    x, y = _crop_batch(max(throughput_batches + (3 * batch,)), t, size, classes, seed=1,
+                       data=data)
     xb, yb = trainer.prepare_batch(x[:batch], y[:batch], batch)
     gen = torch.Generator().manual_seed(0)
     if device.type == "cuda":
@@ -810,6 +836,202 @@ def train_phase(device, model_kw: dict, cfg: dict, fixed_steps: int = 10,
                 grad_rel_max=worst[0][1], loss_rel=loss_rel, rates=rates, peak_gb=peak_gb)
 
 
+def _write_dataset(root: str, n_train: int, n_val: int, n_bands: int, size: int,
+                   classes: int) -> list:
+    """Synthetic uint16 chips of ``n_bands`` bands and int16 label rasters
+    (labels 0..classes, constant over 16-px patches; signed, since
+    ``reduce_to_zero`` maps 0 to the ignored -1) with train.csv and val.csv
+    (columns Input, Label; paths relative to ``root``). Returns the val
+    chips' paths."""
+    import csv
+
+    from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
+
+    rng = np.random.default_rng(2)
+    rows = []
+    for i in range(n_train + n_val):
+        raw = rng.integers(1, 10000, (n_bands, size, size), dtype=np.uint16)
+        patches = rng.integers(0, classes + 1, (-(-size // 16), -(-size // 16)))
+        label = np.repeat(np.repeat(patches, 16, axis=0), 16, axis=1)[:size, :size]
+        transform = Affine.from_origin(300000.0 + 30.0 * size * i, 4500000.0, 30.0, 30.0)
+        write_geotiff(os.path.join(root, f"tile_{i:03d}_chip.tif"), raw, transform=transform,
+                      crs=32615)
+        write_geotiff(os.path.join(root, f"tile_{i:03d}_label.tif"),
+                      label[None].astype(np.int16), transform=transform, crs=32615)
+        rows.append({"Input": f"tile_{i:03d}_chip.tif", "Label": f"tile_{i:03d}_label.tif"})
+    for name, part in (("train.csv", rows[:n_train]), ("val.csv", rows[n_train:])):
+        with open(os.path.join(root, name), "w", newline="") as f:
+            writer = csv.DictWriter(f, ["Input", "Label"])
+            writer.writeheader()
+            writer.writerows(part)
+    return [os.path.join(root, r["Input"]) for r in rows[n_train:]]
+
+
+def run_phase(device, extra=(), n_train: int = 48, n_val: int = 16) -> dict:
+    """The run CLI (``instageo_tpu_torch.train.run.main``, in-process) on
+    the crop config over synthetic chip CSVs: ``stats``, ``train`` (one
+    epoch), ``eval`` on the best checkpoint, ``chip_inference``; each mode
+    with the launch counts set to 0 just before it and read just after.
+    Checks the loss, the launches of each mode, eval against the saved
+    epoch's validation metrics, and the CLI's predictions against
+    ``ModelServer.chip_inference_from_paths`` on the same checkpoint.
+    ``extra``: more overrides (a tiny model for a CPU rehearsal)."""
+    import torch
+
+    from instageo_tpu_torch.configs.config import load_config_from_argv
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.models.registry import get_arch
+    from instageo_tpu_torch.ops.preprocess import preprocess_chips, raw_to_device
+    from instageo_tpu_torch.serve.server import ModelServer
+    from instageo_tpu_torch.train import run
+    from instageo_tpu_torch.train.factory import create_model
+
+    on_card = device.type == "cuda"
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    base = [f"--config-name={CROP_CONFIG}", f"root_dir={root}",
+            f"train_filepath={root}/train.csv", f"valid_filepath={root}/val.csv",
+            f"test_filepath={root}/val.csv", f"run_dir={root}/run",
+            "model.load_pretrained_weights=False", "train.num_epochs=1", *extra]
+    if not on_card:
+        base.append("device=cpu")
+    cfg = load_config_from_argv(base)
+    dl = cfg.dataloader
+    size, t, classes = int(dl.img_size), int(dl.temporal_dim), int(cfg.model.num_classes)
+    batch = int(cfg.train.batch_size)
+    depth = get_arch(str(cfg.model.model_name), depth=int(cfg.model.depth)).depth
+    try:
+        t0 = time.perf_counter()
+        val_paths = _write_dataset(root, n_train, n_val, len(dl.bands), size, classes)
+        print(f"[run] wrote {n_train} + {n_val} chips of {len(dl.bands)} bands, {size} px "
+              f"with labels 0..{classes} in {time.perf_counter() - t0:.2f} s", flush=True)
+        out, counts, wall = {}, {}, {}
+        ckpt = os.path.join(root, "run", "instageo_best_checkpoint")
+        for mode, more in (("stats", []), ("train", []),
+                           ("eval", [f"checkpoint_path={ckpt}"]),
+                           ("chip_inference", [f"checkpoint_path={ckpt}"])):
+            # --- one mode of the CLI: counts from 0, read right after ----
+            reset_counts()
+            t0 = time.perf_counter()
+            out[mode] = run.main(base + [f"mode={mode}"] + more)
+            if on_card:
+                torch.cuda.synchronize()
+            wall[mode] = time.perf_counter() - t0
+            counts[mode] = read_counts()
+            # ---------------------------------------------------------------
+            chips = n_train if mode in ("stats", "train") else n_val
+            print(f"[run] mode={mode}: {chips} chips in {wall[mode]:.3f} s wall "
+                  f"({chips / wall[mode]:.2f} chips/s); launches {json.dumps(counts[mode])}",
+                  flush=True)
+
+        stats = out["stats"]
+        check(len(stats["mean"]) == len(dl.mean) and len(stats["class_weights"]) <= classes,
+              f"stats: {stats}")
+        hist = out["train"]
+        check(math.isfinite(hist["train_loss"]) and math.isfinite(hist["val_loss"]),
+              f"train: non-finite losses {hist}")
+        print(f"[run] mode=train: train_loss {hist['train_loss']:.6f}, val_loss "
+              f"{hist['val_loss']:.6f}; the epoch (train + validation) took "
+              f"{hist['epoch_time_s']:.3f} s of the mode's {wall['train']:.3f} s wall", flush=True)
+        steps, val_batches = -(-n_train // batch), -(-n_val // batch)
+        expected = {
+            "train": {"flash_attn_fwd": depth * (steps + val_batches), "flash_attn_fwd_mma": 0,
+                      "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": 0,
+                      "fused_dropout": 5 * steps},
+            "eval": {"flash_attn_fwd": depth * val_batches, "flash_attn_fwd_mma": 0,
+                     "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0},
+        }
+        expected["chip_inference"] = expected["eval"]
+        if on_card:
+            for mode, want in expected.items():
+                check(counts[mode] == want, f"mode={mode}: launches {counts[mode]}, "
+                      f"expected {want}")
+        with open(ckpt + ".metrics.json") as f:
+            saved = json.load(f)
+        ev = out["eval"]
+        eval_gap = {k: abs(ev[f"test_{k}"] - saved[f"val_{k}"]) for k in ("IoU", "loss")}
+        check(max(eval_gap.values()) <= EVAL_TOL,
+              f"eval on the checkpoint vs the saved epoch's validation: {eval_gap}")
+        check(out["chip_inference"] == n_val, f"chip_inference served {out['chip_inference']}")
+        written = sorted(os.listdir(os.path.join(root, "predictions")))
+        check(len(written) == n_val, f"{len(written)} predictions for {n_val} chips")
+
+        # --- where a mode's host time goes: the val loader's first batch and
+        # whole pass, with the config's worker count and with none ---------
+        from instageo_tpu_torch.data.dataloader import create_dataloader
+
+        val_ds = run._make_dataset(f"{root}/val.csv", cfg, run._train_preprocess(cfg, False))
+        loader_s = {}
+        for workers in sorted({int(dl.num_workers), 0}, reverse=True):
+            t0 = time.perf_counter()
+            loader = create_dataloader(val_ds, batch, num_workers=workers, device=device)
+            batches = iter(loader)
+            next(batches)
+            first = time.perf_counter() - t0
+            for _ in batches:
+                pass
+            loader_s[workers] = (first, time.perf_counter() - t0)
+            del batches, loader
+        print(f"[run] val loader ({n_val} chips, decode + normalise): " + "; ".join(
+            f"{w} workers: first batch {a:.3f} s, all {b:.3f} s" for w, (a, b) in loader_s.items()),
+            flush=True)
+
+        # --- the CLI's predictions vs the server's on the same checkpoint --
+        model = create_model(load_config_from_argv(base + [f"checkpoint_path={ckpt}"]),
+                             device=device)
+        pre = dict(temporal_size=t, bands=list(dl.bands),
+                   constant_multiplier=float(dl.constant_multiplier), img_size=size)
+        server = ModelServer(model, mean=list(dl.mean), std=list(dl.std), device=device, **pre)
+        server_dir = os.path.join(root, "server_predictions")
+        try:
+            server.chip_inference_from_paths(val_paths, server_dir, batch_size=batch)
+        finally:
+            server.close()
+        mean_t = torch.tensor(list(dl.mean), dtype=torch.float32, device=device)
+        std_t = torch.tensor(list(dl.std), dtype=torch.float32, device=device)
+        bands_t = torch.tensor(list(dl.bands), device=device)
+        same_decided = decided_n = same_all = 0
+        for i in range(0, n_val, batch):
+            paths = val_paths[i:i + batch]
+            raws, cli, srv = [], [], []
+            for p in paths:
+                name = os.path.basename(p).replace("chip", "prediction")
+                for store, path in ((raws, p), (cli, os.path.join(root, "predictions", name)),
+                                    (srv, os.path.join(server_dir, name))):
+                    with GeoTiffReader(path) as r:
+                        store.append(r.read())
+            with torch.inference_mode():
+                x = preprocess_chips(raw_to_device(np.stack(raws), device), mean_t, std_t,
+                                     t, bands_t, pre["constant_multiplier"], img_size=size)
+                logits = model(x, channels_last=True).float()
+            top2 = logits.topk(2, dim=-1).values
+            decided = ((top2[..., 0] - top2[..., 1])
+                       >= DECIDED_GAP * logits.abs().max()).cpu().numpy()
+            same = np.stack(cli)[:, 0] == np.stack(srv)[:, 0]
+            same_decided += int(same[decided].sum())
+            decided_n += int(decided.sum())
+            same_all += int(same.sum())
+        agree = same_decided / max(decided_n, 1)
+        check(agree >= ARGMAX_AGREEMENT,
+              f"CLI vs server predictions agree on {agree} of decided pixels")
+        rates = {mode: (n_train if mode in ("stats", "train") else n_val) / wall[mode]
+                 for mode in wall}
+        print(f"[run] eval on the checkpoint: test_IoU {ev['test_IoU']:.6f} vs saved val_IoU "
+              f"{saved['val_IoU']:.6f}, test_loss {ev['test_loss']:.6f} vs val_loss "
+              f"{saved['val_loss']:.6f} (within {EVAL_TOL}); test_roc_auc "
+              f"{ev['test_roc_auc']:.6f}; CLI vs ModelServer predictions: {agree:.6f} of "
+              f"{decided_n} decided pixels agree (>= {ARGMAX_AGREEMENT}), "
+              f"{same_all / (n_val * size * size):.6f} of all", flush=True)
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+        return dict(counts=counts, wall_s=wall, chips_per_s=rates, eval_gap=eval_gap,
+                    agreement=agree, train_loss=hist["train_loss"],
+                    epoch_s=hist["epoch_time_s"], loader_s=loader_s)
+    finally:
+        tmp.cleanup()
+
+
 def _kernel_row(name: str, source: str, replaces: str, also, row: dict,
                 launches: dict, rows: list) -> dict:
     return {
@@ -853,13 +1075,18 @@ def main() -> int:
     rows = kernel_phase(device, KERNEL_SHAPES)
     bwd_rows = bwd_kernel_phase(device, BWD_SHAPES)
     drop_rows = dropout_phase(device, DROPOUT_SHAPES)
-    served = slice_phase(device, CROP_MODEL)
+    _, crop_model, crop_train_cfg, crop_data = crop_setup()
+    served = slice_phase(device, crop_model, crop_data)
     print(f"[slice] {smi}: chips/s " + ", ".join(
         f"batch {b}: {r:.2f}" for b, r in served["chips_per_s"].items()), flush=True)
-    trained = train_phase(device, CROP_MODEL, CROP_TRAIN_CFG)
+    trained = train_phase(device, crop_model, crop_train_cfg, crop_data)
     print(f"[train] {smi}: " + ", ".join(
         f"batch {b}: {r['ms_per_step']:.3f} ms per step, {r['chips_per_s']:.2f} chips/s"
         for b, r in trained["rates"].items()), flush=True)
+    ran = run_phase(device)
+    print(f"[run] {smi}: " + ", ".join(
+        f"mode={m}: {ran['chips_per_s'][m]:.2f} chips/s, {ran['wall_s'][m]:.3f} s wall"
+        for m in ran["wall_s"]), flush=True)
 
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
@@ -906,8 +1133,16 @@ def main() -> int:
     for k, rs in ((kernels[0], wgmma_rows), (kernels[2], bwd_wgmma_rows), (kernels[4], drop_rows)):
         k["by_shape"] = [{key: r.get(key) for key in by_shape + ("inputs", "entry")
                           if key in r} for r in rs]
+    # The run CLI's launches, by mode and kernel (the same counters).
+    by_route = {"flash_attn_fwd_sm90": lambda c: c["flash_attn_fwd"] - c["flash_attn_fwd_mma"],
+                "flash_attn_fwd": lambda c: c["flash_attn_fwd_mma"],
+                "flash_attn_bwd_sm90": lambda c: c["flash_attn_bwd"] - c["flash_attn_bwd_mma"],
+                "flash_attn_bwd": lambda c: c["flash_attn_bwd_mma"],
+                "fused_dropout": lambda c: c["fused_dropout"]}
     for k in kernels:
         k["card"] = smi
+        for mode, c in ran["counts"].items():
+            k["launches_by_path"][f"run_{mode}"] = by_route[k["name"]](c)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

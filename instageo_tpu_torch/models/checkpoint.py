@@ -1,20 +1,24 @@
-"""Weight bridge: JAX ``PrithviSeg`` variables -> the port's state dict.
+"""Weight bridges and checkpoint readers for the port's ``PrithviSeg``.
 
-The port's own copy of the mapping in
-``instageo_tpu/models/checkpoint.py:seg_variables_to_torch``: the JAX tree
-(``{"params", "batch_stats"}`` as numpy arrays) becomes the reference/timm
-state-dict layout that ``PrithviSeg.load_state_dict(..., strict=True)``
-takes.
+* ``seg_state_dict_from_jax``: the port's own copy of the mapping in
+  ``instageo_tpu/models/checkpoint.py:seg_variables_to_torch``: the JAX
+  tree (``{"params", "batch_stats"}`` as numpy arrays) becomes the
+  reference/timm state-dict layout that ``PrithviSeg.load_state_dict(...,
+  strict=True)`` takes;
+* the torch-checkpoint readers of the same JAX module (``load_torch_file``,
+  ``filter_checkpoint_vit``, ``select_patch_embed_weights``,
+  ``load_pretrained_encoder``), which here act on state dicts directly,
+  since the port's keys are the reference's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from instageo_tpu_torch.models.registry import PrithviArch
+from instageo_tpu_torch.models.registry import PRETRAINED_BANDS, PrithviArch
 
 
 def _t(x) -> torch.Tensor:
@@ -96,3 +100,121 @@ def seg_state_dict_from_jax(variables: Mapping, arch: PrithviArch,
     sd[f"{head}.weight"] = _t(np.asarray(params["head_conv"]["kernel"]).transpose(3, 2, 0, 1))
     sd[f"{head}.bias"] = _t(params["head_conv"]["bias"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Reading torch checkpoints: pretrained encoders and fine-tuned models
+# ---------------------------------------------------------------------------
+
+
+def _unwrap_state_dict(state_dict: Mapping) -> Mapping:
+    """The value of the first key ending in 'state_dict', else the mapping
+    itself (a Lightning ``.ckpt`` keeps its weights under ``state_dict``)."""
+    for k in state_dict.keys():
+        if isinstance(k, str) and k.endswith("state_dict"):
+            return state_dict[k]
+    return state_dict
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pt``/``.ckpt`` (``torch.load(weights_only=True)``) or ``.npz``
+    file as a flat name -> tensor dict."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: torch.from_numpy(np.array(z[k])) for k in z.files}
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(obj, dict):
+        raise ValueError(f"Unsupported checkpoint object in {path}: {type(obj)}")
+    return {k: torch.as_tensor(v) for k, v in _unwrap_state_dict(obj).items()}
+
+
+def _xavier_uniform(rng: np.random.Generator, shape_2d, full_shape) -> np.ndarray:
+    """torch ``xavier_uniform_`` on a (fan_out, fan_in) view, from ``rng``."""
+    fan_out, fan_in = shape_2d
+    bound = float(np.sqrt(6.0 / (fan_in + fan_out)))
+    return rng.uniform(-bound, bound, size=full_shape).astype(np.float32)
+
+
+def select_patch_embed_weights(
+    weight: torch.Tensor,
+    pretrained_bands: Sequence[str],
+    model_bands: Sequence[str],
+    seed: int = 0,
+) -> torch.Tensor:
+    """Band surgery on a Conv3d patch-embed weight (D, C, pt, ph, pw):
+    bands present in ``pretrained_bands`` are copied into their position in
+    ``model_bands``; the others keep a Xavier-uniform draw from a numpy
+    Generator seeded with ``seed`` (the JAX package's draw)."""
+    w = weight.detach().float().cpu().numpy()
+    d = w.shape[0]
+    out_shape = (d, len(model_bands)) + w.shape[2:]
+    rng = np.random.default_rng(seed)
+    out = _xavier_uniform(rng, (d, int(np.prod(out_shape[1:]))), out_shape)
+    for index, band in enumerate(model_bands):
+        if band in pretrained_bands:
+            out[:, index] = w[:, list(pretrained_bands).index(band)]
+    return torch.from_numpy(out)
+
+
+def filter_checkpoint_vit(
+    state_dict: Mapping[str, torch.Tensor],
+    arch: PrithviArch,
+    pretrained_bands: Optional[Sequence[str]] = None,
+    model_bands: Optional[Sequence[str]] = None,
+) -> Dict[str, torch.Tensor]:
+    """A Prithvi(-MAE) state dict cleaned for the ViT encoder: MAE
+    ``encoder.`` and ``_timm_module.`` prefixes stripped; decoder weights,
+    mask token and the fixed position embedding dropped; blocks past
+    ``arch.depth`` dropped; band surgery on the patch embedding."""
+    pretrained_bands = list(pretrained_bands or PRETRAINED_BANDS)
+    model_bands = list(model_bands or pretrained_bands)
+    clean: Dict[str, torch.Tensor] = {}
+    for k, v in _unwrap_state_dict(state_dict).items():
+        k = k.replace("_timm_module.", "")
+        if "pos_embed" in k:
+            continue  # regenerated from the shapes
+        if "decoder" in k or "_dec" in k or k == "mask_token":
+            continue
+        if not arch.temporal_encoding and "temporal_embed" in k:
+            continue
+        if not arch.location_encoding and "location_embed" in k:
+            continue
+        if k.startswith("encoder."):
+            k = k[len("encoder."):]
+        k = k.replace("patch_embed.projection.", "patch_embed.proj.")  # terratorch naming
+        clean[k] = torch.as_tensor(v)
+    clean = {k: v for k, v in clean.items()
+             if not k.startswith("blocks.") or int(k.split(".")[1]) < arch.depth}
+    proj_key = next((k for k in clean if k.endswith("patch_embed.proj.weight")), None)
+    if proj_key is None:
+        raise KeyError("Could not find patch embed weight in state_dict.")
+    w = clean[proj_key]
+    if tuple(w.shape[2:]) == tuple(arch.patch_size) and w.shape[0] == arch.embed_dim:
+        clean[proj_key] = select_patch_embed_weights(w, pretrained_bands, model_bands)
+    return clean
+
+
+def load_pretrained_encoder(
+    path: str,
+    arch: PrithviArch,
+    pretrained_bands: Optional[Sequence[str]] = None,
+    model_bands: Optional[Sequence[str]] = None,
+) -> Dict[str, torch.Tensor]:
+    """A pretrained Prithvi(-MAE) checkpoint file as the state dict of the
+    port's ``PrithviViT`` (load it into ``model.prithvi_encoder``)."""
+    sd = filter_checkpoint_vit(load_torch_file(path), arch, pretrained_bands, model_bands)
+    return {k: v.float() for k, v in sd.items()}
+
+
+def seg_state_dict_from_torch(state_dict: Mapping[str, torch.Tensor]
+                              ) -> Dict[str, torch.Tensor]:
+    """A reference ``PrithviSeg`` checkpoint's weights (a Lightning
+    ``.ckpt``'s ``state_dict``, whose keys carry the module's attribute
+    prefix, e.g. ``net.``) under the port's keys, which are the reference's
+    without that prefix."""
+    sd = _unwrap_state_dict(state_dict)
+    anchor = next((k for k in sd if "prithvi_encoder." in k), None)
+    if anchor is None:
+        raise KeyError("no prithvi_encoder.* weights in the checkpoint")
+    prefix = anchor[:anchor.index("prithvi_encoder.")]
+    return {k[len(prefix):]: torch.as_tensor(v) for k, v in sd.items() if k.startswith(prefix)}

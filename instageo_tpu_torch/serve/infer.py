@@ -1,10 +1,12 @@
 """Batched chip inference: device forward + threaded GeoTIFF writes.
 
-Counterpart of ``instageo_tpu/serve/infer.py``: batches of raw chips go to
-the device, one forward per batch (argmax int8 for segmentation, float32
+Counterpart of ``instageo_tpu/serve/infer.py``: batches of chips go to the
+device, one forward per batch (argmax int8 for segmentation, float32
 channel 0 for regression), and predictions are written on a thread pool
 with the source chip's georeferencing and the ``chip`` → ``prediction``
-name swap.
+name swap. ``chip_inference_from_paths`` takes raw chip files and
+preprocesses on the device; ``chip_inference`` takes the batches of an
+``infer_collate`` loader (the run CLI's ``chip_inference`` mode).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -162,4 +164,48 @@ def chip_inference_from_paths(
     dt = time.time() - t0
     log.info("chip_inference_from_paths: %d chips in %.2fs (%.1f chips/s)",
              n, dt, n / dt if dt else 0.0)
+    return n, dt
+
+
+def chip_inference(
+    dataloader: Iterable,
+    out_dir: str,
+    model: nn.Module,
+    is_reg_task: bool = False,
+    num_write_threads: int = 4,
+) -> Tuple[int, float]:
+    """Predict every chip of an ``infer_collate`` loader (normalised
+    (B, C, T, H, W) chips, their filenames, nodata masks) and write one
+    prediction per chip. Returns (chips, seconds).
+
+    Batch N's predictions are copied to the host while the device runs
+    batch N+1, and written on a thread pool. The nodata masks are not
+    applied, as in the reference. The tail batch runs at its own size:
+    PyTorch compiles nothing per shape.
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    predict = make_predict_fn(model, is_reg_task)
+    n = 0
+    t0 = time.time()
+    pending = None
+    with ThreadPoolExecutor(num_write_threads) as pool:
+        futures = []
+
+        def flush(copy, files):
+            for p, f in zip(copy.numpy(), files):
+                futures.append(pool.submit(save_prediction, p, f, out_dir, is_reg_task))
+
+        for x, files, _ in dataloader:
+            copy = _HostCopy(predict(x))
+            if pending is not None:
+                flush(*pending)
+            pending = (copy, files)
+            n += len(files)
+        if pending is not None:
+            flush(*pending)
+        for f in futures:
+            f.result()
+    dt = time.time() - t0
+    log.info("chip_inference: %d chips in %.2fs (%.1f chips/s)", n, dt,
+             n / dt if dt else 0.0)
     return n, dt

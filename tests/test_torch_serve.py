@@ -150,10 +150,20 @@ def test_server_chip_inference_roundtrip(models, tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    code = ("import sys, instageo_tpu_torch.serve.server\n"
-            "import instageo_tpu_torch.train.trainer, instageo_tpu_torch.ops.dropout\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'instageo_tpu')\n"
-            "       or m.startswith(('jax.', 'flax.', 'instageo_tpu.'))]\n"
-            "assert not bad, bad\n")
+    """Importing every module of the port pulls in neither JAX, the JAX
+    package, nor the libraries the port does without (PyYAML, pandas,
+    OpenCV)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "instageo_tpu_torch")
+    modules = sorted(
+        os.path.relpath(os.path.join(d, f), root)[:-3].replace(os.sep, ".")
+        for d, _, files in os.walk(pkg) for f in files
+        if f.endswith(".py") and f != "__init__.py")
+    assert "instageo_tpu_torch.train.run" in modules and len(modules) >= 25
+    code = ("import sys, importlib\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'flax', 'instageo_tpu', 'yaml', 'pandas', 'cv2')]\n"
+            "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)

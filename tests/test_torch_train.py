@@ -9,6 +9,14 @@ kernels in interpret mode (T=2), so that the Pallas backward is the
 reference. Dropout is off on both sides (JAX: ``TPUDropout`` intercepted,
 test-only; port: p = 0).
 
+The trainer's options hold to the JAX ``Trainer`` (one device mesh, dropout
+off) on one step from the same weights: ``grad_accum=2`` with unevenly
+padded micro-batches, regression with and without ``use_log_scale``, and
+distillation against a frozen teacher, with the same tolerances as the
+whole train step. ``AucHistogram`` and ``RegressionStats`` agree with
+theirs within 1e-6 relative. A run restored from its checkpoint goes on
+bit for bit as an unbroken one.
+
 Tolerances: losses 1e-6 relative (float32, another summation order);
 AdamW 1e-6 relative (float32 elementwise); train-step loss 1e-5 relative,
 gradients ‖Δ‖ ≤ 1e-4·‖ref‖ + 1e-6 per parameter and BatchNorm statistics
@@ -28,19 +36,27 @@ import pytest
 import torch
 from torch import nn
 
+from instageo_tpu.configs.config import load_config as jax_load_config
 from instageo_tpu.models.seg import TPUDropout
 from instageo_tpu.models.seg import create_prithvi_seg as jax_create_prithvi_seg
+from instageo_tpu.parallel.mesh import make_mesh
 from instageo_tpu.parallel.mesh import pad_batch as jax_pad_batch
 from instageo_tpu.train import losses as jl
+from instageo_tpu.train.metrics import AucHistogram as JaxAucHistogram
 from instageo_tpu.train.metrics import ConfusionMatrix as JaxConfusionMatrix
+from instageo_tpu.train.metrics import RegressionStats as JaxRegressionStats
 from instageo_tpu.train.optim import clip_params as jax_clip_params
 from instageo_tpu.train.optim import cosine_warm_restarts as jax_schedule
 from instageo_tpu.train.optim import make_optimizer as jax_make_optimizer
+from instageo_tpu.train.trainer import EpochMetrics as JaxEpochMetrics
+from instageo_tpu.train.trainer import Trainer as JaxTrainer
+from instageo_tpu_torch.configs.config import load_config
 from instageo_tpu_torch.models.checkpoint import seg_state_dict_from_jax
 from instageo_tpu_torch.models.registry import get_arch
 from instageo_tpu_torch.models.seg import create_prithvi_seg, train_mode
 from instageo_tpu_torch.train import losses as tl
-from instageo_tpu_torch.train.metrics import ConfusionMatrix
+from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+from instageo_tpu_torch.train.metrics import AucHistogram, ConfusionMatrix, RegressionStats
 from instageo_tpu_torch.train.optim import (
     clip_params,
     cosine_warm_restarts,
@@ -323,12 +339,203 @@ def test_fit_learns_the_toy_task():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """What the port does not run raises; grad_accum, distillation, the
+    regression task and checkpointing are ported and build."""
     model = create_prithvi_seg("prithvi_eo_tiny", depth=1, image_size=32,
                                param_dtype=torch.float32, device="cpu")
-    for cfg in ({"train": {"grad_accum": 2}}, {"train": {"distillation": True}},
-                {"tpu": {"steps_per_call": 4}}, {"is_reg_task": True}):
+    for cfg in ({"tpu": {"steps_per_call": 4}}, {"tpu": {"tp": 2}},
+                {"tpu": {"quant": "int8"}}, {"tpu": {"gelu": "tanh"}}):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, model, device="cpu")
-    trainer = Trainer({}, model, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.fit(list, list, checkpointer=object())
+    for cfg in ({"train": {"grad_accum": 2}}, {"train": {"distillation": True}},
+                {"tpu": {"steps_per_call": "auto"}}, {"is_reg_task": True}):
+        Trainer(cfg, model, device="cpu")
+    with pytest.raises(ValueError):
+        Trainer({}, model, device="cpu").restore("/nonexistent/instageo_best_checkpoint")
+
+
+# ---------------------------------------------------------------------------
+# The trainer's options against the JAX trainer, and metrics
+# ---------------------------------------------------------------------------
+
+METRIC_RTOL = 1e-6
+
+
+def test_auc_and_regression_stats_match_jax():
+    rng = np.random.default_rng(5)
+    c = 4
+    auc, auc_j = AucHistogram(c), JaxAucHistogram.empty(c)
+    reg, reg_j = RegressionStats(), JaxRegressionStats.empty()
+    for _ in range(3):
+        y = rng.integers(-1, c + 1, 500).astype(np.int32)
+        logits = rng.standard_normal((500, c)).astype(np.float32) * 2
+        probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+        valid = y != -1
+        auc.update(torch.from_numpy(y), torch.from_numpy(probs), torch.from_numpy(valid))
+        auc_j = auc_j.update(jnp.asarray(y), jnp.asarray(probs), jnp.asarray(valid))
+        x = rng.uniform(0, 3, 700).astype(np.float32)
+        p = (x + 0.3 * rng.standard_normal(700)).astype(np.float32)
+        v = rng.random(700) > 0.2
+        reg.update(torch.from_numpy(x), torch.from_numpy(p), torch.from_numpy(v))
+        reg_j = reg_j.update(jnp.asarray(x), jnp.asarray(p), jnp.asarray(v))
+    ours, ref = auc.score(), auc_j.score()
+    np.testing.assert_allclose(ours["roc_auc_per_class"], ref["roc_auc_per_class"],
+                               rtol=METRIC_RTOL)
+    np.testing.assert_allclose(ours["roc_auc_macro"], ref["roc_auc_macro"], rtol=METRIC_RTOL)
+    ours, ref = reg.compute(include_ee=True), reg_j.compute(include_ee=True)
+    for key in ("mae", "rmse", "r2_score", "pearson_corrcoef", "ee_percentage"):
+        np.testing.assert_allclose(ours[key], ref[key], rtol=METRIC_RTOL, err_msg=key)
+
+
+def _option_overrides(**extra):
+    return {"model.model_name": "prithvi_eo_tiny", "model.load_pretrained_weights": False,
+            "dataloader.img_size": 32, "dataloader.bands": [0, 1, 2, 3, 4, 5],
+            "train.learning_rate": LR, "train.weight_decay": 0.01, "train.ignore_index": -1,
+            "train.class_weights": CLASS_WEIGHTS, "train.batch_size": 4,
+            "model.num_classes": 3, "tpu.precision": "f32", "tpu.donate_state": False, **extra}
+
+
+def _jax_one_step(overrides, variables, x, y, num_classes, teacher=None):
+    """One optimizer step of the JAX Trainer on one batch (dropout off) from
+    ``variables``, built from its own pieces (``_prepare``, ``_micro_grads``
+    or ``_accum_grads``, ``_update_metrics``, its AdamW) in one jitted call
+    that also returns the gradients: (train metrics, gradients, params and
+    batch stats after the step)."""
+    cfg = jax_load_config("config", overrides=overrides)
+    model = jax_create_prithvi_seg("prithvi_eo_tiny", temporal_step=1, depth=2,
+                                   image_size=32, num_bands=6, num_classes=num_classes)
+    trainer = JaxTrainer(cfg, model, variables, mesh=make_mesh(1), teacher=teacher)
+
+    def step(state, xb, yb, rng):
+        empty = JaxEpochMetrics.empty(num_classes)
+        if trainer.grad_accum > 1:
+            grads, mutated, metrics = trainer._accum_grads(state, xb, yb, rng, empty)
+            batch_stats = mutated["batch_stats"]
+        else:
+            loss, logits, batch_stats, grads = trainer._micro_grads(
+                state.params, state.batch_stats, xb, yb, rng)
+            metrics = trainer._update_metrics(empty, logits, yb, loss, with_auc=False)
+        updates, _ = trainer.tx.update(grads, state.opt_state, state.params)
+        return grads, optax.apply_updates(state.params, updates), batch_stats, metrics
+
+    with fnn.intercept_methods(_no_dropout):
+        xb, yb = trainer._prepare(x, y, int(cfg.train.batch_size))
+        trainer._ensure_opt_state()
+        grads, params, batch_stats, metrics = jax.jit(step)(
+            trainer.state, xb, yb, jax.random.PRNGKey(0))
+    to_np = lambda tree: jax.tree.map(np.asarray, jax.device_get(tree))  # noqa: E731
+    return (trainer._finalize(metrics, "train", with_auc=False), to_np(grads),
+            to_np(params), to_np(batch_stats))
+
+
+def _port_model(variables, num_classes):
+    model = create_prithvi_seg("prithvi_eo_tiny", temporal_step=1, depth=2, image_size=32,
+                               num_bands=6, num_classes=num_classes,
+                               param_dtype=torch.float32, device="cpu")
+    model.load_state_dict(_bridge(variables["params"], variables["batch_stats"], 1))
+    return model
+
+
+def _assert_step_matches(model, ref_grads, ref_params, ref_bs):
+    """``test_train_step_matches_jax``'s bounds on the updated parameters.
+    The conv biases ahead of a BatchNorm (``segmentation_head.{i}.2.bias``)
+    have an exact gradient of 0, so both sides' are rounding noise: they
+    are held to the 2·lr bound only."""
+    grads_ref = _bridge(ref_grads, {}, 1)
+    after_ref = _bridge(ref_params, ref_bs, 1)
+    state = model.state_dict()
+    for name, value in after_ref.items():
+        if "running" in name:
+            np.testing.assert_allclose(state[name].numpy(), value.numpy(), atol=BN_TOL,
+                                       rtol=BN_TOL, err_msg=name)
+            continue
+        diff = (state[name] - value).abs()
+        pre_bn_bias = name.startswith("segmentation_head.") and name.endswith(".2.bias")
+        stable = (grads_ref[name].abs() >= 100 * ADAM_EPS) & (not pre_bn_bias)
+        assert (diff[stable] <= 1e-2 * LR).all(), name
+        assert diff.max().item() <= 2 * LR, name
+
+
+@pytest.mark.parametrize("case", ["grad_accum", "regression", "regression_log",
+                                  "distillation", "distillation_regression"])
+def test_trainer_options_match_jax(case):
+    """One step of the port's Trainer against the JAX Trainer's. grad_accum:
+    3 real chips padded to 4, so the second micro-batch holds one real
+    chip and one all-ignored pad; regression labels in [0, 3) with ignored
+    pixels; distillation against a second, frozen model."""
+    reg = case.startswith("regression") or case == "distillation_regression"
+    nc = 1 if reg else 3
+    extra = {"grad_accum": {"train.grad_accum": 2},
+             "regression": {"is_reg_task": True},
+             "regression_log": {"is_reg_task": True, "model.use_log_scale": True},
+             "distillation": {"train.distillation": True},
+             "distillation_regression": {"train.distillation": True, "is_reg_task": True},
+             }[case]
+    jax_model = jax_create_prithvi_seg("prithvi_eo_tiny", temporal_step=1, depth=2,
+                                       image_size=32, num_bands=6, num_classes=nc)
+    variables = random_seg_variables(jax_model, 1, 32, seed=30)
+    rng = np.random.default_rng(31)
+    n = 3 if case == "grad_accum" else 4
+    x = rng.standard_normal((n, 6, 1, 32, 32)).astype(np.float32)
+    if reg:
+        y = rng.uniform(0, 3, (n, 32, 32)).astype(np.float32)
+        y[:, :4] = -1.0
+    else:
+        y = rng.integers(0, 3, (n, 32, 32)).astype(np.int32)
+        y[:, :3] = -1
+    teacher_vars = teacher = None
+    if "distillation" in case:
+        teacher_vars = random_seg_variables(jax_model, 1, 32, seed=32)
+        teacher = _port_model(teacher_vars, nc).eval().requires_grad_(False)
+    ref_m, ref_g, ref_p, ref_bs = _jax_one_step(
+        _option_overrides(**extra), variables, x, y, nc,
+        teacher=None if teacher_vars is None else (jax_model, teacher_vars))
+
+    model = _port_model(variables, nc)
+    trainer = Trainer(load_config("config", overrides=_option_overrides(**extra)), model,
+                      device="cpu", teacher=teacher)
+    train_mode(model, torch.Generator(), dropout_rate=0.0)
+    got = trainer.run_train_epoch(iter([(x, y)]), torch.Generator(), 4)
+    np.testing.assert_allclose(got["train_loss"], ref_m["train_loss"], rtol=STEP_LOSS_RTOL)
+    if reg:
+        for key in ("train_RMSE", "train_MAE", "train_R2"):
+            np.testing.assert_allclose(got[key], ref_m[key], rtol=STEP_LOSS_RTOL, err_msg=key)
+    _assert_step_matches(model, ref_g, ref_p, ref_bs)
+    if reg:  # collect_outputs: the valid pixels' predictions and labels
+        out = trainer.run_eval_epoch(iter([(x, y)]), 4, "test", collect_outputs=True)
+        valid = y != -1.0
+        np.testing.assert_array_equal(out["_labels"], y[valid])
+        assert out["_preds"].shape == (valid.sum(),) and np.isfinite(out["_preds"]).all()
+
+
+def test_restore_resumes_bit_for_bit(tmp_path):
+    """2 epochs straight through == 1 epoch, checkpoint, restore into a
+    fresh Trainer, 1 more epoch: parameters, BatchNorm statistics and
+    AdamW moments equal bit for bit (dropout on, schedule on)."""
+    x, y = _synthetic_seg(n=8)
+
+    def run(epochs, restore_from=None, ckpt=None):
+        cfg = {"train": {"learning_rate": 1e-3, "weight_decay": 0.01, "ignore_index": -1,
+                         "batch_size": 4, "num_epochs": epochs, "scheduler": True},
+               "model": {"num_classes": 2}}
+        model = create_prithvi_seg("prithvi_eo_tiny", num_classes=2, depth=1, image_size=32,
+                                   param_dtype=torch.float32, device="cpu", seed=0)
+        trainer = Trainer(cfg, model, device="cpu", steps_per_epoch=2)
+        if restore_from:
+            trainer.restore(restore_from)
+        trainer.fit(_loader(x, y, 4), _loader(x, y, 4), checkpointer=ckpt, seed=7)
+        return trainer
+
+    straight = run(2)
+    ckpt = BestCheckpointer(str(tmp_path))
+    first = run(1, ckpt=ckpt)
+    resumed = run(1, restore_from=ckpt.path)
+    assert resumed.step == straight.step == 4 and resumed.epoch == 2
+    assert resumed.best_metric >= first.best_metric
+    for (name, a), b in zip(straight.model.state_dict().items(),
+                            resumed.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    opt_a, opt_b = straight.optimizer.state_dict(), resumed.optimizer.state_dict()
+    for key, st in opt_a["state"].items():
+        for field in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(st[field], opt_b["state"][key][field])
