@@ -6,7 +6,10 @@
 Phases, one line each (any failure raises and exits non-zero):
 
 1. device: the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
-2. build: every CUDA source under ``instageo_tpu_torch/ops/csrc``, in parallel;
+2. build: every CUDA source under ``instageo_tpu_torch/ops/csrc``, in parallel,
+   and the native GeoTIFF decoder (``instageo_tpu_torch/native``) beside
+   them, with what the machine offers it (zlib's header and library), or
+   the reason it is unavailable;
 3. kernels: each kernel (attention forward, attention backward, fused
    dropout) against its plain PyTorch version on the shapes the serving and
    training paths give it, with its time, the plain version's, one PyTorch
@@ -15,7 +18,9 @@ Phases, one line each (any failure raises and exits non-zero):
    earlier design's at the same shapes, in turns: the attention routes by
    head dim (wgmma for Dh 64 and 80, beside the mma.sync kernels); the
    backward's dq run to run; the dropout's mask equal to the plain Philox
-   stream bit for bit (and the earlier 4-element design's);
+   stream bit for bit (and the earlier 4-element design's), with its seed
+   by value and from device memory, the two timed in turns; under
+   deterministic mode the backward on the mma.sync route, two calls bit-equal;
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
    8 threads through the dynamic batcher and one batch run over synthetic
@@ -28,21 +33,38 @@ Phases, one line each (any failure raises and exits non-zero):
    (none on either mma.sync route),
    one step with the kernels against one with the plain versions, a train
    and an eval epoch (partial last batch), and chips/s at batch 8 and 32;
-6. run: the run CLI (``python -m instageo_tpu_torch.train.run``, called
-   in-process) on the crop config over 48 train and 16 val synthetic
+6. graph: ``tpu.steps_per_call: auto`` (8 optimizer steps per CUDA graph
+   at batch 8) against the one-step loop over 24 batches from the same
+   weights and seeds, each run twice: launches per step through the
+   replays; with the backward on its atomic-free kernel, and again under
+   deterministic mode, captured = eager bit for bit; with the default
+   backward, one group replayed from the state after the first group
+   against plain steps from that state (losses, parameters); the attention
+   forward and backward captured alone; a dropout graph replayed with two
+   seeds; ms per step eager vs captured at batch 8 and 32, and per eval
+   batch at 8, in turns; the grouped eval epoch vs the eager;
+7. loader: full-size synthetic chips through the native decoder and the
+   Python codec (bit for bit), batch jobs at batch 64 with each (in turns),
+   a loader epoch without and with the decoded-chip cache (cold, warm), a
+   loader's first batch from a worker thread and a worker process;
+8. run: the run CLI (``python -m instageo_tpu_torch.train.run``, called
+   in-process) on the crop config as a user runs it (a loader thread, the
+   chip cache, graphs of 8 steps) over 128 train and 16 val synthetic
    18-band chips and their CSVs: ``stats``, ``train`` (one epoch), ``eval``
    on the best checkpoint, ``chip_inference``; each mode's launches (every
-   attention launch on the wgmma route, 5 dropout launches per step), eval
-   against the saved epoch's validation metrics, the CLI's predictions
-   against ``ModelServer``'s; chips/s and wall seconds per mode;
-7. one JSON line ``{"kernels": [...]}``;
-8. last line: ``{"ok": true, "device": {...}}``.
+   attention launch on the wgmma route, 5 dropout launches per step,
+   replays included), eval against the saved epoch's validation metrics,
+   the CLI's predictions against ``ModelServer``'s; chips/s and wall
+   seconds per mode;
+9. one JSON line ``{"kernels": [...]}``;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
 ``configs/multitemporal_crop_classification.yaml``.
 
 Each path runs with every launch count set to 0 just before it and read
-just after it. Imports nothing of JAX or of the JAX package.
+just after it; a launch that a CUDA graph replays counts once per replay.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +77,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -125,10 +148,44 @@ TRAIN_BN_REL_TOL = 2e-2
 LOGIT_TOL = 0.05         # max |logit diff| / max |logit|
 DECIDED_GAP = 0.01       # pixels whose top-2 gap is at least this x max |logit| ...
 ARGMAX_AGREEMENT = 0.99  # ... agree at least this often
+# Captured vs eager training (``steps_per_call``). The wgmma backward adds
+# dQ's partial sums in an order that changes from run to run; nothing else
+# in the step does, so with the backward on its atomic-free kernel (alone,
+# or under deterministic mode) the captured and eager runs must agree bit
+# for bit. With the default backward, one group replayed from a saved state
+# against plain steps from that state: each step's loss within
+# GRAPH_LOSS_REL_TOL, each parameter's ‖captured − eager‖ within
+# GRAPH_NOISE_FACTOR times the largest ‖Δ‖ between plain runs from that
+# state plus GRAPH_PARAM_FLOOR of its norm. (Over 24 steps from the same
+# weights, AdamW compounds the dQ order until two eager runs differ by up
+# to 2e-3 of the loss on an H100, so the longer runs are held bit for bit
+# on the atomic-free kernel instead.) The eval metrics within GRAPH_EVAL_TOL.
+GRAPH_LOSS_REL_TOL = 1e-3
+GRAPH_NOISE_FACTOR = 2.0
+GRAPH_PARAM_FLOOR = 1e-6
+GRAPH_EVAL_TOL = 1e-3
+SEED = 1042  # the run CLI's
+# The run phase's wall seconds per mode when each loader spawned a worker
+# process, over 48 train and 16 val chips (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md keeps the comparison).
+SPAWNED_RUN_WALL_S = {"stats": 14.864, "train": 32.432, "eval": 12.282,
+                      "chip_inference": 11.674}
 # mode=eval on the saved checkpoint vs that epoch's validation metrics: the
 # same chips, weights and batches (bf16 weights cast once at load instead of
 # at each use), so they differ only by rounding.
 EVAL_TOL = 1e-3
+
+
+class Clock:
+    """Prints each named part's wall seconds as a ``[time]`` line."""
+
+    def __init__(self, phase: str) -> None:
+        self.phase, self.t0 = phase, time.perf_counter()
+
+    def lap(self, part: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {self.phase} {part}: {now - self.t0:.2f} s", flush=True)
+        self.t0 = now
 
 
 def check(cond: bool, msg: str) -> None:
@@ -434,12 +491,46 @@ def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
     return results
 
 
+def deterministic_bwd_phase(device, shape=(8, 12, 589, 64)) -> dict:
+    """Under ``torch.use_deterministic_algorithms(True)`` the backward takes
+    the mma.sync route, which has no atomics: two calls give the same dq,
+    dk and dv bit for bit."""
+    import torch
+
+    from instageo_tpu_torch.ops import attention as tattn
+
+    b, h, l, d = shape
+    g = torch.Generator(device=device).manual_seed(300)
+    q, k, v = (torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    o, lse = tattn.flash_attention_fwd(q, k, v, "merged")
+    do = torch.randn(o.shape, generator=g, device=device).to(torch.bfloat16)
+    torch.use_deterministic_algorithms(True)
+    try:
+        route = tattn.bwd_route(d)
+        mma0 = tattn.bwd_mma_launches.count
+        first = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+        second = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+        mma = tattn.bwd_mma_launches.count - mma0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = [bool(torch.equal(a, c)) for a, c in zip(first, second)]
+    check(route == "mma_sync" and (mma == 2 or device.type != "cuda"),
+          f"deterministic mode: route {route}, {mma} launches on mma.sync")
+    check(all(equal), f"deterministic backward differs between two calls: dq/dk/dv equal {equal}")
+    print(f"[kernels] deterministic mode at {shape}: bwd_route {route}, 2 calls on mma.sync, "
+          "dq, dk, dv bit-equal between them", flush=True)
+    return dict(shape=list(shape), route=route, mma_launches=mma, equal=equal)
+
+
 def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
     """Hold the dropout kernel's mask to the plain Philox stream and its
-    output to ``dropout_apply`` on that mask, bit for bit, at ``shapes``;
-    check its keep rate, streams and backward. Times the kernel and the
-    earlier design ("prev", 4 elements per thread and step) in turns (new,
-    prev, prev, new), by wrapper ms and device ms, beside ``F.dropout``."""
+    output to ``dropout_apply`` on that mask, bit for bit, at ``shapes``,
+    with the seed by value and from device memory; check its keep rate,
+    streams and backward. Times the kernel and the earlier design ("prev", 4
+    elements per thread and step) in turns (new, prev, prev, new), by
+    wrapper ms and device ms, beside ``F.dropout``; and the kernel with the
+    seed from device memory ("seed_ptr") in turns with it by value."""
     import torch
     import torch.nn.functional as F
 
@@ -479,6 +570,14 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         other = tdrop.fused_dropout_fwd(x, p, seed=i + 1000)[1]
         check(torch.equal(same, mask) and not torch.equal(other, mask),
               "one mask per seed, another for another seed")
+        # The seed read from device memory (the captured training step's
+        # route): the same 64 bits, the same mask and output.
+        seeds = torch.tensor([7, i, 2**63 - 5], dtype=torch.int64, device=device)
+        held = lambda: tdrop.fused_dropout_fwd(x, p, (seeds, 1))  # noqa: E731
+        held_out, held_mask = held()
+        check(torch.equal(held_mask, mask) and torch.equal(held_out, out),
+              f"the seed from device memory gives another mask than by value at {shape}")
+        del held_out, held_mask
         out0, mask0 = tdrop.fused_dropout_fwd(x, 0.0, seed=i)
         check(bool(mask0.all()) and torch.equal(out0, x), "p = 0 keeps everything")
         xr = x.detach().requires_grad_()
@@ -493,6 +592,10 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         if on_card:
             row.update(_in_turns(new, lambda: tdrop._fused_dropout_cuda(x, p, i, "x4"), device,
                                  iters, DROPOUT_SYMBOL))
+            ptr = _in_turns(held, new, device, iters, (DROPOUT_SYMBOL[0], DROPOUT_SYMBOL[0]))
+            row.update(seed_ptr_ms=ptr["ms"], seed_ptr_device_ms=ptr["device_ms"],
+                       seed_value_turns_ms=ptr["prev_ms"],
+                       seed_value_turns_device_ms=ptr["prev_device_ms"])
         else:
             row.update(ms=time_ms(new, device, iters), device_ms=None)
         row["plain_ms"] = time_ms(lambda: tdrop.fused_dropout_seeded_plain(x, p, i), device,
@@ -528,12 +631,29 @@ def _counters() -> dict:
 
 
 def reset_counts() -> None:
-    for counter in _counters().values():
+    from instageo_tpu_torch import native
+    from instageo_tpu_torch.ops import _build
+
+    for counter in (*_counters().values(), _build.graph_replays, native.decodes,
+                    native.fallback_decodes):
         counter.reset()
 
 
 def read_counts() -> dict:
-    return {name: counter.count for name, counter in _counters().items()}
+    """Each kernel's launches on the device since the reset: made directly
+    (``count``) plus those that graph replays made (``replayed``: the
+    launches each graph recorded at its capture, once per replay)."""
+    return {name: counter.total() for name, counter in _counters().items()}
+
+
+def read_graph_counts() -> dict:
+    """What CUDA graphs did since the reset: their replays, and per kernel
+    the launches recorded at capture and those that replays made."""
+    from instageo_tpu_torch.ops import _build
+
+    return {"graph_replays": _build.graph_replays.count,
+            "captured": {n: c.captured for n, c in _counters().items()},
+            "replayed": {n: c.replayed for n, c in _counters().items()}}
 
 
 def _write_chips(root: str, n: int, raw: np.ndarray) -> list:
@@ -836,6 +956,378 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
                 grad_rel_max=worst[0][1], loss_rel=loss_rel, rates=rates, peak_gb=peak_gb)
 
 
+def _params_rel_gap(a: dict, b: dict, noise: dict) -> dict:
+    """Per parameter: ‖a − b‖ over the allowed gap, GRAPH_NOISE_FACTOR times
+    its run-to-run ‖Δ‖ plus GRAPH_PARAM_FLOOR of its norm (≤ 1 passes)."""
+    return {n: ((a[n] - b[n]).float().norm()
+                / (GRAPH_NOISE_FACTOR * noise[n]
+                   + GRAPH_PARAM_FLOOR * b[n].float().norm()).clamp_min(1e-30)).item()
+            for n in b}
+
+
+def _first_difference(a: dict, b: dict):
+    """Where two training runs part: None when their losses and parameters
+    are equal bit for bit, else the first step whose loss differs and the
+    parameters that differ."""
+    import torch
+
+    steps = [i for i, (x, y) in enumerate(zip(a["losses"], b["losses"])) if x != y]
+    params = [n for n, p in a["params"].items() if not torch.equal(p, b["params"][n])]
+    if not steps and not params:
+        return None
+    return (f"first differing loss at step {steps[0] + 1 if steps else None} of "
+            f"{len(a['losses'])}; {len(params)} of {len(a['params'])} parameters differ, "
+            f"first {params[:3]}")
+
+
+def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 24,
+                rate_batches=(8, 32), rate_steps: int = 16) -> dict:
+    """``tpu.steps_per_call: auto`` (k = 8 at batch 8) against the one-step
+    loop on the crop model: the same weights, batches and seeds through
+    ``Trainer.run_train_epoch``, each run twice, with the default backward
+    and with its atomic-free kernel; once more under deterministic mode;
+    one group from a saved state, replayed and as plain steps; the
+    attention captured alone; the launches per step through the replays; a
+    dropout-only graph replayed with two seeds; ms per train step (batch 8
+    and 32) and per eval batch (8) in turns; the grouped eval epoch against
+    the eager one."""
+    import gc
+    import warnings
+
+    import torch
+
+    from instageo_tpu_torch.models.seg import SeedSlots, create_prithvi_seg
+    from instageo_tpu_torch.ops import _build
+    from instageo_tpu_torch.ops import attention as tattn
+    from instageo_tpu_torch.ops import dropout as tdrop
+    from instageo_tpu_torch.train.trainer import Trainer, epoch_generator
+
+    on_card = device.type == "cuda"
+    t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
+    batch = cfg["train"]["batch_size"]
+    model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                               device=device, seed=0)
+    depth = len(model.prithvi_encoder.blocks)
+    init = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    x, y = _crop_batch(max(2 * batch, max(rate_batches)), t, size, classes, seed=4, data=data)
+    rng = np.random.default_rng(5)
+    picks = [rng.choice(len(x), batch, replace=False) for _ in range(n_batches)]
+
+    def batches(ixs=picks):
+        for ix in ixs:
+            yield x[ix], y[ix]
+
+    def trainer_for(steps_per_call):
+        return Trainer({**cfg, "tpu": {"steps_per_call": steps_per_call}}, model, device=device)
+
+    def run(steps_per_call):
+        model.load_state_dict(init)
+        trainer = trainer_for(steps_per_call)
+        losses = []
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.run_train_epoch(batches(), epoch_generator(SEED, 0), batch, losses)
+        wall = time.perf_counter() - t0
+        out = dict(k=trainer.steps_per_call, steps=trainer.step, wall_s=wall,
+                   counts=read_counts(), graphs=read_graph_counts(),
+                   losses=[float(v) for v in losses], train_loss=metrics["train_loss"],
+                   params={n: p.detach().clone() for n, p in model.named_parameters()})
+        del trainer
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        return out
+
+    def four_runs(label, backward_kernel):
+        """Eager, captured, captured, eager: each run's launches per step
+        (the backward's on ``backward_kernel``)."""
+        mma = depth if backward_kernel == "mma_sync" else 0
+        expected = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
+                    "flash_attn_bwd_mma": mma, "fused_dropout": 5}
+        runs = {}
+        for name, spc in (("eager", 1), ("captured", "auto"), ("captured_2", "auto"),
+                          ("eager_2", 1)):
+            runs[name] = r = run(spc)
+            per_step = {n: c / r["steps"] for n, c in r["counts"].items()}
+            print(f"[graph] {label}, {name}: k={r['k']}, {r['steps']} steps in "
+                  f"{r['wall_s']:.3f} s, launches per step {json.dumps(per_step)}, graph "
+                  f"replays {r['graphs']['graph_replays']}, captured "
+                  f"{json.dumps(r['graphs']['captured'])}", flush=True)
+            check(r["steps"] == n_batches and all(math.isfinite(v) for v in r["losses"]),
+                  f"{label}, {name}: {r['steps']} steps, losses {r['losses']}")
+            if on_card:
+                check(per_step == expected,
+                      f"{label}, {name}: launches per step {per_step}, expected {expected}")
+        if on_card:
+            cap = runs["captured"]
+            k = cap["k"]
+            check(k == 8, f"steps_per_call auto gave k={k} at batch {batch}, expected 8")
+            check(cap["graphs"]["graph_replays"] == n_batches // k - 1
+                  and cap["graphs"]["captured"] == {n: c * k for n, c in expected.items()},
+                  f"{label}: graph counts {cap['graphs']}: expected {n_batches // k - 1} "
+                  f"replays of {k} captured steps")
+        return runs
+
+    def step_gaps(a, b):
+        return [abs(u - v) / abs(v) for u, v in zip(a["losses"], b["losses"])]
+
+    pairs = (("captured", "eager"), ("captured_2", "eager_2"), ("eager_2", "eager"),
+             ("captured_2", "captured"))
+    clock = Clock("graph")
+    # --- the default backward (wgmma): launches; the gaps that its dQ order
+    # leaves after n_batches AdamW steps, between any two runs --------------
+    runs = four_runs("default backward", "wgmma")
+    print(f"[graph] default backward, per-step loss rel gaps over {n_batches} steps: " + json.dumps(
+        {f"{a}/{b}": [float(f"{g:.3g}") for g in step_gaps(runs[a], runs[b])]
+         for a, b in pairs}), flush=True)
+    for r in runs.values():
+        r.pop("params")
+    clock.lap("four runs, default backward")
+
+    # --- the atomic-free backward: captured = eager bit for bit. Every
+    # backward on flash_attn_bwd.cu, the route deterministic mode takes, and
+    # the rest of the step as by default ------------------------------------
+    checks = []
+    with mock.patch.object(tattn, "bwd_route", lambda d: "mma_sync"):
+        exact = four_runs("atomic-free backward", "mma_sync")
+    parted = {f"{a}/{b}": _first_difference(exact[a], exact[b]) for a, b in pairs}
+    print(f"[graph] atomic-free backward, otherwise as by default, {n_batches} steps: "
+          f"{json.dumps({p: d or 'bit-equal' for p, d in parted.items()})}", flush=True)
+    checks.append((not any(parted.values()),
+                   f"with the atomic-free backward, runs differ: {parted}"))
+    for r in exact.values():
+        r.pop("params")
+    clock.lap("four runs, atomic-free backward")
+
+    # --- deterministic mode: captured vs eager bit for bit -----------------
+    det = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for name, spc in (("eager", 1), ("captured", "auto")):
+                det[name] = run(spc)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).splitlines()[0][:200] for w in caught
+                  if "deterministic" in str(w.message)})
+    det_parted = _first_difference(det["captured"], det["eager"])
+    det_per_step = {n: c / det["captured"]["steps"] for n, c in det["captured"]["counts"].items()}
+    print(f"[graph] deterministic mode: captured vs eager "
+          f"{det_parted or 'bit-equal (losses and every parameter)'}; launches per step "
+          f"{json.dumps(det_per_step)}; ops without a deterministic CUDA version in the "
+          f"step: {json.dumps(ops) if ops else 'none'}", flush=True)
+    if on_card:
+        check(det_per_step["flash_attn_bwd_mma"] == depth,
+              f"deterministic mode: backward launches per step {det_per_step}")
+    check(det_parted is None, f"captured vs eager differ under deterministic mode: "
+          f"{det_parted} (ops that warned: {ops or 'none'})")
+    for r in det.values():
+        r.pop("params")
+    clock.lap("deterministic runs")
+
+    # --- the default backward, one group from a saved state: replayed twice
+    # against plain steps three times ----------------------------------------
+    model.load_state_dict(init)
+    trainer = trainer_for("auto")
+    k = trainer.steps_per_call
+    gen = epoch_generator(SEED, 0)
+    trainer.run_train_epoch(batches(picks[:k]), gen, batch)  # plain steps, then the capture
+    saved_model = {n: v.clone() for n, v in model.state_dict().items()}
+    optimizer = trainer.optimizer
+    saved_opt = [(v, v.clone()) for st in optimizer.state.values() for v in st.values()
+                 if torch.is_tensor(v)]
+    saved_opt += [(g["lr"], g["lr"].clone()) for g in optimizer.param_groups
+                  if torch.is_tensor(g["lr"])]
+    saved_gen, saved_step = gen.get_state(), trainer.step
+
+    def from_saved(steps_per_call):
+        """The next k batches from the saved state, restored in place (the
+        graph holds these tensors)."""
+        model.load_state_dict(saved_model)
+        for live, saved in saved_opt:
+            live.copy_(saved)
+        gen.set_state(saved_gen)
+        trainer.step, trainer.steps_per_call = saved_step, steps_per_call
+        losses = []
+        trainer.run_train_epoch(batches(picks[k:2 * k]), gen, batch, losses)
+        return dict(losses=[float(v) for v in losses],
+                    params={n: p.detach().clone() for n, p in model.named_parameters()})
+
+    reset_counts()
+    window = {}
+    for name, spc in (("eager", 1), ("captured", k), ("eager_2", 1), ("captured_2", k),
+                      ("eager_3", 1)):
+        window[name] = from_saved(spc)
+    window_replays = read_graph_counts()["graph_replays"]
+    del trainer, optimizer, saved_opt, saved_model
+    eager_pairs = (("eager_2", "eager"), ("eager_3", "eager"), ("eager_3", "eager_2"))
+    noise = {n: max((window[a]["params"][n] - window[b]["params"][n]).float().norm()
+                    for a, b in eager_pairs) for n in window["eager"]["params"]}
+    same_loss = max(g for a, b in eager_pairs for g in step_gaps(window[a], window[b]))
+    loss_rel = max(g for a, b in pairs[:2] for g in step_gaps(window[a], window[b]))
+    gaps = {}
+    for a, b in pairs[:2]:
+        for n, g in _params_rel_gap(window[a]["params"], window[b]["params"], noise).items():
+            gaps[n] = max(g, gaps.get(n, 0.0))
+    worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
+    window_gaps = {f"{a}/{b}": [float(f"{g:.3g}") for g in step_gaps(window[a], window[b])]
+                   for a, b in pairs[:2]}
+    print(f"[graph] default backward, steps {k + 1}..{2 * k} from the state after step {k} "
+          f"(2 graph replays, 3 plain runs; {window_replays} replays counted): per-step loss "
+          f"rel gaps captured vs eager {json.dumps(window_gaps)}, max {loss_rel:.3g} (<= {GRAPH_LOSS_REL_TOL}; eager vs eager max {same_loss:.3g}); "
+          f"parameter gap / ({GRAPH_NOISE_FACTOR} x the largest eager-vs-eager ‖Δ‖ + "
+          f"{GRAPH_PARAM_FLOOR} x norm) max {worst[0][1]:.3g} (<= 1; worst {json.dumps(worst)})",
+          flush=True)
+    # Checked at the end of the script, so that a failure here still
+    # leaves the later phases' numbers.
+    checks += [(loss_rel <= GRAPH_LOSS_REL_TOL,
+                f"captured vs eager losses from one state differ by {loss_rel}"),
+               (worst[0][1] <= 1.0, f"captured vs eager parameters from one state differ: {worst}")]
+    if on_card:
+        checks.append((window_replays == 2, f"{window_replays} replays from the saved state"))
+    del window
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    clock.lap("one group from a saved state")
+
+    # --- the attention alone, forward and backward captured at the step's
+    # shape: O, dk, dv = eager bit for bit, dq within the run-to-run bound -----
+    if on_card:
+        arch = model.arch
+        pt, ph, pw = arch.patch_size
+        heads = arch.num_heads
+        shape = (batch, heads, (arch.num_frames // pt) * (size // ph) * (size // pw) + 1,
+                 arch.embed_dim // heads)
+        g = torch.Generator(device=device).manual_seed(301)
+        q, kk, v = (torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+                    .requires_grad_() for _ in range(3))
+        do = torch.randn((shape[0], shape[2], arch.embed_dim), generator=g,
+                         device=device).to(torch.bfloat16)
+
+        def fwd_bwd():
+            o = tattn.flash_attention_blo(q, kk, v)
+            return (o.detach(),) + torch.autograd.grad(o, (q, kk, v), do)
+
+        eager_out = fwd_bwd()
+        graph = _build.CapturedGraph(fwd_bwd)
+        attn = []
+        for _ in range(2):
+            graph.replay()
+            o, dq, dk, dv = graph.outputs
+            attn.append(dict(o=bool(torch.equal(o, eager_out[0])),
+                             dk=bool(torch.equal(dk, eager_out[2])),
+                             dv=bool(torch.equal(dv, eager_out[3])),
+                             dq=_run_to_run(dq, eager_out[1])))
+        held = {("forward" if c is tattn.launches else "backward"): n
+                for c, n in graph.launches.items()}
+        print(f"[graph] attention forward + backward captured alone at {shape} (the "
+              f"{tattn.bwd_route(shape[-1])} backward), two replays vs eager: "
+              f"{json.dumps(attn)}; launches held {json.dumps(held)}", flush=True)
+        check(graph.launches == {tattn.launches: 1, tattn.bwd_launches: 1},
+              f"the attention graph holds {graph.launches}")
+        check(all(r["o"] and r["dk"] and r["dv"] and r["dq"]["within"] for r in attn),
+              f"captured attention differs from eager: {attn}")
+        del graph, eager_out, q, kk, v, do
+    clock.lap("attention graph")
+
+    # --- a dropout-only graph: one mask per replayed seed --------------------
+    xd = torch.randn(DROPOUT_SHAPES[-1], device=device).to(torch.bfloat16)
+    slots = SeedSlots(1, device)
+    masks = {}
+    if on_card:
+        graph = _build.CapturedGraph(lambda: tdrop.fused_dropout_fwd(xd, 0.1, slots.take()))
+        for seed in (11, 2**62 + 3):
+            slots.buffer.fill_(seed)
+            graph.replay()
+            mask = graph.outputs[1].clone()
+            plain = tdrop.fused_dropout_seeded_plain(xd, 0.1, seed)[1]
+            masks[seed] = bool(torch.equal(mask, plain))
+            masks.setdefault("masks", []).append(mask)
+        two = masks.pop("masks")
+        check(all(masks.values()) and not torch.equal(*two),
+              f"dropout graph replays: equal to the plain stream {masks}, two masks differ "
+              f"{not torch.equal(*two)}")
+        check(graph.launches == {tdrop.launches: 1}, "the dropout graph holds one launch")
+        print(f"[graph] a dropout graph of {DROPOUT_SHAPES[-1]} replayed with seeds {list(masks)}: "
+              "each mask = the plain Philox stream of its seed, the two differ", flush=True)
+        del graph, two
+    del xd
+    clock.lap("dropout graph")
+
+    # --- the grouped eval epoch against the eager one ------------------------
+    evals, eval_trainers = {}, {}
+    for name, spc in (("eager", 1), ("captured", "auto")):
+        trainer = eval_trainers[name] = trainer_for(spc)
+        reset_counts()
+        evals[name] = {step: trainer.run_eval_epoch(batches(), batch, step)
+                       for step in ("val", "test")}
+        evals[name]["counts"] = read_counts()
+        evals[name]["replays"] = read_graph_counts()["graph_replays"]
+    keys = [k for k in evals["eager"]["val"] if not k.startswith("val_IoU_")
+            and not k.startswith("val_F1_")]
+    eval_gap = max(abs(evals["captured"][st][k.replace("val", st)]
+                       - evals["eager"][st][k.replace("val", st)])
+                   for st in ("val", "test") for k in keys)
+    auc_gap = abs(evals["captured"]["test"]["test_roc_auc"] - evals["eager"]["test"]["test_roc_auc"])
+    print(f"[graph] eval epochs of {n_batches} batches, captured vs eager: largest metric gap "
+          f"{eval_gap:.3g}, roc_auc {auc_gap:.3g} (<= {GRAPH_EVAL_TOL}); val_loss "
+          f"{evals['captured']['val']['val_loss']:.6f}; graph replays "
+          f"{evals['captured']['replays']}; launches {json.dumps(evals['captured']['counts'])}",
+          flush=True)
+    check(max(eval_gap, auc_gap) <= GRAPH_EVAL_TOL, f"captured eval differs by {eval_gap}")
+    if on_card:
+        check(evals["captured"]["counts"]["flash_attn_fwd"] == 2 * depth * n_batches,
+              f"eval launches {evals['captured']['counts']}")
+    # ms per eval batch, eager vs captured, in turns (host clock, synchronised
+    # by the epoch's metrics; both graphs of the val epoch are captured).
+    eval_turns = {"eager": [], "captured": []}
+    for name in ("eager", "captured", "captured", "eager"):
+        t0 = time.perf_counter()
+        eval_trainers[name].run_eval_epoch(batches(), batch, "val")
+        eval_turns[name].append((time.perf_counter() - t0) * 1e3 / n_batches)
+    eval_ms = {n: sum(v) / len(v) for n, v in eval_turns.items()}
+    print(f"[graph] eval at batch {batch}: {eval_ms['eager']:.3f} ms per batch eager, "
+          f"{eval_ms['captured']:.3f} captured; turns {json.dumps(eval_turns)}", flush=True)
+    del eval_trainers, trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    clock.lap("eval epochs")
+
+    # --- ms per step, eager vs captured, in turns (host clock, synchronised
+    # by the epoch's metrics) -----------------------------------------------
+    rates = {}
+    for b in rate_batches:
+        host = [(x[:b], y[:b])] * rate_steps
+        trainers = {"eager": trainer_for(1), "captured": trainer_for("auto")}
+        gen = torch.Generator().manual_seed(0)
+        for tr in trainers.values():
+            tr.run_train_epoch(iter(host[:8]), gen, b)  # warm-up; captures the graph
+        turns = {"eager": [], "captured": []}
+        for name in ("eager", "captured", "captured", "eager"):
+            t0 = time.perf_counter()
+            trainers[name].run_train_epoch(iter(host), gen, b)
+            turns[name].append((time.perf_counter() - t0) * 1e3 / rate_steps)
+        rates[b] = {n: sum(v) / len(v) for n, v in turns.items()}
+        rates[b]["turns"] = turns
+        rates[b]["k"] = trainers["captured"].steps_per_call
+        print(f"[graph] batch {b}: {rates[b]['eager']:.3f} ms per step eager, "
+              f"{rates[b]['captured']:.3f} captured (k={rates[b]['k']}); turns "
+              f"{json.dumps(turns)}", flush=True)
+        del trainers
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        clock.lap(f"rates at batch {b}")
+    del model
+    return dict(runs=runs, exact=exact, deterministic=det, deterministic_ops=ops,
+                loss_rel=loss_rel, param_gap_max=worst[0][1], eval_gap=eval_gap,
+                eval_ms=eval_ms, rates=rates, launches=runs["captured"]["counts"],
+                graphs=runs["captured"]["graphs"], checks=checks)
+
+
 def _write_dataset(root: str, n_train: int, n_val: int, n_bands: int, size: int,
                    classes: int) -> list:
     """Synthetic uint16 chips of ``n_bands`` bands and int16 label rasters
@@ -867,11 +1359,164 @@ def _write_dataset(root: str, n_train: int, n_val: int, n_bands: int, size: int,
     return [os.path.join(root, r["Input"]) for r in rows[n_train:]]
 
 
-def run_phase(device, extra=(), n_train: int = 48, n_val: int = 16) -> dict:
+def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: int = 64,
+                 n_cache: int = 64, extra=()) -> dict:
+    """The host path that feeds the card, on full-size synthetic chips (18
+    uint16 bands, 224 px): the native decoder against the Python codec bit
+    for bit (deflate on noise; LZW, striped and tiled with the predictor, on
+    16-px patches);
+    ``chip_inference_from_paths`` at batch 64 with each decoder, in turns;
+    a loader epoch without the decoded-chip cache, with it cold and warm;
+    the time to a loader's first batch with a worker thread and a worker
+    process, in turns. ``extra``: config overrides (a CPU rehearsal's
+    image size)."""
+    import torch
+
+    from instageo_tpu_torch import native
+    from instageo_tpu_torch.configs.config import load_config_from_argv
+    from instageo_tpu_torch.data.dataloader import create_dataloader
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader, write_geotiff
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    from instageo_tpu_torch.serve.infer import chip_inference_from_paths
+    from instageo_tpu_torch.train import run
+
+    t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
+    n_bands = 6 * t
+    out: dict = {"native": native.available(), "reason": native.unavailable_reason}
+    clock = Clock("loader")
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    try:
+        rng = np.random.default_rng(6)
+        if out["native"]:
+            same = {}
+            noise = rng.integers(0, 10000, (n_bands, size, size), dtype=np.uint16)
+            # LZW chips constant over 16-px patches: the Python codec's LZW
+            # takes minutes on a full-size chip of noise.
+            patches = np.repeat(np.repeat(rng.integers(
+                0, 10000, (n_bands, -(-size // 16), -(-size // 16)), dtype=np.uint16), 16, 1),
+                16, 2)[:, :size, :size]
+            for name, raw, kw in (
+                    ("deflate", noise, dict(compress="deflate")),
+                    ("lzw", patches, dict(compress="lzw")),
+                    ("lzw_tiled_predictor", patches,
+                     dict(compress="lzw", tiled=True, tile_size=64, predictor=True))):
+                path = os.path.join(root, f"codec_{name}.tif")
+                write_geotiff(path, raw, **kw)
+                with GeoTiffReader(path) as r:
+                    python_codec = r.read()
+                decoded = native.read_geotiff_native(path)
+                same[name] = bool(np.array_equal(decoded, python_codec)
+                                  and np.array_equal(decoded, raw))
+            check(all(same.values()), f"native decoder vs the Python codec: {same}")
+            print(f"[loader] native decoder = Python codec bit for bit on {n_bands}-band {size} "
+                  f"px uint16 chips: {json.dumps(same)}", flush=True)
+            out["bit_equal"] = same
+        else:
+            print(f"[loader] the native decoder is unavailable here: {out['reason']}", flush=True)
+
+        clock.lap("codec check")
+
+        # --- batch jobs over chip files: native vs Python decode, in turns ---
+        raw = rng.integers(0, 10000, (8, n_bands, size, size), dtype=np.uint16)
+        paths = _write_chips(root, n_chips, raw)
+        clock.lap(f"writing {n_chips} chips")
+        model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, device=device, seed=0)
+        kw = dict(temporal_size=t, bands=data["bands"][:n_bands], constant_multiplier=1.0,
+                  batch_size=batch, img_size=size)
+        chip_inference_from_paths(paths[:batch], os.path.join(root, "warm"), model,
+                                  data["mean"], data["std"], **kw)
+        turns = {True: [], False: []}
+        decodes = {}
+        for use_native in (True, False, False, True):
+            reset_counts()
+            # The Python codec's turns: the native decoder made unavailable.
+            with mock.patch.object(native, "available", lambda: use_native and out["native"]):
+                n, dt = chip_inference_from_paths(
+                    paths, os.path.join(root, f"pred_{use_native}"), model, data["mean"],
+                    data["std"], **kw)
+            check(n == n_chips, f"batch job served {n} chips")
+            turns[use_native].append(n / dt)
+            decodes[use_native] = (native.decodes.count, native.fallback_decodes.count)
+        rates = {("native" if k else "python"): sum(v) / len(v) for k, v in turns.items()}
+        if out["native"]:
+            check(decodes[True] == (n_chips, 0) and decodes[False] == (0, n_chips),
+                  f"files decoded (native, Python codec): {decodes}")
+        print(f"[loader] chip_inference_from_paths, {n_chips} chips at batch {batch}: "
+              f"{rates['native']:.2f} chips/s with the native decoder, {rates['python']:.2f} "
+              f"with the Python codec (turns {json.dumps({str(k): v for k, v in turns.items()})}; "
+              f"native decodes {decodes[True][0]})", flush=True)
+        out["batch_job_chips_per_s"], out["batch_job_turns"] = rates, turns
+        del model
+        clock.lap("batch jobs")
+
+        # --- a loader epoch through the decoded-chip cache ------------------
+        data_root = os.path.join(root, "dataset")
+        os.makedirs(data_root)
+        _write_dataset(data_root, n_cache, 0, n_bands, size, classes)
+        clock.lap(f"writing {n_cache} chips and labels")
+        base = [f"--config-name={CROP_CONFIG}", f"root_dir={data_root}", *extra]
+        if device.type != "cuda":
+            base.append("device=cpu")
+        epochs, walls = {}, {}
+        for name, cache in (("uncached", None), ("cache_cold", "cache"), ("cache_warm", "cache")):
+            cfg = load_config_from_argv(
+                base + ([f"dataloader.cache_dir={data_root}/{cache}"] if cache else []))
+            t0 = time.perf_counter()
+            ds = run._make_dataset(f"{data_root}/train.csv", cfg,
+                                   run._train_preprocess(cfg, augment=False), seed=SEED)
+            loader = create_dataloader(ds, 8, num_workers=int(cfg.dataloader.num_workers),
+                                       device=device)
+            epochs[name] = [tuple(a.clone() for a in b) for b in loader]
+            walls[name] = time.perf_counter() - t0
+            del loader, ds
+        for name in ("cache_cold", "cache_warm"):
+            check(all(torch.equal(a, b) for ba, bb in zip(epochs["uncached"], epochs[name])
+                      for a, b in zip(ba, bb)) and len(epochs[name]) == len(epochs["uncached"]),
+                  f"{name} batches differ from the uncached epoch")
+        cache_rates = {n: n_cache / w for n, w in walls.items()}
+        print(f"[loader] {n_cache} chips, QA scan + one epoch (config's workers, thread mode): "
+              + ", ".join(f"{n} {cache_rates[n]:.2f} chips/s ({walls[n]:.3f} s)" for n in walls)
+              + "; cold and warm batches = uncached", flush=True)
+        out["cache_chips_per_s"], out["cache_wall_s"] = cache_rates, walls
+        del epochs
+        clock.lap("cache epochs")
+
+        # --- time to the first batch: a worker thread vs a worker process,
+        # over one batch of chips, so that each epoch runs to its end ------
+        cfg = load_config_from_argv(base)
+        with open(f"{data_root}/train.csv") as f:
+            first_rows = f.read().splitlines()[:9]
+        with open(f"{data_root}/first.csv", "w") as f:
+            f.write("\n".join(first_rows) + "\n")
+        ds = run._make_dataset(f"{data_root}/first.csv", cfg,
+                               run._train_preprocess(cfg, augment=False), seed=SEED)
+        first = {"thread": [], "process": []}
+        for mode in ("thread", "process", "process", "thread"):
+            t0 = time.perf_counter()
+            loader = create_dataloader(ds, 8, num_workers=1, worker_mode=mode, device=device)
+            batches = iter(loader)
+            next(batches)
+            first[mode].append(time.perf_counter() - t0)
+            check(next(batches, None) is None, "the first-batch loader holds one batch")
+            del batches, loader
+        out["first_batch_s"] = {m: sum(v) / len(v) for m, v in first.items()}
+        print(f"[loader] first batch (8 chips) with one worker: thread "
+              f"{out['first_batch_s']['thread']:.3f} s, process "
+              f"{out['first_batch_s']['process']:.3f} s (turns {json.dumps(first)})", flush=True)
+        clock.lap("first batches")
+    finally:
+        tmp.cleanup()
+    return out
+
+
+def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
     """The run CLI (``instageo_tpu_torch.train.run.main``, in-process) on
-    the crop config over synthetic chip CSVs: ``stats``, ``train`` (one
-    epoch), ``eval`` on the best checkpoint, ``chip_inference``; each mode
-    with the launch counts set to 0 just before it and read just after.
+    the crop config over synthetic chip CSVs, as a user runs it (a worker
+    thread, the decoded-chip cache, ``steps_per_call: auto``, so ``train``
+    replays a graph of 8 steps): ``stats``, ``train`` (one epoch), ``eval``
+    on the best checkpoint, ``chip_inference``; each mode with the launch
+    counts set to 0 just before it and read just after, replays included.
     Checks the loss, the launches of each mode, eval against the saved
     epoch's validation metrics, and the CLI's predictions against
     ``ModelServer.chip_inference_from_paths`` on the same checkpoint.
@@ -892,6 +1537,7 @@ def run_phase(device, extra=(), n_train: int = 48, n_val: int = 16) -> dict:
     base = [f"--config-name={CROP_CONFIG}", f"root_dir={root}",
             f"train_filepath={root}/train.csv", f"valid_filepath={root}/val.csv",
             f"test_filepath={root}/val.csv", f"run_dir={root}/run",
+            f"dataloader.cache_dir={root}/cache",
             "model.load_pretrained_weights=False", "train.num_epochs=1", *extra]
     if not on_card:
         base.append("device=cpu")
@@ -905,7 +1551,7 @@ def run_phase(device, extra=(), n_train: int = 48, n_val: int = 16) -> dict:
         val_paths = _write_dataset(root, n_train, n_val, len(dl.bands), size, classes)
         print(f"[run] wrote {n_train} + {n_val} chips of {len(dl.bands)} bands, {size} px "
               f"with labels 0..{classes} in {time.perf_counter() - t0:.2f} s", flush=True)
-        out, counts, wall = {}, {}, {}
+        out, counts, graphs, wall = {}, {}, {}, {}
         ckpt = os.path.join(root, "run", "instageo_best_checkpoint")
         for mode, more in (("stats", []), ("train", []),
                            ("eval", [f"checkpoint_path={ckpt}"]),
@@ -917,12 +1563,14 @@ def run_phase(device, extra=(), n_train: int = 48, n_val: int = 16) -> dict:
             if on_card:
                 torch.cuda.synchronize()
             wall[mode] = time.perf_counter() - t0
-            counts[mode] = read_counts()
+            counts[mode], graphs[mode] = read_counts(), read_graph_counts()
             # ---------------------------------------------------------------
             chips = n_train if mode in ("stats", "train") else n_val
             print(f"[run] mode={mode}: {chips} chips in {wall[mode]:.3f} s wall "
-                  f"({chips / wall[mode]:.2f} chips/s); launches {json.dumps(counts[mode])}",
-                  flush=True)
+                  f"({chips / wall[mode]:.2f} chips/s; with spawned workers over 48 train / "
+                  f"16 val chips: {SPAWNED_RUN_WALL_S[mode]} s); launches "
+                  f"{json.dumps(counts[mode])}, graph replays "
+                  f"{graphs[mode]['graph_replays']}", flush=True)
 
         stats = out["stats"]
         check(len(stats["mean"]) == len(dl.mean) and len(stats["class_weights"]) <= classes,
@@ -946,6 +1594,10 @@ def run_phase(device, extra=(), n_train: int = 48, n_val: int = 16) -> dict:
             for mode, want in expected.items():
                 check(counts[mode] == want, f"mode={mode}: launches {counts[mode]}, "
                       f"expected {want}")
+            groups = steps // 8  # steps_per_call auto: k = 8 at batch 8
+            check(graphs["train"]["graph_replays"] == groups - 1,
+                  f"mode=train: {graphs['train']['graph_replays']} graph replays for "
+                  f"{groups} full groups of 8 steps")
         with open(ckpt + ".metrics.json") as f:
             saved = json.load(f)
         ev = out["eval"]
@@ -1025,11 +1677,33 @@ def run_phase(device, extra=(), n_train: int = 48, n_val: int = 16) -> dict:
         del model
         if on_card:
             torch.cuda.empty_cache()
-        return dict(counts=counts, wall_s=wall, chips_per_s=rates, eval_gap=eval_gap,
+        return dict(counts=counts, graphs=graphs, wall_s=wall, chips_per_s=rates,
+                    eval_gap=eval_gap,
                     agreement=agree, train_loss=hist["train_loss"],
                     epoch_s=hist["epoch_time_s"], loader_s=loader_s)
     finally:
         tmp.cleanup()
+
+
+def _build_native() -> None:
+    """Build the native GeoTIFF decoder (``instageo_tpu_torch/native``) and
+    say what the machine offers it: zlib's header, zlib's runtime library,
+    and whether the decoder loaded, with the reason where it did not."""
+    import ctypes.util
+
+    from instageo_tpu_torch import native
+
+    import shutil
+
+    found = shutil.which("g++") is not None and subprocess.run(
+        ["g++", "-E", "-x", "c++", "-", "-o", os.devnull], input="#include <zlib.h>\n",
+        capture_output=True, text=True).returncode == 0
+    print(f"[build] zlib.h for g++: {'found' if found else 'missing'}; "
+          f"libz: {ctypes.util.find_library('z') or 'not found'}", flush=True)
+    if native.available():
+        print(f"[build] native decoder: {native.lib_path()}", flush=True)
+    else:
+        print(f"[build] native decoder unavailable: {native.unavailable_reason}", flush=True)
 
 
 def _kernel_row(name: str, source: str, replaces: str, also, row: dict,
@@ -1045,6 +1719,9 @@ def _kernel_row(name: str, source: str, replaces: str, also, row: dict,
 
 
 def main() -> int:
+    # Deterministic cuBLAS for the graph phase's deterministic run; read
+    # when CUDA starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1064,26 +1741,47 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = _build.sources()
+    native_build = threading.Thread(target=_build_native)
+    native_build.start()
     _build.build(names)
-    print(f"[build] {', '.join(n + '.cu' for n in names)} in "
+    native_build.join()
+    print(f"[build] {', '.join(n + '.cu' for n in names)} and the native decoder in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in names:
         for line in _build.build_logs.get(name, "").splitlines():
             if "Used" in line or "spill" in line or "setmaxnreg" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    clock = Clock("main")
     rows = kernel_phase(device, KERNEL_SHAPES)
     bwd_rows = bwd_kernel_phase(device, BWD_SHAPES)
+    deterministic_bwd_phase(device)
     drop_rows = dropout_phase(device, DROPOUT_SHAPES)
+    clock.lap("kernels")
     _, crop_model, crop_train_cfg, crop_data = crop_setup()
     served = slice_phase(device, crop_model, crop_data)
+    clock.lap("slice")
     print(f"[slice] {smi}: chips/s " + ", ".join(
         f"batch {b}: {r:.2f}" for b, r in served["chips_per_s"].items()), flush=True)
     trained = train_phase(device, crop_model, crop_train_cfg, crop_data)
+    clock.lap("train")
     print(f"[train] {smi}: " + ", ".join(
         f"batch {b}: {r['ms_per_step']:.3f} ms per step, {r['chips_per_s']:.2f} chips/s"
         for b, r in trained["rates"].items()), flush=True)
+    graphed = graph_phase(device, crop_model, crop_train_cfg, crop_data)
+    clock.lap("graph")
+    print(f"[graph] {smi}: " + ", ".join(
+        f"batch {b}: {r['eager']:.3f} ms per step eager, {r['captured']:.3f} captured"
+        for b, r in graphed["rates"].items()) + ", eval: {eager:.3f} ms per batch eager, "
+        "{captured:.3f} captured".format(**graphed["eval_ms"]), flush=True)
+    loaded = loader_phase(device, crop_model, crop_data)
+    clock.lap("loader")
+    print(f"[loader] {smi}: batch jobs " + ", ".join(
+        f"{k} {v:.2f} chips/s" for k, v in loaded["batch_job_chips_per_s"].items()), flush=True)
     ran = run_phase(device)
+    clock.lap("run")
+    for ok, msg in graphed["checks"]:  # the graph phase's training comparisons
+        check(ok, msg)
     print(f"[run] {smi}: " + ", ".join(
         f"mode={m}: {ran['chips_per_s'][m]:.2f} chips/s, {ran['wall_s'][m]:.3f} s wall"
         for m in ran["wall_s"]), flush=True)
@@ -1129,7 +1827,8 @@ def main() -> int:
                     None, drop, drop_launches, drop_rows),
     ]
     by_shape = ("shape", "device_ms", "prev_device_ms", "library_device_ms", "ms", "prev_ms",
-                "library_ms", "bound_ms")
+                "library_ms", "bound_ms", "seed_ptr_ms", "seed_ptr_device_ms",
+                "seed_value_turns_ms", "seed_value_turns_device_ms")
     for k, rs in ((kernels[0], wgmma_rows), (kernels[2], bwd_wgmma_rows), (kernels[4], drop_rows)):
         k["by_shape"] = [{key: r.get(key) for key in by_shape + ("inputs", "entry")
                           if key in r} for r in rs]
@@ -1139,8 +1838,10 @@ def main() -> int:
                 "flash_attn_bwd_sm90": lambda c: c["flash_attn_bwd"] - c["flash_attn_bwd_mma"],
                 "flash_attn_bwd": lambda c: c["flash_attn_bwd_mma"],
                 "fused_dropout": lambda c: c["fused_dropout"]}
+    graph_by_route = {k["name"]: by_route[k["name"]](graphed["launches"]) for k in kernels}
     for k in kernels:
         k["card"] = smi
+        k["launches_by_path"]["graph"] = graph_by_route[k["name"]]
         for mode, c in ran["counts"].items():
             k["launches_by_path"][f"run_{mode}"] = by_route[k["name"]](c)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,26 +10,38 @@ and semantics:
 * ``process_and_augment``: random (or centre) crop -> augs -> per-frame
   normalise -> (C, T, H, W);
 * ``process_test``: sliding-window crops stacked to (N, C, T, h, w);
-* ``get_valid_filepaths``: the chip CSV's QA scan.
+* ``get_valid_filepaths``: the chip CSV's QA scan;
+* the decoded-chip cache (``cache_dir``): each full raster decoded once
+  and kept as a ``.npy`` file keyed by (path hash, ``mtime_ns``, size).
+
+Full rasters decode with the port's native decoder (``native/``) where it
+builds, else with the Python codec (``data/geotiff.py``).
 
 The port uses neither OpenCV nor pandas: the rotation is nearest-neighbour
 in numpy with OpenCV's ``warpAffine`` coordinate arithmetic, the blur a
 separable Gaussian with ``getGaussianKernel``'s taps and reflect-101
 borders, and the CSV goes through the ``csv`` module.
 
-Batches come from a ``torch.utils.data.DataLoader`` (``create_dataloader``)
-whose worker processes run only numpy: data reaches the device in the
+Batches come from ``create_dataloader``: worker threads in this process
+(``worker_mode="thread"``, the configs' setting), spawned worker processes
+of a ``torch.utils.data.DataLoader`` (``"process"``), or the caller's own
+thread (no workers). Workers run only numpy: data reaches the device in the
 trainer. Augmentation draws come from a numpy ``Generator`` seeded from
-(seed, epoch, index), so a run is reproducible whatever the worker count.
-The decoded-chip cache (``cache_dir``) is not ported.
+(seed, epoch, index), so the batches are the same whatever the worker mode
+and count.
 """
 
 from __future__ import annotations
 
 import csv
+import glob
+import hashlib
 import logging
 import math
 import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,7 +52,7 @@ from instageo_tpu_torch.data.geotiff import GeoTiffReader
 
 log = logging.getLogger(__name__)
 
-_NO_CACHE = "the decoded-chip cache (dataloader.cache_dir) is not ported yet: ROADMAP item 3"
+WORKER_MODES = ("thread", "process")
 
 
 # ---------------------------------------------------------------------------
@@ -48,11 +60,97 @@ _NO_CACHE = "the decoded-chip cache (dataloader.cache_dir) is not ported yet: RO
 # ---------------------------------------------------------------------------
 
 
-def get_raster_data(fname: str, is_label: bool = True,
-                    bands: Optional[Sequence[int]] = None) -> np.ndarray:
-    """Read a raster to (bands, H, W); select bands for imagery."""
+def _read_full(fname: str) -> np.ndarray:
+    """Full-raster decode: the native decoder when it builds, the Python
+    codec else (and for a file the native decoder refuses)."""
+    from instageo_tpu_torch import native
+
+    if native.available():
+        try:
+            return native.read_geotiff_native(fname)
+        except (OSError, RuntimeError, KeyError):
+            pass  # the Python codec decides
     with GeoTiffReader(fname) as src:
         data = src.read()
+    native.fallback_decodes.add()
+    return data
+
+
+def _cache_key_prefix(fname: str) -> str:
+    return hashlib.sha1(os.path.abspath(fname).encode()).hexdigest()[:20]
+
+
+def _read_full_cached(fname: str, cache_dir: str) -> np.ndarray:
+    """The full decoded raster through the decoded-chip cache.
+
+    Entries are ``np.save`` files named by (path hash, ``mtime_ns``, size),
+    so a rewritten source misses its old entry. A miss or a corrupt entry
+    decodes and writes the entry: to a temporary name, then
+    ``os.replace``, so concurrent loader threads and processes never read a
+    partial file; then the entries of older versions of the same source
+    are pruned (strictly older ``mtime_ns`` only: a writer holding an older
+    stat must not delete a peer's entry for a newer version). A cache
+    directory that cannot be written degrades to decoding. Band selection
+    and scaling stay outside the cache, so an entry serves every config.
+    """
+    try:
+        st = os.stat(fname)
+    except OSError:
+        return _read_full(fname)
+    h = _cache_key_prefix(fname)
+    key = f"{h}_{st.st_mtime_ns}_{st.st_size}.npy"
+    path = os.path.join(cache_dir, key)
+    try:
+        return np.load(path)
+    except (OSError, ValueError, EOFError):
+        pass  # a miss, or a corrupt entry: decode and (over)write it
+    data = _read_full(fname)
+    tmp = f"{path}.tmp{os.getpid()}_{threading.get_ident()}"
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+        with open(tmp, "wb") as f:  # a file object: np.save(str) would append .npy
+            np.save(f, data)
+        os.replace(tmp, path)
+        for old in glob.glob(os.path.join(cache_dir, f"{h}_*.npy")):
+            base = os.path.basename(old)
+            if base == key:
+                continue
+            try:
+                if int(base.split("_")[1]) > st.st_mtime_ns:
+                    continue
+            except (IndexError, ValueError):
+                pass  # a malformed name is stale
+            try:
+                os.remove(old)
+            except OSError:
+                pass
+    except OSError as e:
+        log.warning("chip cache write failed (%s); continuing uncached", e)
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+    return data
+
+
+def _evict_cached(fname: str, cache_dir: Optional[str]) -> None:
+    """Drop every cache entry of ``fname`` (any version): the QA scan calls
+    it for the rows it drops, which no sample ever reads."""
+    if not cache_dir:
+        return
+    for old in glob.glob(os.path.join(cache_dir, f"{_cache_key_prefix(fname)}_*.npy")):
+        try:
+            os.remove(old)
+        except OSError:
+            pass
+
+
+def get_raster_data(fname: str, is_label: bool = True,
+                    bands: Optional[Sequence[int]] = None,
+                    cache_dir: Optional[str] = None) -> np.ndarray:
+    """Read a raster to (bands, H, W), through the decoded-chip cache with
+    ``cache_dir``; select bands for imagery."""
+    data = _read_full_cached(fname, cache_dir) if cache_dir else _read_full(fname)
     if (not is_label) and bands:
         data = data[list(bands), ...]
     return data
@@ -66,16 +164,17 @@ def process_data(
     replace_label: Optional[Tuple] = None,
     bands: Optional[Sequence[int]] = None,
     constant_multiplier: float = 1.0,
+    cache_dir: Optional[str] = None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Load and preprocess an (image, label) pair."""
-    arr_x = get_raster_data(im_fname, is_label=False, bands=bands)
+    arr_x = get_raster_data(im_fname, is_label=False, bands=bands, cache_dir=cache_dir)
     if no_data_value is not None and np.issubdtype(arr_x.dtype, np.floating):
         # Float rasters (S1 chips) carry NaN for missing pixels.
         arr_x = np.nan_to_num(arr_x, nan=no_data_value)
     arr_x = arr_x * constant_multiplier
     arr_y = None
     if mask_fname:
-        arr_y = get_raster_data(mask_fname)
+        arr_y = get_raster_data(mask_fname, cache_dir=cache_dir)
         if replace_label:
             arr_y = np.where(arr_y == replace_label[0], replace_label[1], arr_y)
         if reduce_to_zero:
@@ -89,15 +188,26 @@ def mask_label_with_chip(
     chip_no_data_value: float = 0,
     label_no_data_value: float = -1,
     bands_per_step: int = 6,
+    cache_dir: Optional[str] = None,
 ) -> bool:
     """True if the label has no valid pixel under the chip's data mask
-    (band ``6·i + 1`` of each timestep must hold data)."""
-    with GeoTiffReader(chips_path) as src:
-        num_steps = max(1, src.count // bands_per_step)
-        stacked = src.read([bands_per_step * i + 1 for i in range(num_steps)])
+    (band ``6·i + 1`` of each timestep must hold data). With ``cache_dir``
+    the scan reads full rasters through the cache, so the decode it pays
+    here is the one the samples reuse."""
+    if cache_dir:
+        full = _read_full_cached(chips_path, cache_dir)
+        num_steps = max(1, full.shape[0] // bands_per_step)
+        stacked = full[[bands_per_step * i for i in range(num_steps)]]
+    else:
+        with GeoTiffReader(chips_path) as src:
+            num_steps = max(1, src.count // bands_per_step)
+            stacked = src.read([bands_per_step * i + 1 for i in range(num_steps)])
     stacked = np.where(stacked == chip_no_data_value, 0, 1).all(0)
-    with GeoTiffReader(labels_path) as src:
-        label = src.read(1).astype(np.float64)
+    if cache_dir:
+        label = _read_full_cached(labels_path, cache_dir)[0].astype(np.float64)
+    else:
+        with GeoTiffReader(labels_path) as src:
+            label = src.read(1).astype(np.float64)
     label = np.where(label == label_no_data_value, np.nan, label)
     label = np.where(stacked == 0, np.nan, label)
     return bool(np.all(np.isnan(label)))
@@ -115,10 +225,12 @@ def get_valid_filepaths(
     input_root: str,
     no_data_value: float = -9999,
     ignore_index: float = -1,
+    cache_dir: Optional[str] = None,
 ) -> List[Tuple[str, Optional[str]]]:
     """QA scan over the chip CSV (``Input``/``Label`` columns, paths
     relative to ``input_root``): drops rows whose chip is missing or
-    unreadable or whose label has no valid pixel."""
+    unreadable or whose label has no valid pixel, and evicts the cache
+    entries of the rows it drops."""
     file_paths: List[Tuple[str, Optional[str]]] = []
     rows, label_present = _read_chip_csv(fname)
     for row in rows:
@@ -133,10 +245,15 @@ def get_valid_filepaths(
                 file_paths.append((im_path, None))
             elif not mask_label_with_chip(im_path, mask_path,
                                           chip_no_data_value=no_data_value,
-                                          label_no_data_value=ignore_index):
+                                          label_no_data_value=ignore_index,
+                                          cache_dir=cache_dir):
                 file_paths.append((im_path, mask_path))
+            else:
+                _evict_cached(im_path, cache_dir)
+                _evict_cached(mask_path, cache_dir)
         except Exception as e:  # an unreadable chip is dropped, as in the reference
             log.error("%s: %s", im_path, e)
+            _evict_cached(im_path, cache_dir)
     log.info("Dropped a total of %d rows", len(rows) - len(file_paths))
     return file_paths
 
@@ -380,6 +497,7 @@ class InstaGeoDataset(Dataset):
     ``seed``: when set, ``preprocess_func`` gets ``rng=``, a numpy
     Generator seeded from (seed, epoch, index); the index may be an int
     (epoch 0) or an (epoch, index) pair, as ``EpochSampler`` yields.
+    ``cache_dir``: the decoded-chip cache of the QA scan and the samples.
     """
 
     def __init__(
@@ -397,13 +515,13 @@ class InstaGeoDataset(Dataset):
         cache_dir: Optional[str] = None,
         seed: Optional[int] = None,
     ) -> None:
-        if cache_dir:
-            raise NotImplementedError(_NO_CACHE)
         self.input_root = input_root
         self.preprocess_func = preprocess_func
         self.bands = list(bands) if bands else None
+        self.cache_dir = cache_dir
         self.file_paths = get_valid_filepaths(
-            filename, input_root, chip_no_data_value, label_no_data_value)
+            filename, input_root, chip_no_data_value, label_no_data_value,
+            cache_dir=cache_dir)
         self.no_data_value = chip_no_data_value
         self.replace_label = replace_label
         self.reduce_to_zero = reduce_to_zero
@@ -424,6 +542,7 @@ class InstaGeoDataset(Dataset):
             reduce_to_zero=self.reduce_to_zero,
             bands=self.bands,
             constant_multiplier=self.constant_multiplier,
+            cache_dir=self.cache_dir,
         )
         if self.seed is None:
             sample = self.preprocess_func(arr_x, arr_y)
@@ -500,24 +619,113 @@ class _ToTensors:
                      else a for a in self.collate_fn(samples))
 
 
+class ThreadLoader:
+    """Batches from ``num_workers`` threads in this process (the JAX
+    package's ``worker_mode="thread"``): each epoch a producer thread maps
+    the samples of a batch over a thread pool, collates them and puts the
+    batch in a queue of at most ``prefetch_depth`` batches. The GeoTIFF
+    decoders and numpy release the interpreter lock in their inner loops, so
+    the workers overlap each other and the device. An exception in a worker
+    is raised in the consumer; an iterator that is dropped before its end
+    (the consumer raised or broke out) stops its producer."""
+
+    def __init__(self, dataset, batch_size: int, sampler: "EpochSampler",
+                 collate_fn: Callable, num_workers: int, prefetch_depth: int = 2,
+                 pin_memory: bool = False, drop_last: bool = False) -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.sampler = sampler
+        self.collate_fn = collate_fn
+        self.num_workers = max(1, int(num_workers))
+        self.prefetch_depth = max(1, int(prefetch_depth))
+        self.pin_memory = pin_memory
+        self.drop_last = drop_last
+
+    def __len__(self) -> int:
+        n = len(self.sampler)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator:
+        keys = list(iter(self.sampler))  # the epoch advances here, as torch's does
+        batches = [keys[i:i + self.batch_size] for i in range(0, len(keys), self.batch_size)]
+        if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            batches.pop()
+        return self._run(batches)
+
+    def _run(self, batches: List[list]) -> Iterator:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
+        stop = threading.Event()
+        end = object()
+
+        def put(item) -> bool:
+            """A bounded put that gives up once the consumer has gone."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce() -> None:
+            try:
+                with ThreadPoolExecutor(self.num_workers,
+                                        thread_name_prefix="instageo-loader-worker") as pool:
+                    for keys in batches:
+                        if stop.is_set():
+                            return
+                        batch = self.collate_fn(list(pool.map(self.dataset.__getitem__, keys)))
+                        if self.pin_memory:
+                            batch = tuple(a.pin_memory() if isinstance(a, torch.Tensor) else a
+                                          for a in batch)
+                        if not put(batch):
+                            return
+            except Exception as e:  # raised again in the consumer
+                put(e)
+            finally:
+                put(end)
+
+        threading.Thread(target=produce, name="instageo-loader", daemon=True).start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+
 def create_dataloader(dataset, batch_size: int, shuffle: bool = False,
                       num_workers: int = 1, collate_fn: Callable = default_collate,
-                      seed: int = 0, device=None, drop_last: bool = False) -> DataLoader:
-    """A ``torch.utils.data.DataLoader`` over ``dataset`` that yields the
-    collate's arrays as CPU tensors.
+                      seed: int = 0, device=None, drop_last: bool = False,
+                      worker_mode: str = "thread", prefetch_depth: int = 2):
+    """A loader over ``dataset`` that yields the collate's arrays as CPU
+    tensors, pinned when ``device`` is a CUDA device; ``len()`` is its
+    batch count and ``.sampler.epoch`` the epoch its next pass draws.
 
-    ``num_workers`` spawned worker processes (kept across epochs) decode and
-    augment; they run numpy only and never touch CUDA. ``shuffle`` orders
-    each epoch from a ``torch.Generator`` seeded from (seed, epoch).
-    Batches are pinned when ``device`` is a CUDA device. (The JAX loader's
-    ``worker_mode`` and ``prefetch_depth`` have no counterpart: workers are
-    always processes, each keeping torch's default two batches ahead.)
+    ``num_workers`` workers decode and augment, as ``worker_mode`` says:
+    ``"thread"``, threads in this process with at most ``prefetch_depth``
+    finished batches waiting (``ThreadLoader``); ``"process"``, spawned
+    worker processes of a ``torch.utils.data.DataLoader``, kept across
+    epochs, each keeping torch's default two batches ahead. With no workers
+    the caller's thread decodes. Workers run numpy only and never touch
+    CUDA. ``shuffle`` orders each epoch from a ``torch.Generator`` seeded
+    from (seed, epoch), so every mode gives the same batches.
     """
+    if worker_mode not in WORKER_MODES:
+        raise ValueError(f"worker_mode must be one of {WORKER_MODES}, got {worker_mode!r}")
     workers = max(0, int(num_workers))
     pin = device is not None and torch.device(device).type == "cuda"
+    sampler = EpochSampler(len(dataset), shuffle, seed)
+    collate = _ToTensors(collate_fn)
+    if workers > 0 and worker_mode == "thread":
+        return ThreadLoader(dataset, batch_size, sampler, collate, workers, prefetch_depth,
+                            pin_memory=pin, drop_last=drop_last)
     return DataLoader(
-        dataset, batch_size=batch_size,
-        sampler=EpochSampler(len(dataset), shuffle, seed),
-        num_workers=workers, collate_fn=_ToTensors(collate_fn), pin_memory=pin,
+        dataset, batch_size=batch_size, sampler=sampler,
+        num_workers=workers, collate_fn=collate, pin_memory=pin,
         drop_last=drop_last, persistent_workers=workers > 0,
         multiprocessing_context="spawn" if workers > 0 else None)

@@ -14,7 +14,7 @@ its running statistics as flax's ``nn.BatchNorm(momentum=0.9)`` does.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +31,30 @@ from instageo_tpu_torch.ops.dropout import IMPLS as DROPOUT_IMPLS
 from instageo_tpu_torch.ops.dropout import fused_dropout
 
 
+def draw_seed(generator: torch.Generator) -> int:
+    """A 63-bit seed from a CPU ``generator``: one draw per dropout call, and
+    one per optimizer step from the epoch's stream."""
+    return int(torch.randint(0, 2**63 - 1, (), generator=generator))
+
+
+class SeedSlots:
+    """The dropout seeds of a group of optimizer steps in device memory:
+    ``buffer`` (int64) holds one seed per ``Dropout`` call, and each call
+    takes the next slot, in the order the calls run. The trainer writes the
+    seeds a step's own generator would give into the buffer before each
+    group; a CUDA graph of the group reads them at every replay."""
+
+    def __init__(self, n: int, device) -> None:
+        self.buffer = torch.zeros(n, dtype=torch.int64, device=device)
+        self.taken = 0
+
+    def take(self) -> Tuple[torch.Tensor, int]:
+        if self.taken >= self.buffer.numel():
+            raise RuntimeError(f"more dropout calls than the {self.buffer.numel()} seed slots")
+        self.taken += 1
+        return self.buffer, self.taken - 1
+
+
 class Dropout(nn.Module):
     """Dropout at rate ``p`` in train mode (counterpart of ``TPUDropout``).
 
@@ -38,9 +62,11 @@ class Dropout(nn.Module):
     version on a CPU tensor; the counterpart of ``"pallas"``) or ``"plain"``
     (the torch-op version everywhere; the counterpart of ``"xla"``). Each
     call draws its seed from ``generator``, a ``torch.Generator`` that
-    ``set_dropout_generator`` hands out; train mode with ``p > 0`` and no
-    generator raises. Eval mode and ``p == 0`` return the input; ``p >= 1``
-    returns zeros.
+    ``set_dropout_generator`` hands out, or takes the next slot of
+    ``seeds``, a ``SeedSlots`` that ``set_dropout_seeds`` hands out (the
+    kernel then reads the seed from device memory); train mode with
+    ``p > 0`` and neither raises. Eval mode and ``p == 0`` return the
+    input; ``p >= 1`` returns zeros.
     """
 
     def __init__(self, p: float = 0.1, impl: str = "kernel") -> None:
@@ -50,17 +76,19 @@ class Dropout(nn.Module):
         self.p = p
         self.impl = impl
         self.generator: Optional[torch.Generator] = None
+        self.seeds: Optional[SeedSlots] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         if self.p >= 1.0:
             return torch.zeros_like(x)
+        if self.seeds is not None:
+            return fused_dropout(x, self.p, self.seeds.take(), self.impl)
         if self.generator is None:
             raise RuntimeError("Dropout in train mode needs a torch.Generator: "
                                "call set_dropout_generator(model, generator)")
-        seed = int(torch.randint(0, 2**63 - 1, (), generator=self.generator))
-        return fused_dropout(x, self.p, seed, self.impl)
+        return fused_dropout(x, self.p, draw_seed(self.generator), self.impl)
 
     def extra_repr(self) -> str:
         return f"p={self.p}, impl={self.impl!r}"
@@ -267,7 +295,16 @@ def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
     """Every ``Dropout`` of ``model`` draws its seeds from ``generator``."""
     for module in model.modules():
         if isinstance(module, Dropout):
-            module.generator = generator
+            module.generator, module.seeds = generator, None
+    return model
+
+
+def set_dropout_seeds(model: nn.Module, seeds: SeedSlots) -> nn.Module:
+    """Every ``Dropout`` of ``model`` takes its seeds from the slots of
+    ``seeds``, in call order."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator, module.seeds = None, seeds
     return model
 
 

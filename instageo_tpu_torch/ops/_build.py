@@ -5,6 +5,11 @@ alone (no PyTorch headers, so a build takes seconds) into
 ``build/instageo_tpu_torch/<hash of the sources and flags>/lib<name>.so``
 beside the package, then loaded with ``ctypes``. A changed source gets a new
 directory; an unchanged one is loaded from the existing build.
+
+``LaunchCounter`` counts each kernel's launches; ``CapturedGraph`` captures
+a function into a CUDA graph and keeps those counts true through capture
+and replays. ``HostCounter`` counts work done on the host (graph replays,
+decoded files).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -26,21 +32,94 @@ NVCC_FLAGS = (
 )
 
 
-class LaunchCounter:
-    """Kernel launches since the last reset (thread-safe). Each wrapper adds
-    one where it launches its kernel, and nowhere else."""
+_capturing = False  # a CapturedGraph is being captured
+_counters: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()
+
+
+class HostCounter:
+    """Events on the host since the last reset (thread-safe)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.count = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.count += 1
+            self.count += n
 
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+
+
+class LaunchCounter:
+    """Kernel launches since the last reset (thread-safe). Each wrapper adds
+    one where it launches its kernel, and nowhere else.
+
+    A launch made while a ``CapturedGraph`` is captured is recorded into the
+    graph, not run: it counts in ``captured``. Each replay of the graph runs
+    its launches again; they count in ``replayed``. ``total()`` is what ran
+    on the device: ``count + replayed``."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.count = self.captured = self.replayed = 0
+        _counters.add(self)
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            if _capturing:
+                self.captured += n
+            else:
+                self.count += n
+
+    def add_replayed(self, n: int) -> None:
+        with self._lock:
+            self.replayed += n
+
+    def total(self) -> int:
+        return self.count + self.replayed
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = self.captured = self.replayed = 0
+
+
+graph_replays = HostCounter()  # replays of every CapturedGraph
+
+
+class CapturedGraph:
+    """``fn()`` captured into one ``torch.cuda.CUDAGraph`` (on a side
+    stream, allocating from the graph's private memory pool), with the
+    launches of every ``LaunchCounter`` it recorded (``launches``). Only
+    this thread's CUDA calls are held to the capture's rules: a loader
+    thread may pin host memory meanwhile.
+    ``replay()`` runs the whole graph on the current stream, counts one
+    ``graph_replays`` and adds the recorded launches to each counter's
+    ``replayed``. ``outputs`` holds what ``fn`` returned: tensors that each
+    replay writes in place."""
+
+    def __init__(self, fn) -> None:
+        import torch
+
+        global _capturing
+        counters = list(_counters)
+        before = [c.captured for c in counters]
+        self.graph = torch.cuda.CUDAGraph()
+        _capturing = True
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.outputs = fn()
+        finally:
+            _capturing = False
+        self.launches = {c: c.captured - b for c, b in zip(counters, before)
+                         if c.captured != b}
+
+    def replay(self) -> None:
+        self.graph.replay()
+        graph_replays.add()
+        for counter, n in self.launches.items():
+            counter.add_replayed(n)
 
 
 def call_on_device(device, fn, *args) -> int:

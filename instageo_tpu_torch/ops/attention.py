@@ -15,7 +15,8 @@ five Pallas kernels:
   head dim (``bwd_route``): ``csrc/flash_attn_bwd_sm90.cu`` (TMA, wgmma,
   five tile products per tile pair, dQ summed by bulk reduce-adds) for Dh
   in ``SM90_HEAD_DIMS``; ``csrc/flash_attn_bwd.cu`` (mma.sync, a dK/dV pass
-  and a dQ pass) for the other supported ones.
+  and a dQ pass, no atomics) for the other supported ones, and for every
+  head dim under ``torch.use_deterministic_algorithms(True)``.
 
 A layout only changes the strides a kernel is given. q/k/v are (B, H, L, Dh)
 with any strides whose last one is 1, so the model passes views of its fused
@@ -184,8 +185,15 @@ def fwd_route(d: int) -> str:
 def bwd_route(d: int) -> str:
     """The backward kernels that head dim ``d`` takes on the card: the
     forward's route, ``"wgmma"`` (``csrc/flash_attn_bwd_sm90.cu``) or
-    ``"mma_sync"`` (``csrc/flash_attn_bwd.cu``)."""
-    return fwd_route(d)
+    ``"mma_sync"`` (``csrc/flash_attn_bwd.cu``). Under
+    ``torch.use_deterministic_algorithms(True)`` every head dim takes
+    ``"mma_sync"``: the wgmma kernel adds dQ's partial sums with reduce-adds
+    that arrive in a run-dependent order, ``flash_attn_bwd.cu`` has no
+    atomics, so two calls give the same bits."""
+    route = fwd_route(d)
+    if route == "wgmma" and torch.are_deterministic_algorithms_enabled():
+        return "mma_sync"
+    return route
 
 
 def bwd_scratch_shapes(b: int, h: int, l: int, d: int) -> tuple:

@@ -26,6 +26,11 @@
 // wave striding over the tensor was slower at the largest tensor on an H100.
 // fused_dropout_x4 keeps the earlier design (4 elements per thread) for
 // timing beside it; both give the same bits.
+// The seed arrives by value, or, for a launch recorded into a CUDA graph,
+// as a pointer to a 64-bit word in device memory that the kernel reads when
+// it starts: each replay of the graph then takes the seed the host wrote
+// there before it, so the graph does not replay one mask. The word holds
+// the same 64 bits as the by-value seed and gives the same stream.
 // The kernels allocate nothing; the caller allocates out and mask.
 
 #include <cuda_bf16.h>
@@ -99,7 +104,12 @@ __device__ __forceinline__ void drop8(const Vec<T, 8>& xv, T* out, uint8_t* mask
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_dropout_kernel(const T* __restrict__ x, T* __restrict__ out, uint8_t* __restrict__ mask,
-                     long long n, uint32_t threshold, float scale, uint2 key, bool vec) {
+                     long long n, uint32_t threshold, float scale, uint2 key,
+                     const unsigned long long* __restrict__ seed_ptr, bool vec) {
+  if (seed_ptr != nullptr) {  // the seed from device memory
+    const unsigned long long seed = __ldg(seed_ptr);
+    key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  }
   const long long units = (n + 7) / 8;
   for (long long u = (long long)blockIdx.x * kThreads + threadIdx.x; u < units;
        u += (long long)gridDim.x * kThreads) {
@@ -156,8 +166,8 @@ fused_dropout_x4_kernel(const T* __restrict__ x, T* __restrict__ out,
 
 template <typename T>
 cudaError_t launch(bool x4, const void* x, void* out, void* mask, long long n,
-                   uint32_t threshold, float scale, unsigned long long seed, bool vec,
-                   cudaStream_t stream) {
+                   uint32_t threshold, float scale, unsigned long long seed,
+                   const unsigned long long* seed_ptr, bool vec, cudaStream_t stream) {
   const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
   const T* xp = static_cast<const T*>(x);
   T* op = static_cast<T*>(out);
@@ -170,19 +180,22 @@ cudaError_t launch(bool x4, const void* x, void* out, void* mask, long long n,
                                                                key, vec);
   } else {
     fused_dropout_kernel<T><<<grid, kThreads, 0, stream>>>(xp, op, mp, n, threshold, scale, key,
-                                                           vec);
+                                                           seed_ptr, vec);
   }
   return cudaGetLastError();
 }
 
 int dispatch(bool x4, int dtype, const void* x, void* out, void* mask, long long n,
-             unsigned int threshold, float scale, unsigned long long seed, int vec, void* stream) {
+             unsigned int threshold, float scale, unsigned long long seed,
+             const unsigned long long* seed_ptr, int vec, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(x4, x, out, mask, n, threshold, scale, seed, vec != 0, s);
+    case 0:
+      return launch<float>(x4, x, out, mask, n, threshold, scale, seed, seed_ptr, vec != 0, s);
     case 1:
-      return launch<__nv_bfloat16>(x4, x, out, mask, n, threshold, scale, seed, vec != 0, s);
+      return launch<__nv_bfloat16>(x4, x, out, mask, n, threshold, scale, seed, seed_ptr,
+                                   vec != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -192,20 +205,24 @@ int dispatch(bool x4, int dtype, const void* x, void* out, void* mask, long long
 extern "C" {
 
 // x, out: n contiguous elements of type `dtype` (0: float32, 1: bfloat16);
-// mask: n bytes (0 or 1). vec != 0 promises that x and out are 16-byte
+// mask: n bytes (0 or 1). seeds: null, and the stream's key is `seed`; or
+// device memory holding 64-bit seeds, and the kernel reads seeds[slot] when
+// it runs (`seed` unused). vec != 0 promises that x and out are 16-byte
 // aligned and mask 8-byte aligned (fused_dropout_x4: aligned for 4-element
-// vectors). Returns the launch's CUDA error code (0 on success); n == 0
-// launches nothing; another dtype returns cudaErrorInvalidValue.
+// vectors; it takes its seed by value only). Returns the launch's CUDA error
+// code (0 on success); n == 0 launches nothing; another dtype returns
+// cudaErrorInvalidValue.
 int fused_dropout(int dtype, const void* x, void* out, void* mask, long long n,
-                  unsigned int threshold, float scale, unsigned long long seed, int vec,
-                  void* stream) {
-  return dispatch(false, dtype, x, out, mask, n, threshold, scale, seed, vec, stream);
+                  unsigned int threshold, float scale, unsigned long long seed,
+                  const unsigned long long* seeds, int slot, int vec, void* stream) {
+  const unsigned long long* seed_ptr = seeds == nullptr ? nullptr : seeds + slot;
+  return dispatch(false, dtype, x, out, mask, n, threshold, scale, seed, seed_ptr, vec, stream);
 }
 
 int fused_dropout_x4(int dtype, const void* x, void* out, void* mask, long long n,
                      unsigned int threshold, float scale, unsigned long long seed, int vec,
                      void* stream) {
-  return dispatch(true, dtype, x, out, mask, n, threshold, scale, seed, vec, stream);
+  return dispatch(true, dtype, x, out, mask, n, threshold, scale, seed, nullptr, vec, stream);
 }
 
 const char* fused_dropout_error_string(int err) {

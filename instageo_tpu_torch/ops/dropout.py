@@ -21,13 +21,20 @@ tests against JAX compare the keep rate, the scale and the mask's use.
 ``fused_dropout_fwd`` is the wrapper: on a CPU tensor it runs the plain
 version; on a CUDA tensor it launches the kernel (bf16 or float32, any
 numel) or raises.
+
+A seed is an int, or a ``(buffer, slot)`` pair: a 1-D int64 tensor on the
+input's device and an index into it. The kernel then reads ``buffer[slot]``
+from device memory when it runs, so a launch recorded into a CUDA graph
+takes whatever seed the host wrote there before each replay; the plain
+version reads the same slot. The 64 bits are the seed's either way, and
+so is the mask.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -38,6 +45,8 @@ DESIGNS = ("x8", "x4")  # elements per thread and step: the kernel, the earlier 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
+
+Seed = Union[int, Tuple[torch.Tensor, int]]
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -106,11 +115,28 @@ def dropout_apply(x: torch.Tensor, mask: torch.Tensor, p: float) -> torch.Tensor
     return torch.where(mask, x.float() * (1.0 / (1.0 - p)), 0.0).to(x.dtype)
 
 
-def fused_dropout_seeded_plain(x: torch.Tensor, p: float, seed: int
+def _seed_slot(seed: Seed, device: torch.device):
+    """(buffer, slot) of a device-held seed, checked; None for an int."""
+    if isinstance(seed, int):
+        return None
+    buf, slot = seed
+    if (buf.device != device or buf.dtype != torch.int64 or buf.dim() != 1
+            or not buf.is_contiguous() or not 0 <= int(slot) < buf.numel()):
+        raise ValueError("a seed slot is (1-D contiguous int64 tensor on the input's "
+                         f"device, index into it); got {buf.dtype} {tuple(buf.shape)} "
+                         f"on {buf.device}, slot {slot}")
+    return buf, int(slot)
+
+
+def fused_dropout_seeded_plain(x: torch.Tensor, p: float, seed: Seed
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel in plain PyTorch: its Philox stream for ``seed``
-    (``philox_bits``) -> (out, mask), bit for bit what the kernel gives."""
+    (``philox_bits``; a ``(buffer, slot)`` seed is read from the buffer) ->
+    (out, mask), bit for bit what the kernel gives."""
     _check_rate(p)
+    held = _seed_slot(seed, x.device)
+    if held is not None:
+        seed = int(held[0][held[1]])
     mask = philox_bits(x.numel(), seed, x.device).reshape(x.shape) >= threshold(p)
     return dropout_apply(x, mask, p), mask
 
@@ -122,9 +148,10 @@ def _entry(design: str):
 
     lib = _build.load("dropout")
     fn = lib.fused_dropout if design == "x8" else lib.fused_dropout_x4
+    seed_args = [ctypes.c_uint64] + ([ctypes.c_void_p, ctypes.c_int] if design == "x8" else [])
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint64,
+        ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float, *seed_args,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.fused_dropout_error_string
@@ -133,21 +160,29 @@ def _entry(design: str):
     return fn, err
 
 
-def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: int, design: str = "x8"):
+def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8"):
     """Launch the kernel of ``design`` ("x8", the wrapper's; "x4", the
-    earlier design, for measurements)."""
+    earlier design, for measurements, which takes an int seed only)."""
     code = _DTYPE_CODES.get(x.dtype)
     if code is None:
         raise TypeError(f"the dropout kernel takes float32 or bfloat16; x is {x.dtype}")
     bits_threshold, scale = _rate_args(p)
+    held = _seed_slot(seed, x.device)
+    if held is not None and design != "x8":
+        raise ValueError("the x4 design takes its seed by value")
     x = x.contiguous()
     out = torch.empty_like(x)
     mask = torch.empty_like(x, dtype=torch.bool)
     # out and mask are fresh allocations, aligned for any vector.
     vec = x.data_ptr() % 16 == 0
     fn, error_string = _entry(design)
+    if design == "x8":
+        seed_args = ((0, held[0].data_ptr(), held[1]) if held is not None
+                     else (seed % (1 << 64), None, 0))
+    else:
+        seed_args = (seed % (1 << 64),)
     err = call_on_device(x.device, fn, code, x.data_ptr(), out.data_ptr(), mask.data_ptr(),
-                         x.numel(), bits_threshold, scale, seed % (1 << 64), vec)
+                         x.numel(), bits_threshold, scale, *seed_args, vec)
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(f"fused_dropout launch failed: {msg} ({err})")
@@ -155,9 +190,10 @@ def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: int, design: str = "x8"
     return out, mask
 
 
-def fused_dropout_fwd(x: torch.Tensor, p: float, seed: int
+def fused_dropout_fwd(x: torch.Tensor, p: float, seed: Seed
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, mask) of dropout at rate ``p`` with the stream of ``seed``. CPU
+    """(out, mask) of dropout at rate ``p`` with the stream of ``seed`` (an
+    int or a ``(buffer, slot)`` pair). CPU
     tensors take the plain version (the same Philox stream); CUDA tensors
     launch the Hopper kernel or raise."""
     kind = x.device.type
@@ -169,7 +205,8 @@ def fused_dropout_fwd(x: torch.Tensor, p: float, seed: int
 
 
 class FusedDropout(torch.autograd.Function):
-    """(x, p, seed, impl) -> (out, mask); the mask is saved for the backward
+    """(x, p, seed, impl) -> (out, mask), ``seed`` an int or a ``(buffer,
+    slot)`` pair; the mask is saved for the backward
     and is not differentiable. ``impl="plain"`` always runs the plain
     version (the kernel's Philox stream in plain PyTorch)."""
 
@@ -190,7 +227,7 @@ class FusedDropout(torch.autograd.Function):
         return dropout_apply(g, mask, ctx.p), None, None, None
 
 
-def fused_dropout(x: torch.Tensor, p: float, seed: int, impl: str = "kernel"
+def fused_dropout(x: torch.Tensor, p: float, seed: Seed, impl: str = "kernel"
                   ) -> torch.Tensor:
     """Differentiable dropout of ``x`` at rate ``p`` with the stream of ``seed``."""
     return FusedDropout.apply(x, p, seed, impl)[0]

@@ -4,8 +4,9 @@ Counterpart of ``instageo_tpu/serve/infer.py``: batches of chips go to the
 device, one forward per batch (argmax int8 for segmentation, float32
 channel 0 for regression), and predictions are written on a thread pool
 with the source chip's georeferencing and the ``chip`` → ``prediction``
-name swap. ``chip_inference_from_paths`` takes raw chip files and
-preprocesses on the device; ``chip_inference`` takes the batches of an
+name swap. ``chip_inference_from_paths`` takes raw chip files, decodes
+them with the native decoder's thread pool (the Python codec where it does
+not build) and preprocesses on the device; ``chip_inference`` takes the batches of an
 ``infer_collate`` loader (the run CLI's ``chip_inference`` mode).
 """
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from instageo_tpu_torch import native
 from instageo_tpu_torch.data.geotiff import Affine, GeoTiffReader, write_geotiff
 from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
 
@@ -109,10 +111,11 @@ def chip_inference_from_paths(
 ) -> Tuple[int, float]:
     """Raw chip files -> device -> prediction files. Returns (chips, seconds).
 
-    Batch N+1 is decoded on a thread while the device runs batch N; batch
-    N's predictions come back and are written on a thread pool while the
-    device runs batch N+1. The tail batch is padded to ``batch_size`` so the
-    device sees one shape.
+    Batch N+1 is decoded on a thread while the device runs batch N: by the
+    native decoder's thread pool where it builds, else file by file with
+    the Python codec. Batch N's predictions come back and
+    are written on a thread pool while the device runs batch N+1. The tail
+    batch is padded to ``batch_size`` so the device sees one shape.
     """
     if not chip_paths:
         return 0, 0.0
@@ -121,12 +124,21 @@ def chip_inference_from_paths(
         shape = (r.count, r.height, r.width)
         dtype = np.dtype(r.dtypes[0])
 
+    use_native = native.available()
+
     def decode_batch(paths):
+        if use_native:
+            out = native.read_batch_native(paths, shape, dtype)
+            if len(paths) < batch_size:  # tail padding
+                out = np.concatenate(
+                    [out, np.zeros((batch_size - len(paths),) + shape, dtype)])
+            return out
         out = np.empty((batch_size,) + shape, dtype)
         for i, p in enumerate(paths):
             with GeoTiffReader(p) as rr:
                 out[i] = rr.read()
         out[len(paths):] = 0  # tail padding
+        native.fallback_decodes.add(len(paths))
         return out
 
     predict = make_fused_predict_fn(

@@ -37,21 +37,23 @@ log = logging.getLogger(__name__)
 #   ("refused", default, item)    - any value but the JAX default raises
 #                                   NotImplementedError naming the ROADMAP item.
 # Every attention and dropout value takes the port's kernel route: the port
-# has no XLA path. ``steps_per_call: auto`` is 1 off the TPU, as in the JAX
-# trainer. Keys the JAX package does not read are ignored, as there.
+# has no XLA path. ``steps_per_call`` (``steps_per_call()``) groups k
+# optimizer steps into one CUDA graph on the card; ``prefetch_depth`` bounds
+# the thread loader's queue. Keys the JAX package does not read are ignored,
+# as there.
 TPU_KEYS = {
     "precision": ("honoured", ("bf16", "f32")),
     "profile": ("honoured", (False, True)),
+    "steps_per_call": ("honoured", None),
+    "prefetch_depth": ("honoured", None),
     "mesh": ("accepted", ("auto", 1)),
     "donate_state": ("accepted", (True, False)),
-    "prefetch_depth": ("accepted", None),
     "rng_impl": ("accepted", ("auto", "rbg", "threefry")),
     "attn_impl": ("accepted", ("xla", "pallas", "auto")),
     "attn_interpret": ("accepted", (False, True)),
     "dropout_impl": ("accepted", ("xla", "bits16", "bits8", "pallas")),
     "bf16_transfer": ("accepted", (True, False)),
     "pp_microbatches": ("accepted", None),
-    "steps_per_call": ("refused", (1, "auto"), "ROADMAP item 2 (CUDA-graph capture)"),
     "tp": ("refused", (1,), "ROADMAP item 11 (parallel/)"),
     "pp": ("refused", (1,), "ROADMAP item 11 (parallel/)"),
     "sp": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
@@ -78,6 +80,37 @@ def check_tpu_config(cfg: Any) -> dict:
         elif rule[1] is not None and value not in rule[1]:
             raise ValueError(f"tpu.{key}={value!r} — expected one of {rule[1]}")
     return tpu_cfg
+
+
+def _k_cap(batch_size: int, sample_bytes: int) -> int:
+    """The largest k <= 8 whose staged (k, B, ...) input batches stay under
+    512 MB of device memory."""
+    return max(1, min(8, (512 << 20) // max(batch_size * sample_bytes, 1)))
+
+
+def steps_per_call(cfg: Any, device_type: str, in_chans: int,
+                   batch_size: Optional[int] = None) -> int:
+    """The optimizer steps one call runs, the JAX trainer's rule for
+    ``tpu.steps_per_call``: an integer k as given; ``auto`` on the
+    accelerator (a CUDA device) the ``_k_cap`` for ``batch_size``
+    (``train.batch_size`` by default), with in_chans × T × img² input values
+    per sample at 2 bytes (bf16 transfer) or 4; ``auto`` elsewhere 1."""
+    tpu_cfg = cfg.get("tpu") or {}
+    spc = tpu_cfg.get("steps_per_call", 1)
+    if str(spc) != "auto":
+        if isinstance(spc, bool) or not isinstance(spc, int) or spc < 1:
+            raise ValueError(f"tpu.steps_per_call={spc!r} — expected auto or an integer >= 1")
+        return spc
+    if device_type != "cuda":
+        return 1
+    dl = cfg.get("dataloader") or {}
+    bf16 = str(tpu_cfg.get("precision", "bf16")) == "bf16" and bool(
+        tpu_cfg.get("bf16_transfer", True))
+    sample_bytes = (int(in_chans) * int(dl.get("temporal_dim", 1))
+                    * int(dl.get("img_size", 224)) ** 2 * (2 if bf16 else 4))
+    if batch_size is None:
+        batch_size = int((cfg.get("train") or {}).get("batch_size", 8))
+    return _k_cap(batch_size, sample_bytes)
 
 
 def compute_dtype(cfg: Any) -> torch.dtype:

@@ -3,9 +3,11 @@
 Counterparts of ``instageo_tpu/train/metrics.py``'s ``ConfusionMatrix``,
 ``AucHistogram`` and ``RegressionStats``. The JAX package counts in two
 float32 words because the TPU lacks a fast int64 scatter; here counts are
-exact int64 (``index_add_``, ``bincount``) and the regression sums float64,
-with no host synchronisation until ``compute()``/``score()``. The masking
-rules and the final formulas are the JAX package's.
+exact int64 (``index_add_``) and the regression sums float64, updated in
+place with no host synchronisation until ``compute()``/``score()``, so an
+update can be recorded into a CUDA graph. ``zero_()`` empties an
+accumulator in place. The masking rules and the final formulas are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -48,6 +50,11 @@ class ConfusionMatrix:
         counts.index_add_(0, cell, torch.ones_like(cell))
         self.matrix += counts[:-1].view(c, c)
         self.total += valid.sum()
+        return self
+
+    def zero_(self) -> "ConfusionMatrix":
+        self.matrix.zero_()
+        self.total.zero_()
         return self
 
     def compute(self, include_per_class: bool = True) -> Dict:
@@ -103,7 +110,16 @@ class AucHistogram:
         spill = c * nb  # masked pixels count into a cell past the histogram
         for hist, mask in ((self.pos_hist, is_c & ok), (self.neg_hist, ~is_c & ok)):
             idx = torch.where(mask, cell, spill).reshape(-1)
-            hist += torch.bincount(idx, minlength=spill + 1)[:-1].view(c, nb)
+            # index_add_ and not bincount: bincount reads its input's maximum
+            # back to the host on a CUDA device.
+            counts = torch.zeros(spill + 1, dtype=torch.int64, device=idx.device)
+            counts.index_add_(0, idx, torch.ones_like(idx))
+            hist += counts[:-1].view(c, nb)
+        return self
+
+    def zero_(self) -> "AucHistogram":
+        self.pos_hist.zero_()
+        self.neg_hist.zero_()
         return self
 
     def score(self, include_per_class: bool = True) -> Dict:
@@ -146,6 +162,10 @@ class RegressionStats:
         self.sums += torch.stack([v.sum(), x.sum(), y.sum(), (x * y).sum(), (x * x).sum(),
                                   (y * y).sum(), (abs_err * v).sum(),
                                   (abs_err * abs_err * v).sum(), within.sum()])
+        return self
+
+    def zero_(self) -> "RegressionStats":
+        self.sums.zero_()
         return self
 
     def compute(self, include_ee: bool = False, ee_bias: float = 0.05,

@@ -6,6 +6,11 @@ is ``torch.optim.AdamW`` with the same settings over one parameter group.
 A frozen backbone is left out of the optimizer, so it gets neither an
 update nor a decay. The schedule maps the global step to a fractional
 epoch in closed form, and the trainer sets the rate before every step.
+
+On a CUDA device the optimizer is built ``capturable``: its step counts
+and its learning rate are device tensors, so a step recorded into a CUDA
+graph reads the rate the trainer wrote before each replay and advances its
+own bias corrections; nothing in ``step()`` reads back to the host.
 """
 
 from __future__ import annotations
@@ -52,8 +57,47 @@ def make_optimizer(model: nn.Module, learning_rate: float, weight_decay: float =
                    freeze_backbone: bool = False,
                    frozen_prefix: str = "prithvi_encoder") -> torch.optim.AdamW:
     """AdamW over the trainable parameters (all but ``frozen_prefix.*``
-    when the backbone is frozen)."""
+    when the backbone is frozen); ``capturable``, with the rate a float32
+    device tensor, when the parameters lie on a CUDA device."""
     params = [p for name, p in model.named_parameters()
               if not (freeze_backbone and name.split(".")[0] == frozen_prefix)]
+    device = params[0].device if params else torch.device("cpu")
+    if device.type == "cuda":
+        lr = torch.tensor(learning_rate, dtype=torch.float32, device=device)
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay, capturable=True)
     return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=weight_decay)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Write ``lr`` into every parameter group: into the device tensor of
+    a capturable optimizer (a float, or a device scalar copied without a
+    host read), else as a float."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            if isinstance(lr, torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        else:
+            group["lr"] = float(lr)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
+    """``optimizer.load_state_dict(state)`` that keeps a capturable
+    optimizer capturable: a checkpoint holds the rate and the step counts as
+    they were saved (read back to the CPU, or saved from a CPU run), so the
+    groups get their device rate tensor back, with the saved value, and the
+    step counts go to the parameters' device."""
+    kept = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, (lr, capturable) in zip(optimizer.param_groups, kept):
+        if not capturable:
+            continue
+        lr.fill_(float(group["lr"]))
+        group["lr"], group["capturable"] = lr, True
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(dtype=torch.float32, device=p.device)

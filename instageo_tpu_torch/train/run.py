@@ -115,8 +115,10 @@ def main(argv: Optional[List[str]] = None) -> Any:
         raise ValueError(f"Unknown mode {mode!r}")
     device = resolve_device(cfg.get("device"))
     batch_size = int(cfg.train.get("batch_size", 8))
-    num_workers = int(cfg.dataloader.get("num_workers", 1))
-    loader = partial(create_dataloader, num_workers=num_workers, seed=SEED, device=device)
+    loader = partial(create_dataloader, num_workers=int(cfg.dataloader.get("num_workers", 1)),
+                     worker_mode=str(cfg.dataloader.get("worker_mode", "thread")),
+                     prefetch_depth=int((cfg.get("tpu") or {}).get("prefetch_depth", 2)),
+                     seed=SEED, device=device)
 
     if mode == "stats":
         from instageo_tpu_torch.train.stats import compute_stats
@@ -135,7 +137,8 @@ def main(argv: Optional[List[str]] = None) -> Any:
     from instageo_tpu_torch.train.trainer import Trainer
 
     is_reg = bool(cfg.get("is_reg_task", False))
-    if is_reg and bool(cfg.model.get("plot_reg_results", False)):
+    if mode == "eval" and is_reg and bool(cfg.model.get("plot_reg_results", False)):
+        # The JAX CLI reads the key only in eval.
         raise NotImplementedError(
             "model.plot_reg_results: train/plots.py is not ported yet: ROADMAP item 12")
 

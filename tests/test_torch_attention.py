@@ -213,6 +213,19 @@ def test_backward_route_by_head_dim(d):
     assert tattn.bwd_route(d) == ("wgmma" if d in tattn.SM90_HEAD_DIMS else "mma_sync")
 
 
+@pytest.mark.parametrize("d", tattn.SUPPORTED_HEAD_DIMS)
+def test_backward_route_under_deterministic_mode(d):
+    """Under torch.use_deterministic_algorithms every head dim takes the
+    mma.sync backward, which has no atomics; the forward keeps its route."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert tattn.bwd_route(d) == "mma_sync"
+        assert tattn.fwd_route(d) == ("wgmma" if d in tattn.SM90_HEAD_DIMS else "mma_sync")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert tattn.bwd_route(d) == ("wgmma" if d in tattn.SM90_HEAD_DIMS else "mma_sync")
+
+
 def test_backward_route_refuses_unsupported_head_dims():
     for d in (8, 72, 144):
         with pytest.raises(ValueError):

@@ -12,12 +12,24 @@ round dS and P to bf16, but at other summation orders, so single elements
 can differ by a bf16 rounding); the wgmma backward's dq from one run to
 the next within one bf16 step (its f32 reduce-adds arrive in any order),
 dk and dv bit for bit. Dropout: the mask bit for bit equal to the plain
-Philox stream, the output bit for bit given the mask.
+Philox stream, the output bit for bit given the mask, with the seed by
+value or from device memory. Under deterministic mode the backward repeats
+bit for bit. CUDA graphs: a dropout graph takes the seed of each replay;
+the attention forward and backward captured alone equal eager calls (O,
+dk, dv bit for bit, dq within the run-to-run bound); the tiny model's
+grouped train steps (``steps_per_call`` 4, a captured graph replayed once)
+equal the one-step run bit for bit under deterministic mode, and with only
+the backward on its atomic-free kernel; its grouped eval epoch the eager
+one.
 """
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
+from instageo_tpu_torch.ops import _build
 from instageo_tpu_torch.ops import attention as tattn
 from instageo_tpu_torch.ops import dropout as tdrop
 
@@ -28,6 +40,9 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def cuda():
+    # Deterministic cuBLAS for the deterministic-mode tests; read when
+    # cuBLAS starts, so set before the first product.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -233,20 +248,50 @@ def test_wgmma_backward_matches_plain(cuda, layout, l, d):
         assert _rel_err(g, ref) <= BWD_REL_TOL, f"d{name}: {_rel_err(g, ref)}"
 
 
+def _dq_within_run_to_run(a, b):
+    """The wgmma backward's dq from two runs: each element within one bf16
+    step of the other, or, where its f32 partial sums cancel, within 2⁻¹⁶
+    of its row's largest |dq| (a few f32 roundings of the partial sums,
+    whose order changes)."""
+    a, b = a.float(), b.float()
+    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7  # one bf16 step, or less
+    row = a.abs().amax(-1, keepdim=True) * 2.0 ** -16
+    return bool(((a - b).abs() <= torch.maximum(step, row)).all())
+
+
 @pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
 def test_wgmma_backward_run_to_run(cuda, d):
-    """dq within one bf16 step of itself from run to run, or, where its f32
-    partial sums cancel, within 2⁻¹⁶ of its row's largest |dq| (a few f32
-    roundings of the partial sums, whose order changes); dk, dv equal."""
+    """dq within the run-to-run bound of itself; dk, dv equal."""
     q, k, v, o, do, lse = _bwd_inputs((4, 12, 589, d), "merged", cuda, seed=d)
     first = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
     for _ in range(3):
         again = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
         assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
-        a, b = first[0].float(), again[0].float()
-        step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7  # one bf16 step, or less
-        row = a.abs().amax(-1, keepdim=True) * 2.0 ** -16
-        assert bool(((a - b).abs() <= torch.maximum(step, row)).all())
+        assert _dq_within_run_to_run(first[0], again[0])
+
+
+def test_captured_attention_equals_eager(cuda):
+    """The attention forward and backward captured alone at the crop
+    model's training shape, on the wgmma backward: each replay's O, dk and
+    dv equal an eager call's bit for bit, dq within the run-to-run bound."""
+    shape = (8, 12, 589, 64)
+    assert tattn.bwd_route(shape[-1]) == "wgmma"
+    q, k, v = (t.requires_grad_() for t in _qkv(shape, cuda, seed=5))
+    do = torch.randn((8, 589, 12 * 64), device=cuda).to(torch.bfloat16)
+
+    def fwd_bwd():
+        o = tattn.flash_attention_blo(q, k, v)
+        return (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+
+    eager = fwd_bwd()
+    graph = _build.CapturedGraph(fwd_bwd)
+    assert graph.launches == {tattn.launches: 1, tattn.bwd_launches: 1}
+    for _ in range(3):
+        graph.replay()
+        o, dq, dk, dv = graph.outputs
+        assert torch.equal(o, eager[0])
+        assert torch.equal(dk, eager[2]) and torch.equal(dv, eager[3])
+        assert _dq_within_run_to_run(dq, eager[1])
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma"), (80, "wgmma"), (128, "mma_sync")])
@@ -328,3 +373,173 @@ def test_dropout_kernel_backward_and_edges(cuda):
         tdrop.fused_dropout_fwd(x.detach(), 1.0, seed=3)
     with pytest.raises(TypeError):
         tdrop.fused_dropout_fwd(x.detach().half(), 0.2, seed=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [7, 4099, 1 << 20])
+def test_dropout_seed_from_device_memory(cuda, dtype, n):
+    x = torch.randn(n, device=cuda).to(dtype)
+    seeds = torch.tensor([5, 2**63 - 9, 1234], dtype=torch.int64, device=cuda)
+    for slot in range(3):
+        before = tdrop.launches.count
+        out, mask = tdrop.fused_dropout_fwd(x, 0.2, (seeds, slot))
+        assert tdrop.launches.count == before + 1
+        by_value = tdrop.fused_dropout_fwd(x, 0.2, int(seeds[slot]))
+        assert torch.equal(mask, by_value[1]) and torch.equal(out, by_value[0])
+        _, plain = tdrop.fused_dropout_seeded_plain(x, 0.2, int(seeds[slot]))
+        assert torch.equal(mask, plain)
+    with pytest.raises(ValueError, match="by value"):
+        tdrop._fused_dropout_cuda(x, 0.2, (seeds, 0), "x4")
+
+
+def test_dropout_graph_takes_the_seed_of_each_replay(cuda):
+    from instageo_tpu_torch.models.seg import SeedSlots
+
+    x = torch.randn((8, 144, 56, 56), device=cuda).to(torch.bfloat16)
+    slots = SeedSlots(1, cuda)
+    graph = _build.CapturedGraph(lambda: tdrop.fused_dropout_fwd(x, 0.1, slots.take()))
+    assert graph.launches == {tdrop.launches: 1}
+    replays, masks = _build.graph_replays.count, []
+    for seed in (3, 4):
+        slots.buffer.fill_(seed)
+        graph.replay()
+        masks.append(graph.outputs[1].clone())
+        assert torch.equal(masks[-1], tdrop.fused_dropout_seeded_plain(x, 0.1, seed)[1])
+    assert not torch.equal(*masks)
+    assert _build.graph_replays.count == replays + 2
+
+
+@pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
+def test_deterministic_backward_repeats_bit_for_bit(cuda, d):
+    q, k, v = _qkv((2, 3, 197, d), cuda, seed=d)
+    o, lse = tattn.flash_attention_fwd(q, k, v, "merged")
+    do = torch.randn_like(o)
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = tattn.bwd_mma_launches.count
+        first = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+        second = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+        assert tattn.bwd_mma_launches.count == before + 2
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _tiny_trainer(cuda, steps_per_call, model=None):
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    from instageo_tpu_torch.train.trainer import Trainer
+
+    if model is None:
+        model = create_prithvi_seg("prithvi_eo_tiny", num_classes=3, depth=2, image_size=32,
+                                   dtype=torch.bfloat16, param_dtype=torch.float32,
+                                   device=cuda, seed=0)
+    cfg = {"train": {"learning_rate": 1e-3, "weight_decay": 0.01, "ignore_index": -1,
+                     "batch_size": 4, "scheduler": True},
+           "model": {"num_classes": 3}, "tpu": {"steps_per_call": steps_per_call}}
+    return Trainer(cfg, model, device=cuda, steps_per_epoch=8)
+
+
+def _tiny_batches(n=8):
+    rng = np.random.default_rng(9)
+    return [(rng.normal(size=(4, 6, 1, 32, 32)).astype(np.float32),
+             rng.integers(-1, 3, (4, 32, 32))) for _ in range(n)]
+
+
+def test_captured_train_steps_equal_single_steps(cuda):
+    """Deterministic mode: 8 batches at k = 4 (the first group as plain
+    steps, then one replay of the captured group) against k = 1, with
+    dropout and the schedule on: equal losses and parameters; the graph
+    holds 4 steps' launches and replays them once."""
+    from instageo_tpu_torch.train.trainer import epoch_generator
+
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for k in (1, 4):
+            trainer = _tiny_trainer(cuda, k)
+            replays = _build.graph_replays.count
+            losses = []
+            trainer.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4, losses)
+            runs.append(([float(v) for v in losses],
+                         {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
+                         _build.graph_replays.count - replays, trainer))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (losses_1, params_1, replays_1, _), (losses_4, params_4, replays_4, grouped) = runs
+    assert replays_1 == 0 and replays_4 == 1
+    assert losses_4 == losses_1
+    for name, p in params_4.items():
+        assert torch.equal(p, params_1[name]), name
+    (group,) = grouped._groups.values()
+    launches = {c: n for c, n in group.graph.launches.items()}
+    assert launches[tdrop.launches] == 4 * 5 and launches[tattn.launches] == 4 * 2
+    assert launches[tattn.bwd_mma_launches] == 4 * 2  # deterministic: the mma.sync backward
+
+
+def test_captured_train_steps_equal_single_steps_on_the_atomic_free_backward(cuda):
+    """Without deterministic mode, the backward alone moved to its kernel
+    without atomics: k = 4 equals k = 1 bit for bit, so nothing in the
+    captured step but the wgmma backward's dQ order differs from the eager
+    step."""
+    from unittest import mock
+
+    from instageo_tpu_torch.train.trainer import epoch_generator
+
+    runs = []
+    with mock.patch.object(tattn, "bwd_route", lambda d: "mma_sync"):
+        for k in (1, 4):
+            trainer = _tiny_trainer(cuda, k)
+            losses = []
+            trainer.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4, losses)
+            runs.append(([float(v) for v in losses],
+                         {n: p.detach().clone() for n, p in trainer.model.named_parameters()}))
+    (losses_1, params_1), (losses_4, params_4) = runs
+    assert losses_4 == losses_1
+    for name, p in params_4.items():
+        assert torch.equal(p, params_1[name]), name
+
+
+def test_captured_eval_equals_eager(cuda):
+    eager = _tiny_trainer(cuda, 1)
+    grouped = _tiny_trainer(cuda, 4, model=eager.model)
+    for step in ("val", "test"):
+        ref = eager.run_eval_epoch(iter(_tiny_batches()), 4, step)
+        replays = _build.graph_replays.count
+        got = grouped.run_eval_epoch(iter(_tiny_batches()), 4, step)
+        assert _build.graph_replays.count == replays + 1
+        assert set(got) == set(ref)
+        for key, value in ref.items():
+            assert got[key] == pytest.approx(value, rel=1e-6, abs=1e-6, nan_ok=True), key
+
+
+def test_restore_on_card_keeps_a_capturable_optimizer(cuda, tmp_path):
+    """A checkpoint of a card run restores into a capturable AdamW (the
+    rate a device tensor, the step counts on the card) whose grouped steps
+    go on: a resumed epoch equals an unbroken second epoch under
+    deterministic mode."""
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.trainer import epoch_generator
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        straight = _tiny_trainer(cuda, 4)
+        for epoch in range(2):
+            straight.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, epoch), 4)
+        first = _tiny_trainer(cuda, 4)
+        first.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4)
+        ckpt = BestCheckpointer(str(tmp_path))
+        ckpt.save(first.state_dict())
+        resumed = _tiny_trainer(cuda, 4)
+        resumed.restore(ckpt.path)
+        group = resumed.optimizer.param_groups[0]
+        assert group["capturable"] and group["lr"].device.type == "cuda"
+        state = next(iter(resumed.optimizer.state.values()))
+        assert state["step"].device.type == "cuda"
+        resumed.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 1), 4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert resumed.step == straight.step == 16
+    for (name, a), b in zip(straight.model.state_dict().items(),
+                            resumed.model.state_dict().values()):
+        assert torch.equal(a, b), name

@@ -12,6 +12,7 @@ OpenCV's coordinate rounding at half-pixels is not reproduced bit for bit
 """
 
 import csv
+from functools import partial
 
 import numpy as np
 import pytest
@@ -207,7 +208,21 @@ def test_loader_batches_match_jax_and_are_seeded(chips):
     assert not np.array_equal(a[0], a[1])
 
 
-def test_cache_dir_is_not_ported(chips):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        pdl.InstaGeoDataset(str(chips / "chips.csv"), str(chips), pdl.process_and_augment,
-                            0, -1, None, False, 1.0, cache_dir=str(chips / "cache"))
+def test_cache_dir_dataset_matches_uncached(chips, tmp_path):
+    """``cache_dir`` is honoured: the QA scan keeps the same rows and every
+    sample equals the uncached one, cold and warm; the cache then holds the
+    kept rows' chips and labels only."""
+    def dataset(cache_dir):
+        pre = partial(pdl.process_and_augment, mean=MEAN, std=STD, im_size=32,
+                      augmentations=AUGS)
+        return pdl.InstaGeoDataset(str(chips / "chips.csv"), str(chips), pre, 0, -1, None,
+                                   False, 1.0, bands=[0, 2, 4], cache_dir=cache_dir, seed=3)
+
+    cache = str(tmp_path / "cache")
+    plain, cached = dataset(None), dataset(cache)
+    assert cached.file_paths == plain.file_paths and len(plain) == 5
+    assert len(list((tmp_path / "cache").iterdir())) == 2 * len(plain)
+    for i in range(len(plain)):
+        for _ in range(2):
+            for a, b in zip(plain[(1, i)], cached[(1, i)]):
+                np.testing.assert_array_equal(a, b)

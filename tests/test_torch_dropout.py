@@ -116,6 +116,36 @@ def test_dropout_module_modes():
         Dropout(0.1, impl="pallas")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seed_slot_gives_the_by_value_mask(dtype):
+    """A (buffer, slot) seed reads buffer[slot]: the same 64 bits, so the
+    same mask and output bit for bit as the seed by value, through the
+    wrapper, the autograd Function and the Dropout module's slots."""
+    from instageo_tpu_torch.models.seg import SeedSlots, set_dropout_seeds
+
+    x = torch.from_numpy(_x()).to(dtype)
+    seeds = [3, 2**63 - 2, 123456789]
+    buf = torch.tensor(seeds, dtype=torch.int64)
+    for slot, seed in enumerate(seeds):
+        by_value = tdrop.fused_dropout_fwd(x, 0.3, seed)
+        held = tdrop.fused_dropout_fwd(x, 0.3, (buf, slot))
+        assert torch.equal(held[1], by_value[1]) and torch.equal(held[0], by_value[0])
+        assert torch.equal(tdrop.fused_dropout(x, 0.3, (buf, slot)), by_value[0])
+    for bad in ((buf.float(), 0), (buf, 3), (buf[None], 0)):
+        with pytest.raises(ValueError, match="seed slot"):
+            tdrop.fused_dropout_fwd(x, 0.3, bad)
+    slots = SeedSlots(2, "cpu")
+    slots.buffer.copy_(torch.tensor(seeds[:2]))
+    layers = torch.nn.Sequential(Dropout(0.3), Dropout(0.3)).train()
+    set_dropout_seeds(layers, slots)
+    out = layers(x)
+    mask0 = tdrop.fused_dropout_fwd(x, 0.3, seeds[0])[0]
+    assert torch.equal(out, tdrop.fused_dropout_fwd(mask0, 0.3, seeds[1])[0])
+    assert slots.taken == 2
+    with pytest.raises(RuntimeError, match="seed slots"):
+        layers(x)
+
+
 # Random123's known-answer vectors for Philox4x32-10: (counter, key, result).
 PHILOX_KAT = [
     ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),

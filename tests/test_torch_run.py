@@ -150,6 +150,21 @@ def test_eval_matches_jax_run_eval_epoch(chip_dir, tmp_path):
         np.testing.assert_allclose(ours[key], value, rtol=0, atol=EVAL_ATOL, err_msg=key)
 
 
+def test_regression_plot_key_is_read_in_eval_only(chip_dir, tmp_path):
+    """``model.plot_reg_results`` on a regression config: ``train`` and
+    ``chip_inference`` run, as in the JAX CLI, which reads the key only in
+    ``eval``; ``eval`` raises until the plots are ported."""
+    reg = ["device=cpu", "is_reg_task=True", "model.plot_reg_results=True"]
+    run_dir = tmp_path / "run"
+    hist = run.main(["mode=train"] + reg + _overrides(chip_dir, run_dir))
+    assert np.isfinite(hist["train_loss"]) and np.isfinite(hist["val_RMSE"])
+    ckpt = run_dir / "instageo_best_checkpoint"
+    assert run.main(["mode=chip_inference", f"checkpoint_path={ckpt}"] + reg
+                    + _overrides(chip_dir, tmp_path / "infer")) == 8
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        run.main(["mode=eval", f"checkpoint_path={ckpt}"] + reg + _overrides(chip_dir, tmp_path))
+
+
 def test_cli_refusals():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["mode=train", "root_dir=/r", "train_filepath=a", "valid_filepath=b"])

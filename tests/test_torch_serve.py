@@ -150,16 +150,17 @@ def test_server_chip_inference_roundtrip(models, tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module of the port pulls in neither JAX, the JAX
-    package, nor the libraries the port does without (PyYAML, pandas,
-    OpenCV)."""
+    """Importing every module and package of the port pulls in neither JAX,
+    the JAX package, nor the libraries the port does without (PyYAML,
+    pandas, OpenCV)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "instageo_tpu_torch")
     modules = sorted(
-        os.path.relpath(os.path.join(d, f), root)[:-3].replace(os.sep, ".")
-        for d, _, files in os.walk(pkg) for f in files
-        if f.endswith(".py") and f != "__init__.py")
+        os.path.relpath(d if f == "__init__.py" else os.path.join(d, f[:-3]), root)
+        .replace(os.sep, ".")
+        for d, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
     assert "instageo_tpu_torch.train.run" in modules and len(modules) >= 25
+    assert "instageo_tpu_torch.native" in modules  # the decoder's binding is a package
     code = ("import sys, importlib\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"

@@ -340,16 +340,19 @@ def test_fit_learns_the_toy_task():
 
 def test_trainer_refuses_what_is_not_ported():
     """What the port does not run raises; grad_accum, distillation, the
-    regression task and checkpointing are ported and build."""
+    regression task, steps_per_call and checkpointing are ported and build."""
     model = create_prithvi_seg("prithvi_eo_tiny", depth=1, image_size=32,
                                param_dtype=torch.float32, device="cpu")
-    for cfg in ({"tpu": {"steps_per_call": 4}}, {"tpu": {"tp": 2}},
-                {"tpu": {"quant": "int8"}}, {"tpu": {"gelu": "tanh"}}):
+    for cfg in ({"tpu": {"tp": 2}}, {"tpu": {"quant": "int8"}}, {"tpu": {"gelu": "tanh"}}):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, model, device="cpu")
     for cfg in ({"train": {"grad_accum": 2}}, {"train": {"distillation": True}},
-                {"tpu": {"steps_per_call": "auto"}}, {"is_reg_task": True}):
+                {"tpu": {"steps_per_call": "auto"}}, {"tpu": {"steps_per_call": 4}},
+                {"is_reg_task": True}):
         Trainer(cfg, model, device="cpu")
+    for value in (0, "fast", 2.5):
+        with pytest.raises(ValueError, match="steps_per_call"):
+            Trainer({"tpu": {"steps_per_call": value}}, model, device="cpu")
     with pytest.raises(ValueError):
         Trainer({}, model, device="cpu").restore("/nonexistent/instageo_best_checkpoint")
 
