@@ -46,7 +46,9 @@ Phases, one line each (any failure raises and exits non-zero):
 7. loader: full-size synthetic chips through the native decoder and the
    Python codec (bit for bit), batch jobs at batch 64 with each (in turns),
    a loader epoch without and with the decoded-chip cache (cold, warm), a
-   loader's first batch from a worker thread and a worker process;
+   loader's first batch from a worker thread and a worker process, and an
+   epoch of spawned workers dropped after its first batch, which must end
+   cleanly;
 8. run: the run CLI (``python -m instageo_tpu_torch.train.run``, called
    in-process) on the crop config as a user runs it (a loader thread, the
    chip cache, graphs of 8 steps) over 128 train and 16 val synthetic
@@ -56,8 +58,21 @@ Phases, one line each (any failure raises and exits non-zero):
    replays included), eval against the saved epoch's validation metrics,
    the CLI's predictions against ``ModelServer``'s; chips/s and wall
    seconds per mode;
-9. one JSON line ``{"kernels": [...]}``;
-10. last line: ``{"ok": true, "device": {...}}``.
+9. serve_models: every model the JAX package builds, through the serving
+   entry points (``ModelServer(cfg)``, ``EvaluationPipeline``, the export
+   artifact), bf16 with random weights from seed 0: the crop model with
+   the fast head against the torch head at batch 64 (ms per predict in
+   turns, launches per predict, kernel vs plain logits); the fast head in
+   training (10 steps with the launches per step, then kernel vs plain);
+   ``prithvi_eo_v2_300_tl`` (T=4, batch 16) and ``prithvi_eo_v2_600_tl``
+   (T=4, Dh 80, batch 4): launches per predict, kernel vs plain logits with
+   and without coords; the GELU lowerings in turns; the serving layer on a
+   fast-head checkpoint (pipeline evaluate = ``Trainer.test``, chip
+   inference = the online batcher on decided pixels, the artifact run in a
+   fresh interpreter without the port's models, its size); one JSON line
+   per row, tagged ``[serve_models]``;
+10. one JSON line ``{"kernels": [...]}``;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
 ``configs/multitemporal_crop_classification.yaml``.
@@ -69,6 +84,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -77,6 +93,7 @@ import sys
 import tempfile
 import threading
 import time
+from functools import partial
 from unittest import mock
 
 import numpy as np
@@ -675,7 +692,7 @@ def crop_setup():
     from instageo_tpu_torch.configs.config import load_config
     from instageo_tpu_torch.train.factory import model_channels
 
-    cfg = load_config(CROP_CONFIG)
+    cfg = load_config(CROP_CONFIG, overrides={"model.load_pretrained_weights": False})
     model_kw = dict(variant=str(cfg.model.model_name), num_classes=int(cfg.model.num_classes),
                     temporal_step=int(cfg.dataloader.temporal_dim),
                     image_size=int(cfg.dataloader.img_size), num_bands=model_channels(cfg))
@@ -703,26 +720,66 @@ def _normalise(raw: np.ndarray, temporal_step: int, data: dict) -> np.ndarray:
     return ((x - mean) / std).transpose(1, 0, 2, 3)
 
 
-def slice_phase(device, model_kw: dict, data: dict, n_requests: int = 24, n_threads: int = 8,
-                n_files: int = 32, batch: int = 16, throughput_batches=(16, 64),
-                throughput_iters: int = 5) -> dict:
-    """Serve the model: online requests + a batch run over chip files."""
+def _describe_gap(gap: dict) -> str:
+    return (f"max |logit diff| {gap['max_abs_diff']:.6g} (<= {LOGIT_TOL} x max |logit| "
+            f"{gap['scale']:.6g}); argmax agreement {gap['agreement']:.6f} of all pixels, "
+            f"{gap['agreement_decided']:.6f} (>= {ARGMAX_AGREEMENT}) of the "
+            f"{gap['decided']:.4f} whose top-2 gap >= {DECIDED_GAP} x max |logit|")
+
+
+def kernel_vs_plain_logits(model, x, **coords) -> dict:
+    """The model's float32 NHWC logits on ``x`` with the attention kernel
+    and with its plain version: max |diff| within LOGIT_TOL of max |logit|,
+    argmax agreement at least ARGMAX_AGREEMENT on the pixels whose top-2
+    gap is at least DECIDED_GAP of max |logit|. Returns the statistics and
+    the kernel's logits."""
     import torch
 
-    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    blocks = model.prithvi_encoder.blocks
+    with torch.inference_mode():
+        logits_k = model(x, channels_last=True, **coords).float()
+        try:
+            for blk in blocks:
+                blk.attn.attn_impl = "plain"
+            logits_p = model(x, channels_last=True, **coords).float()
+        finally:
+            for blk in blocks:
+                blk.attn.attn_impl = "kernel"
+    check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
+    same = logits_k.argmax(-1) == logits_p.argmax(-1)
+    diff = (logits_k - logits_p).abs().max().item()
+    scale = logits_p.abs().max().item()
+    top2 = logits_p.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * scale
+    agree_decided = same[decided].float().mean().item()
+    check(diff <= LOGIT_TOL * scale, f"kernel/plain logits differ by {diff} of {scale}")
+    check(agree_decided >= ARGMAX_AGREEMENT,
+          f"kernel/plain argmax agreement {agree_decided} on decided pixels")
+    return dict(max_abs_diff=diff, scale=scale, agreement=same.float().mean().item(),
+                agreement_decided=agree_decided, decided=decided.float().mean().item(),
+                logits=logits_k)
+
+
+def slice_phase(device, cfg, model_kw: dict, data: dict, n_requests: int = 24,
+                n_threads: int = 8, n_files: int = 32, batch: int = 16,
+                throughput_batches=(16, 64), throughput_iters: int = 5) -> dict:
+    """Serve the model of ``cfg`` (random weights from seed 0, bf16):
+    online requests + a batch run over chip files."""
+    import torch
+
     from instageo_tpu_torch.ops import attention as tattn
     from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
     from instageo_tpu_torch.serve.server import ModelServer
 
     t_build = time.perf_counter()
-    model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, device=device, seed=0)
+    server = ModelServer(cfg, device=device)
     t_build = time.perf_counter() - t_build
+    model = server.model
+    check(model.dtype == torch.bfloat16, f"the served model computes in {model.dtype}")
     depth = len(model.prithvi_encoder.blocks)
     t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
-    pre = dict(temporal_size=t, bands=data["bands"][: 6 * t], constant_multiplier=1.0,
-               img_size=size)
-    server = ModelServer(model, mean=data["mean"], std=data["std"], device=device, **pre)
+    pre = {k: v for k, v in server.preprocess.items() if k not in ("mean", "std")}
     rng = np.random.default_rng(0)
     raw = rng.integers(0, 10000, (8, 6 * t, size, size), dtype=np.uint16)
     tmp = tempfile.TemporaryDirectory()
@@ -784,29 +841,9 @@ def slice_phase(device, model_kw: dict, data: dict, n_requests: int = 24, n_thre
 
         # --- kernel vs plain attention on one batch -----------------------
         x = torch.from_numpy(np.stack(chips[:4])).to(device)
-        with torch.inference_mode():
-            logits_k = model(x, channels_last=True)
-            for blk in model.prithvi_encoder.blocks:
-                blk.attn.attn_impl = "plain"
-            logits_p = model(x, channels_last=True)
-            for blk in model.prithvi_encoder.blocks:
-                blk.attn.attn_impl = "kernel"
-        check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
-        same = logits_k.argmax(-1) == logits_p.argmax(-1)
-        agree = same.float().mean().item()
-        diff = (logits_k - logits_p).abs().max().item()
-        scale = logits_p.abs().max().item()
-        top2 = logits_p.topk(2, dim=-1).values
-        decided = (top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * scale
-        agree_decided = same[decided].float().mean().item()
-        check(diff <= LOGIT_TOL * scale, f"kernel/plain logits differ by {diff} of {scale}")
-        check(agree_decided >= ARGMAX_AGREEMENT,
-              f"kernel/plain argmax agreement {agree_decided} on decided pixels")
-        print(f"[slice] kernel vs plain attention, batch 4: max |logit diff| {diff:.6g} "
-              f"(<= {LOGIT_TOL} x max |logit| {scale:.6g}); argmax agreement {agree:.6f} "
-              f"of all pixels, {agree_decided:.6f} (>= {ARGMAX_AGREEMENT}) of the "
-              f"{decided.float().mean().item():.4f} whose top-2 gap >= {DECIDED_GAP} x "
-              "max |logit|", flush=True)
+        gap = kernel_vs_plain_logits(model, x)
+        diff, agree = gap["max_abs_diff"], gap["agreement"]
+        print(f"[slice] kernel vs plain attention, batch 4: {_describe_gap(gap)}", flush=True)
 
         # --- throughput: raw uint16 chips in host memory -> int8 classes in
         # host memory, through the fused predict (host clock, synchronised
@@ -844,13 +881,66 @@ def _crop_batch(n: int, temporal_step: int, size: int, classes: int, seed: int, 
     return x, y
 
 
+def kernel_vs_plain_step(device, model, model_kw: dict, cfg: dict, xb, yb, tag: str,
+                         hold: bool = True, **model_extra):
+    """One train step (dropout off) of ``model`` (kernels) and of a copy on
+    the plain versions, from ``model``'s state: the loss within
+    TRAIN_LOSS_REL_TOL, every gradient within TRAIN_GRAD_REL_TOL, the
+    BatchNorm statistics within TRAIN_BN_REL_TOL (checked with ``hold``,
+    else only printed). ``model_extra``: the model's other
+    ``create_prithvi_seg`` arguments (its head). Returns the loss gap and
+    the three worst gradients."""
+    import torch
+
+    from instageo_tpu_torch.models.seg import UpscalingBlock, create_prithvi_seg, train_mode
+    from instageo_tpu_torch.train.trainer import Trainer
+
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    plain = create_prithvi_seg(**model_kw, **model_extra, dtype=torch.bfloat16,
+                               param_dtype=torch.float32, attn_impl="plain",
+                               dropout_impl="plain", device=device, seed=0)
+    plain.load_state_dict(state)
+    model.load_state_dict(state)
+    step = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        train_mode(m, torch.Generator(), dropout_rate=0.0)
+        tr = Trainer(cfg, m, device=device)
+        loss = float(tr.train_step(xb, yb, torch.Generator()))
+        step[name] = (loss, {n: p.grad for n, p in m.named_parameters()},
+                      {n: b for n, b in m.named_buffers() if "running" in n})
+    (loss_k, grads_k, bn_k), (loss_p, grads_p, bn_p) = step["kernel"], step["plain"]
+    # The bias of a conv that feeds a BatchNorm has an exact gradient of 0
+    # (BatchNorm subtracts each channel's batch mean), so both versions give
+    # rounding noise there: it is held against its conv weight's gradient.
+    scale_of = {f"{name}.2.bias": f"{name}.2.weight" for name, mod in model.named_modules()
+                if isinstance(mod, UpscalingBlock)}
+    grad_rel = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
+                    / grads_p[scale_of.get(n, n)].float().norm().clamp_min(1e-30)).item()
+                for n in grads_p}
+    bn_rel = {n: _rel_err(bn_k[n], bn_p[n]) for n in bn_p}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[{tag}] kernel vs plain step (dropout off): loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {loss_rel:.3g} <= {TRAIN_LOSS_REL_TOL}); gradient rel err max "
+          f"{worst[0][1]:.4g}, median {float(np.median(list(grad_rel.values()))):.4g} over "
+          f"{len(grad_rel)} params (<= {TRAIN_GRAD_REL_TOL}; the {len(scale_of)} conv biases "
+          f"ahead of BatchNorm against their weight's gradient; worst {json.dumps(worst)}); "
+          f"BN running stats rel err max {max(bn_rel.values()):.4g} (<= {TRAIN_BN_REL_TOL})",
+          flush=True)
+    if hold:
+        check(loss_rel <= TRAIN_LOSS_REL_TOL, f"kernel/plain loss {loss_k} vs {loss_p}")
+        check(worst[0][1] <= TRAIN_GRAD_REL_TOL, f"kernel/plain gradients differ: {worst}")
+        check(max(bn_rel.values()) <= TRAIN_BN_REL_TOL, f"BN running stats differ: {bn_rel}")
+    return loss_rel, worst
+
+
 def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int = 10,
                 throughput_batches=(8, 32), throughput_steps: int = 6) -> dict:
     """Train the crop model through ``Trainer`` and check what each part
     gives (see the module docstring, phase 5)."""
     import torch
 
-    from instageo_tpu_torch.models.seg import UpscalingBlock, create_prithvi_seg, train_mode
+    from instageo_tpu_torch.models.seg import create_prithvi_seg, train_mode
     from instageo_tpu_torch.train.trainer import Trainer
 
     t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
@@ -885,41 +975,7 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
           f"peak {peak_gb:.2f} GiB", flush=True)
 
     # --- one step with the kernels vs one with the plain versions ---------
-    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    plain = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
-                               attn_impl="plain", dropout_impl="plain", device=device, seed=0)
-    plain.load_state_dict(state)
-    model.load_state_dict(state)
-    step = {}
-    for name, m in (("kernel", model), ("plain", plain)):
-        train_mode(m, torch.Generator(), dropout_rate=0.0)
-        tr = Trainer(cfg, m, device=device)
-        loss = float(tr.train_step(xb, yb, torch.Generator()))
-        step[name] = (loss, {n: p.grad for n, p in m.named_parameters()},
-                      {n: b for n, b in m.named_buffers() if "running" in n})
-    (loss_k, grads_k, bn_k), (loss_p, grads_p, bn_p) = step["kernel"], step["plain"]
-    # The bias of a conv that feeds a BatchNorm has an exact gradient of 0
-    # (BatchNorm subtracts each channel's batch mean), so both versions give
-    # rounding noise there: it is held against its conv weight's gradient.
-    scale_of = {f"{name}.2.bias": f"{name}.2.weight" for name, mod in model.named_modules()
-                if isinstance(mod, UpscalingBlock)}
-    grad_rel = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
-                    / grads_p[scale_of.get(n, n)].float().norm().clamp_min(1e-30)).item()
-                for n in grads_p}
-    bn_rel = {n: _rel_err(bn_k[n], bn_p[n]) for n in bn_p}
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
-    print(f"[train] kernel vs plain step (dropout off): loss {loss_k:.6f} vs {loss_p:.6f} "
-          f"(rel {loss_rel:.3g} <= {TRAIN_LOSS_REL_TOL}); gradient rel err max "
-          f"{worst[0][1]:.4g}, median {float(np.median(list(grad_rel.values()))):.4g} over "
-          f"{len(grad_rel)} params (<= {TRAIN_GRAD_REL_TOL}; the {len(scale_of)} conv biases "
-          f"ahead of BatchNorm against their weight's gradient; worst {json.dumps(worst)}); "
-          f"BN running stats rel err max {max(bn_rel.values()):.4g} (<= {TRAIN_BN_REL_TOL})",
-          flush=True)
-    check(loss_rel <= TRAIN_LOSS_REL_TOL, f"kernel/plain loss {loss_k} vs {loss_p}")
-    check(worst[0][1] <= TRAIN_GRAD_REL_TOL, f"kernel/plain gradients differ: {worst}")
-    check(max(bn_rel.values()) <= TRAIN_BN_REL_TOL, f"BN running stats differ: {bn_rel}")
-    del plain, step, grads_k, grads_p, state
+    loss_rel, worst = kernel_vs_plain_step(device, model, model_kw, cfg, xb, yb, "train")
     train_mode(model, gen, dropout_rate=0.1)
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -991,7 +1047,6 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
     dropout-only graph replayed with two seeds; ms per train step (batch 8
     and 32) and per eval batch (8) in turns; the grouped eval epoch against
     the eager one."""
-    import gc
     import warnings
 
     import torch
@@ -1505,6 +1560,32 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
               f"{out['first_batch_s']['thread']:.3f} s, process "
               f"{out['first_batch_s']['process']:.3f} s (turns {json.dumps(first)})", flush=True)
         clock.lap("first batches")
+
+        # --- an epoch of spawned workers dropped after its first batch: the
+        # workers must end cleanly (they aborted at exit while their queues
+        # still moved tensors into shared memory) ----------------------------
+        code = ("import sys\n"
+                "from instageo_tpu_torch.configs.config import load_config_from_argv\n"
+                "from instageo_tpu_torch.data.dataloader import create_dataloader\n"
+                "from instageo_tpu_torch.train import run\n"
+                "cfg = load_config_from_argv(sys.argv[2:])\n"
+                "ds = run._make_dataset(sys.argv[1], cfg, run._train_preprocess(cfg, False))\n"
+                "loader = create_dataloader(ds, 8, num_workers=2, worker_mode='process',\n"
+                "                           device='cuda')\n"
+                "batches = iter(loader)\n"
+                "next(batches)\n"
+                "del batches, loader\n")
+        if device.type == "cuda":
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code, f"{data_root}/train.csv", *base],
+                                  cwd=os.path.dirname(os.path.abspath(__file__)),
+                                  capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0 and "terminate called" not in proc.stderr,
+                  f"a dropped process-mode epoch: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            print(f"[loader] a process-mode epoch (2 workers) dropped after its first batch "
+                  f"ended cleanly: exit {proc.returncode} in {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+            clock.lap("early drop")
     finally:
         tmp.cleanup()
     return out
@@ -1529,7 +1610,6 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
     from instageo_tpu_torch.ops.preprocess import preprocess_chips, raw_to_device
     from instageo_tpu_torch.serve.server import ModelServer
     from instageo_tpu_torch.train import run
-    from instageo_tpu_torch.train.factory import create_model
 
     on_card = device.type == "cuda"
     tmp = tempfile.TemporaryDirectory()
@@ -1629,11 +1709,11 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
             flush=True)
 
         # --- the CLI's predictions vs the server's on the same checkpoint --
-        model = create_model(load_config_from_argv(base + [f"checkpoint_path={ckpt}"]),
+        server = ModelServer(load_config_from_argv(base + [f"checkpoint_path={ckpt}"]),
                              device=device)
+        model = server.model
         pre = dict(temporal_size=t, bands=list(dl.bands),
                    constant_multiplier=float(dl.constant_multiplier), img_size=size)
-        server = ModelServer(model, mean=list(dl.mean), std=list(dl.std), device=device, **pre)
         server_dir = os.path.join(root, "server_predictions")
         try:
             server.chip_inference_from_paths(val_paths, server_dir, batch_size=batch)
@@ -1683,6 +1763,387 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
                     epoch_s=hist["epoch_time_s"], loader_s=loader_s)
     finally:
         tmp.cleanup()
+
+
+SERVE_TURNS = 3           # predict timings: turns of each model in alternation
+ARTIFACT_AGREEMENT = 0.999  # artifact vs server class ids on decided pixels
+
+
+def _serve_row(smi: str, **row) -> None:
+    print("[serve_models] " + json.dumps({"card": smi, **row}), flush=True)
+
+
+def _predict_turns(predicts: dict, raw, turns: int, iters: int) -> dict:
+    """Host-clock ms per fused predict call of each named predict, the names
+    taken in turns (raw uint16 chips in host memory to int8 classes in host
+    memory): the mean and each turn's."""
+    for fn in predicts.values():
+        for _ in range(2):
+            fn(raw).cpu()
+    per_turn = {name: [] for name in predicts}
+    for _ in range(turns):
+        for name, fn in predicts.items():
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(raw).cpu()
+            per_turn[name].append((time.perf_counter() - t0) * 1e3 / iters)
+    return {name: dict(ms=float(np.mean(v)), turns=[round(x, 3) for x in v])
+            for name, v in per_turn.items()}
+
+
+def _predict_launches(predict, raw, depth: int, tag: str, on_card: bool) -> dict:
+    """Launch counts of one fused predict, from 0: on the card ``depth``
+    forward launches, all on the wgmma route, nothing else."""
+    reset_counts()
+    predict(raw).cpu()
+    counts = read_counts()
+    want = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
+            "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+    if on_card:
+        check(counts == want, f"{tag}: launches per predict {counts}, expected {want}")
+    return counts
+
+
+def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_batch: int = 8,
+                       fixed_steps: int = 10, variants=(("prithvi_eo_v2_300_tl", 4, 16),
+                                 ("prithvi_eo_v2_600_tl", 4, 4)),
+                       n_chips: int = 16, turns: int = SERVE_TURNS, iters: int = 5) -> dict:
+    """Every model the JAX package builds, served through the port's entry
+    points (``ModelServer(cfg)``, ``EvaluationPipeline``, the export
+    artifact) at full width with random weights from seed 0 in bf16:
+
+    1. the crop config with the fast head against the torch head at batch
+       64, in turns: ms per fused predict, launches per predict, the fast
+       head's logits with the kernel against the plain attention;
+    2. the fast head in training, as the train phase: 10 steps on one
+       batch of 8 with the launches per step (the forward and backward once
+       per block, the dropout in 3 stages and the head), then one step with
+       the kernels against one with the plain versions (and the same from
+       the random init, printed only);
+    3. each ``_tl`` variant at T=4: launches per predict, kernel against
+       plain logits without coords and with them, and the coords' effect on
+       the encoder's features beyond the kernel/plain gap;
+    4. the GELU lowerings on the crop model at batch 64, in turns: ms per
+       predict and argmax agreement with ``exact``;
+    5. the serving layer on a port checkpoint of the fast-head model over
+       synthetic chips: ``EvaluationPipeline.evaluate`` against
+       ``Trainer.test`` on the same loader, ``chip_inference`` against the
+       online batcher on decided pixels, the exported artifact run in a
+       fresh interpreter that does not import the port's models (batch 64
+       and 7: class ids against the server's, launches per call) and its
+       size against 4 bytes per parameter.
+
+    ``overrides``: config overrides (a CPU rehearsal's tiny model); on the
+    CPU no kernel launches, so the launch checks hold only on the card."""
+    import torch
+
+    from instageo_tpu_torch.configs.config import load_config
+    from instageo_tpu_torch.data.dataloader import create_dataloader, eval_collate, process_test
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.models.seg import create_prithvi_seg, train_mode
+    from instageo_tpu_torch.ops.preprocess import (
+        make_fused_predict_fn,
+        preprocess_chips,
+        raw_to_device,
+    )
+    from instageo_tpu_torch.serve.infer import make_predict_fn
+    from instageo_tpu_torch.serve.pipeline import EvaluationPipeline
+    from instageo_tpu_torch.serve.server import ModelServer
+    from instageo_tpu_torch.train import run
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.factory import model_channels
+    from instageo_tpu_torch.train.trainer import Trainer
+
+    on_card = device.type == "cuda"
+    overrides = dict(overrides or {})
+    if not on_card:
+        overrides["device"] = "cpu"
+    clock = Clock("serve_models")
+    rng = np.random.default_rng(7)
+
+    def config(**more):
+        return load_config(CROP_CONFIG, overrides={
+            "model.load_pretrained_weights": False, **overrides, **more})
+
+    def fused(server):
+        pre = {k: v for k, v in server.preprocess.items() if k not in ("mean", "std")}
+        return make_fused_predict_fn(server.model, server.preprocess["mean"],
+                                     server.preprocess["std"], **pre)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def raw_chips(n, cfg):
+        dl = cfg.dataloader
+        return rng.integers(0, 10000, (n, len(dl.bands), int(dl.img_size), int(dl.img_size)),
+                            dtype=np.uint16)
+
+    def device_chips(server, raw):
+        p = server.preprocess
+        return preprocess_chips(
+            raw_to_device(raw, device), torch.tensor(p["mean"], device=device),
+            torch.tensor(p["std"], device=device), p["temporal_size"],
+            torch.tensor(list(p["bands"]), device=device), p["constant_multiplier"],
+            img_size=p["img_size"])
+
+    out = {}
+    # --- 1. fast head vs torch head ----------------------------------------
+    cfg = config()
+    servers = {head: ModelServer(config(**{"model.head_impl": head}), device=device)
+               for head in ("torch", "fast")}
+    depth = len(servers["torch"].model.prithvi_encoder.blocks)
+    raw = raw_chips(batch, cfg)
+    predicts = {head: fused(sv) for head, sv in servers.items()}
+    launches = {head: _predict_launches(fn, raw, depth, f"{head} head", on_card)
+                for head, fn in predicts.items()}
+    timing = _predict_turns(predicts, raw, turns, iters)
+    gap = kernel_vs_plain_logits(servers["fast"].model, device_chips(servers["fast"], raw))
+    print(f"[serve_models] fast head, kernel vs plain attention, batch {batch}: "
+          f"{_describe_gap(gap)}", flush=True)
+    for head in ("torch", "fast"):
+        _serve_row(smi, part="head", head=head, model=str(cfg.model.model_name),
+                   batch=batch, ms_per_predict=timing[head]["ms"],
+                   turns_ms=timing[head]["turns"],
+                   chips_per_s=batch * 1e3 / timing[head]["ms"],
+                   fwd_launches_per_predict=launches[head]["flash_attn_fwd"],
+                   mma_sync_launches=launches[head]["flash_attn_fwd_mma"],
+                   **({k: v for k, v in gap.items() if k != "logits"} if head == "fast" else {}))
+    out["heads"] = dict(timing=timing, launches=launches,
+                        gap={k: v for k, v in gap.items() if k != "logits"})
+    fast_server = servers.pop("fast")
+    del servers, predicts, gap
+    free()
+    clock.lap("fast vs torch head")
+
+    # --- 2. one fast-head train step ---------------------------------------
+    model_kw = dict(variant=str(cfg.model.model_name), num_classes=int(cfg.model.num_classes),
+                    temporal_step=int(cfg.dataloader.temporal_dim),
+                    image_size=int(cfg.dataloader.img_size), num_bands=model_channels(cfg))
+    data = dict(mean=list(cfg.dataloader.mean), std=list(cfg.dataloader.std))
+    train_cfg = {"train": {k: cfg.train[k] for k in ("learning_rate", "weight_decay",
+                                                    "class_weights", "ignore_index")},
+                 "model": {"num_classes": cfg.model.num_classes}}
+    model = create_prithvi_seg(**model_kw, head_impl="fast", dtype=torch.bfloat16,
+                               param_dtype=torch.float32, device=device, seed=0)
+    trainer = Trainer(train_cfg, model, device=device)
+    x, y = _crop_batch(train_batch, model_kw["temporal_step"], model_kw["image_size"],
+                       model_kw["num_classes"], seed=1, data=data)
+    xb, yb = trainer.prepare_batch(x, y, train_batch)
+    # From the random init the gradients are mostly rounding noise (logits
+    # of ~0.05), so the kernel/plain gap there is only printed; the train
+    # phase's bounds hold after its 10 steps on one batch, as there.
+    _, init_worst = kernel_vs_plain_step(device, model, model_kw, train_cfg, xb, yb,
+                                         "serve_models at init", hold=False, head_impl="fast")
+    gen = torch.Generator().manual_seed(0)
+    train_mode(model, gen, dropout_rate=0.1)  # the comparison turned dropout off
+    reset_counts()
+    losses = [float(trainer.train_step(xb, yb, gen)) for _ in range(fixed_steps)]
+    counts = {k: v / fixed_steps for k, v in read_counts().items()}
+    want = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
+            "flash_attn_bwd_mma": 0, "fused_dropout": 4}
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"fast-head train steps: losses {losses}")
+    if on_card:
+        check(counts == want, f"fast-head launches per train step {counts}, expected {want}")
+    loss_rel, worst = kernel_vs_plain_step(device, model, model_kw, train_cfg, xb, yb,
+                                           "serve_models", head_impl="fast")
+    _serve_row(smi, part="fast_head_train_step", batch=train_batch, steps=fixed_steps,
+               losses=losses, launches_per_step=counts, kernel_vs_plain_loss_rel=loss_rel,
+               kernel_vs_plain_grad_rel_max=worst[0][1],
+               at_init_kernel_vs_plain_grad_rel_max=init_worst[0][1])
+    out["train_step"] = dict(launches=counts, loss_rel=loss_rel, grad_rel=worst[0][1])
+    del model, trainer, xb, yb
+    free()
+    clock.lap("fast-head train step")
+
+    # --- 3. the _tl variants at T=4 -----------------------------------------
+    out["variants"] = {}
+    for variant, t, b in variants:
+        vcfg = config(**{"model.model_name": variant, "dataloader.temporal_dim": t,
+                         "dataloader.bands": list(range(6 * t))})
+        server = ModelServer(vcfg, device=device)
+        enc = server.model.prithvi_encoder
+        vdepth, heads = len(enc.blocks), enc.blocks[0].attn.num_heads
+        raw = raw_chips(b, vcfg)
+        counts = _predict_launches(fused(server), raw, vdepth, variant, on_card)
+        xv = device_chips(server, raw)
+        years = torch.from_numpy(rng.integers(2015, 2025, (b, t)).astype(np.float32))
+        days = torch.from_numpy(rng.integers(1, 366, (b, t)).astype(np.float32))
+        coords = dict(
+            temporal_coords=torch.stack([years, days], dim=-1).to(device),
+            location_coords=torch.from_numpy(np.stack(
+                [rng.uniform(-60, 60, b), rng.uniform(-180, 180, b)], axis=1)
+                .astype(np.float32)).to(device))
+        plain = kernel_vs_plain_logits(server.model, xv)
+        row = dict(part="variant", variant=variant, temporal_dim=t, batch=b,
+                   tokens=int(enc.patch_embed(xv[:1]).shape[1]) + 1,
+                   head_dim=enc.embed_dim // heads, depth=vdepth,
+                   fwd_launches_per_predict=counts["flash_attn_fwd"],
+                   mma_sync_launches=counts["flash_attn_fwd_mma"],
+                   no_coords={k: v for k, v in plain.items() if k != "logits"})
+        if variant.endswith("_600_tl"):
+            row["note"] = "kernel vs plain without coords only"
+        else:
+            with_coords = kernel_vs_plain_logits(server.model, xv, **coords)
+            # With random weights the logits (~0.07) move by about one bf16
+            # step; the encoder's float32 features show the embeddings
+            # (scale 0.1), which must move them by more than the kernel and
+            # the plain attention differ there.
+            blocks = enc.blocks
+            with torch.inference_mode():
+                feats = server.model(xv, return_features=True)[1]
+                moved = (server.model(xv, return_features=True, **coords)[1]
+                         - feats).abs().max().item()
+                for blk in blocks:
+                    blk.attn.attn_impl = "plain"
+                noise = (server.model(xv, return_features=True)[1] - feats).abs().max().item()
+                for blk in blocks:
+                    blk.attn.attn_impl = "kernel"
+            check(moved > noise, f"{variant}: coords moved the features by {moved}, no more "
+                  f"than the kernel/plain difference {noise}")
+            row.update(with_coords={k: v for k, v in with_coords.items() if k != "logits"},
+                       coords_moved_logits_by=(with_coords["logits"]
+                                               - plain["logits"]).abs().max().item(),
+                       coords_moved_features_by=moved, kernel_vs_plain_features=noise)
+            del with_coords, feats
+        _serve_row(smi, **row)
+        out["variants"][variant] = row
+        del server, enc, xv, plain, coords
+        free()
+        clock.lap(variant)
+
+    # --- 4. the GELU lowerings ----------------------------------------------
+    servers = {g: ModelServer(config(**{"tpu.gelu": g}), device=device)
+               for g in ("exact", "tanh", "bf16")}
+    raw = raw_chips(batch, cfg)
+    timing = _predict_turns({g: fused(sv) for g, sv in servers.items()}, raw, turns, iters)
+    preds = {g: fused(sv)(raw).cpu() for g, sv in servers.items()}
+    for g in servers:
+        agree = (preds[g] == preds["exact"]).float().mean().item()
+        _serve_row(smi, part="gelu", gelu=g, batch=batch, ms_per_predict=timing[g]["ms"],
+                   turns_ms=timing[g]["turns"], chips_per_s=batch * 1e3 / timing[g]["ms"],
+                   argmax_agreement_with_exact=agree)
+    out["gelu"] = timing
+    del servers, preds
+    free()
+    clock.lap("gelu lowerings")
+
+    # --- 5. the serving layer ------------------------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    try:
+        dl = cfg.dataloader
+        size, classes = int(dl.img_size), int(cfg.model.num_classes)
+        paths = _write_dataset(root, 0, n_chips, len(dl.bands), size, classes)
+        ckpt = BestCheckpointer(os.path.join(root, "run")).save(
+            {"model": fast_server.model.state_dict()})
+        pcfg = config(**{"model.head_impl": "fast", "root_dir": root,
+                         "test_filepath": f"{root}/val.csv", "checkpoint_path": ckpt})
+        pipe = EvaluationPipeline(pcfg)
+        metrics = pipe.evaluate()
+        server = pipe.server
+        batch_size = int(pcfg.train.batch_size)
+        pre = partial(process_test, mean=list(dl.mean), std=list(dl.std),
+                      temporal_size=int(dl.temporal_dim), img_size=int(pcfg.test.img_size),
+                      crop_size=int(pcfg.test.crop_size), stride=int(pcfg.test.stride))
+        loader = create_dataloader(run._make_dataset(f"{root}/val.csv", pcfg, pre), batch_size,
+                                   collate_fn=eval_collate, num_workers=0, device=device)
+        ref = Trainer(pcfg, server.model, device=device).test(lambda: iter(loader), batch_size)
+        eval_gap = max(abs(metrics[k] - v) for k, v in ref.items())
+        check(set(ref) <= set(metrics) and eval_gap <= EVAL_TOL,
+              f"EvaluationPipeline.evaluate vs Trainer.test: {metrics} vs {ref}")
+
+        result = pipe.chip_inference(os.path.join(root, "predictions"))
+        check(result["num_chips"] == n_chips, f"chip_inference served {result['num_chips']}")
+        raws, written = [], []
+        for p in paths:
+            name = os.path.basename(p).replace("chip", "prediction")
+            with GeoTiffReader(p) as r:
+                raws.append(r.read())
+            with GeoTiffReader(os.path.join(root, "predictions", name)) as r:
+                written.append(r.read(1))
+        xs = device_chips(server, np.stack(raws))
+        batcher = server.online_batcher(max_batch=batch_size)
+        online = np.stack([batcher.submit(c).result(timeout=600) for c in xs.cpu().numpy()])
+        with torch.inference_mode():
+            logits = server.model(xs, channels_last=True).float()
+        top2 = logits.topk(2, dim=-1).values
+        decided_ci = ((top2[..., 0] - top2[..., 1])
+                      >= DECIDED_GAP * logits.abs().max()).cpu().numpy()
+        same = np.stack(written) == online
+        check(bool(same[decided_ci].all()),
+              f"chip_inference vs online batcher: {int((~same[decided_ci]).sum())} decided "
+              "pixels differ")
+
+        path = os.path.join(root, "predict.pt2")
+        t0 = time.perf_counter()
+        server.export_artifact(path)
+        export_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in server.model.parameters())
+        nbytes = os.path.getsize(path)
+        check(nbytes < 4 * n_params, f"artifact {nbytes} bytes for {n_params} parameters")
+        state_path, x_path = os.path.join(root, "state.pt"), os.path.join(root, "x.pt")
+        torch.save(server.model.state_dict(), state_path)
+        x64 = device_chips(server, raw_chips(batch, cfg))
+        torch.save(x64.cpu(), x_path)
+        code = ("import json, sys, torch\n"
+                "from instageo_tpu_torch.ops import attention\n"
+                "from instageo_tpu_torch.serve.export import load_predict\n"
+                "predict, meta = load_predict(sys.argv[1])\n"
+                "state = torch.load(sys.argv[2], weights_only=True)\n"
+                "x = torch.load(sys.argv[3], weights_only=True)\n"
+                "launches = {}\n"
+                "for b in (64, 7):\n"
+                "    before = attention.launches.count\n"
+                "    y = predict(state, x[:b])\n"
+                "    launches[b] = attention.launches.count - before\n"
+                "    torch.save(y.cpu(), f'{sys.argv[4]}.{b}.pt')\n"
+                "models = [m for m in sys.modules if m.startswith('instageo_tpu_torch.models')]\n"
+                "print(json.dumps({'launches': launches, 'models_imported': models,\n"
+                "                  'meta': meta}))\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, path, state_path, x_path,
+                               os.path.join(root, "y")], cwd=os.path.dirname(
+                                   os.path.abspath(__file__)), capture_output=True, text=True,
+                              timeout=600)
+        reload_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the artifact's interpreter failed:\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(not child["models_imported"], f"load_predict imported {child['models_imported']}")
+        live = make_predict_fn(server.model)
+        agreement = {}
+        with torch.inference_mode():
+            logits = server.model(x64, channels_last=True).float()
+        top2 = logits.topk(2, dim=-1).values
+        decided = ((top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * logits.abs().max()).cpu()
+        for b in (64, 7):
+            got = torch.load(os.path.join(root, f"y.{b}.pt"), weights_only=True)
+            same = got == live(x64[:b]).cpu()
+            agreement[b] = same[decided[:b]].float().mean().item()
+            check(agreement[b] >= ARTIFACT_AGREEMENT,
+                  f"artifact vs server at batch {b}: {agreement[b]} of decided pixels")
+            if on_card:
+                check(child["launches"][str(b)] == depth,
+                      f"artifact at batch {b}: {child['launches'][str(b)]} forward launches")
+        _serve_row(smi, part="serving_layer", chips=n_chips,
+                   evaluate_vs_trainer_test_max_gap=eval_gap,
+                   chip_inference_vs_online_decided_pixels=int(decided_ci.sum()),
+                   chip_inference_pixels=int(decided_ci.size),
+                   chip_inference_vs_online_agree=True, artifact_bytes=nbytes,
+                   artifact_bound_bytes=4 * n_params, export_s=export_s,
+                   fresh_interpreter_s=reload_s, artifact_launches=child["launches"],
+                   artifact_agreement_decided=agreement, artifact_meta=child["meta"])
+        out["serving"] = dict(eval_gap=eval_gap, bytes=nbytes, params=n_params,
+                              agreement=agreement, launches=child["launches"])
+        pipe.cleanup()
+    finally:
+        tmp.cleanup()
+    del fast_server
+    free()
+    clock.lap("serving layer")
+    return out
 
 
 def _build_native() -> None:
@@ -1758,8 +2219,8 @@ def main() -> int:
     deterministic_bwd_phase(device)
     drop_rows = dropout_phase(device, DROPOUT_SHAPES)
     clock.lap("kernels")
-    _, crop_model, crop_train_cfg, crop_data = crop_setup()
-    served = slice_phase(device, crop_model, crop_data)
+    crop_cfg, crop_model, crop_train_cfg, crop_data = crop_setup()
+    served = slice_phase(device, crop_cfg, crop_model, crop_data)
     clock.lap("slice")
     print(f"[slice] {smi}: chips/s " + ", ".join(
         f"batch {b}: {r:.2f}" for b, r in served["chips_per_s"].items()), flush=True)
@@ -1785,6 +2246,12 @@ def main() -> int:
     print(f"[run] {smi}: " + ", ".join(
         f"mode={m}: {ran['chips_per_s'][m]:.2f} chips/s, {ran['wall_s'][m]:.3f} s wall"
         for m in ran["wall_s"]), flush=True)
+    models = serve_models_phase(device, smi)
+    clock.lap("serve_models")
+    print(f"[serve_models] {smi}: batch 64 " + ", ".join(
+        f"{head} head {r['ms']:.3f} ms per predict" for head, r in models["heads"]["timing"].items())
+        + "; " + ", ".join(f"gelu {g} {r['ms']:.3f} ms" for g, r in models["gelu"].items()),
+        flush=True)
 
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
@@ -1844,6 +2311,14 @@ def main() -> int:
         k["launches_by_path"]["graph"] = graph_by_route[k["name"]]
         for mode, c in ran["counts"].items():
             k["launches_by_path"][f"run_{mode}"] = by_route[k["name"]](c)
+        route = by_route[k["name"]]
+        k["launches_by_path"]["serve_fast_head"] = route(models["heads"]["launches"]["fast"])
+        k["launches_by_path"]["train_fast_head"] = route(models["train_step"]["launches"])
+        for variant, row in models["variants"].items():
+            k["launches_by_path"][f"serve_{variant}"] = (
+                row["fwd_launches_per_predict"] - row["mma_sync_launches"]
+                if k["name"] == "flash_attn_fwd_sm90" else
+                row["mma_sync_launches"] if k["name"] == "flash_attn_fwd" else 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

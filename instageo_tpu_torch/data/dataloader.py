@@ -607,16 +607,59 @@ class EpochSampler(Sampler):
         return iter([(epoch, i) for i in order])
 
 
+def _to_tensors(batch, pin: bool = False) -> tuple:
+    """A collated batch's numpy arrays as CPU tensors (pinned with ``pin``);
+    other items (filenames) as they are."""
+    out = []
+    for a in batch:
+        if isinstance(a, np.ndarray):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+            if pin:
+                a = a.pin_memory()
+        out.append(a)
+    return tuple(out)
+
+
 class _ToTensors:
-    """Collate wrapper: numpy arrays -> CPU tensors (shared memory between
-    worker processes, and pinnable); other items (filenames) as they are."""
+    """Collate wrapper: the batch as CPU tensors (``_to_tensors``)."""
 
     def __init__(self, collate_fn: Callable) -> None:
         self.collate_fn = collate_fn
 
     def __call__(self, samples):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
-                     else a for a in self.collate_fn(samples))
+        return _to_tensors(self.collate_fn(samples))
+
+
+class _ToArrays:
+    """Collate wrapper of a worker process: the batch's arrays contiguous,
+    still numpy (``ProcessLoader`` makes the tensors)."""
+
+    def __init__(self, collate_fn: Callable) -> None:
+        self.collate_fn = collate_fn
+
+    def __call__(self, samples):
+        return tuple(np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a
+                     for a in self.collate_fn(samples))
+
+
+class ProcessLoader(DataLoader):
+    """A ``DataLoader`` of spawned worker processes that hand back numpy
+    batches; the tensors are made, and pinned with ``pin``, in this process.
+
+    A worker that returns tensors moves them into shared memory from its
+    queue's feeder thread, inside torch's C++ code. When the consumer drops
+    an epoch early, the worker shuts down with that thread still sending,
+    and the interpreter's exit aborts the process ("terminate called without
+    an active exception"). numpy batches are pickled in Python and end
+    cleanly."""
+
+    def __init__(self, *args, pin: bool = False, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.pin = pin
+
+    def __iter__(self) -> Iterator:
+        for batch in super().__iter__():
+            yield _to_tensors(batch, self.pin)
 
 
 class ThreadLoader:
@@ -720,12 +763,13 @@ def create_dataloader(dataset, batch_size: int, shuffle: bool = False,
     workers = max(0, int(num_workers))
     pin = device is not None and torch.device(device).type == "cuda"
     sampler = EpochSampler(len(dataset), shuffle, seed)
-    collate = _ToTensors(collate_fn)
     if workers > 0 and worker_mode == "thread":
-        return ThreadLoader(dataset, batch_size, sampler, collate, workers, prefetch_depth,
-                            pin_memory=pin, drop_last=drop_last)
-    return DataLoader(
-        dataset, batch_size=batch_size, sampler=sampler,
-        num_workers=workers, collate_fn=collate, pin_memory=pin,
-        drop_last=drop_last, persistent_workers=workers > 0,
-        multiprocessing_context="spawn" if workers > 0 else None)
+        return ThreadLoader(dataset, batch_size, sampler, _ToTensors(collate_fn), workers,
+                            prefetch_depth, pin_memory=pin, drop_last=drop_last)
+    if workers > 0:
+        return ProcessLoader(dataset, batch_size=batch_size, sampler=sampler,
+                             num_workers=workers, collate_fn=_ToArrays(collate_fn), pin=pin,
+                             drop_last=drop_last, persistent_workers=True,
+                             multiprocessing_context="spawn")
+    return DataLoader(dataset, batch_size=batch_size, sampler=sampler,
+                      collate_fn=_ToTensors(collate_fn), pin_memory=pin, drop_last=drop_last)

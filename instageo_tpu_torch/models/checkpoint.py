@@ -4,7 +4,9 @@
   ``instageo_tpu/models/checkpoint.py:seg_variables_to_torch``: the JAX
   tree (``{"params", "batch_stats"}`` as numpy arrays) becomes the
   reference/timm state-dict layout that ``PrithviSeg.load_state_dict(...,
-  strict=True)`` takes;
+  strict=True)`` takes; either head, the ``_tl`` encoders' scales, and the
+  blocks in the loop layout (``blocks_{i}``) or stacked (one ``blocks``
+  subtree with a leading depth axis, ``tpu.block_layout: scan``);
 * the torch-checkpoint readers of the same JAX module (``load_torch_file``,
   ``filter_checkpoint_vit``, ``select_patch_embed_weights``,
   ``load_pretrained_encoder``), which here act on state dicts directly,
@@ -36,10 +38,32 @@ def _layernorm(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def unstack_block_params(encoder_params: Mapping) -> Dict:
+    """A stacked-layout encoder tree (one ``blocks`` subtree whose leaves
+    carry a leading depth axis) in the loop layout (``blocks_0`` ...); a
+    loop-layout tree as it is. The port's numpy copy of
+    ``instageo_tpu/models/prithvi.py:unstack_block_params``."""
+    if "blocks" not in encoder_params:
+        return dict(encoder_params)
+    out = {k: v for k, v in encoder_params.items() if k != "blocks"}
+    stacked = encoder_params["blocks"]
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, Mapping) else (v,))
+
+    def take(tree, i):
+        return {k: take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+                for k, v in tree.items()}
+
+    depth = int(np.shape(next(leaves(stacked)))[0])
+    for i in range(depth):
+        out[f"blocks_{i}"] = take(stacked, i)
+    return out
+
+
 def _encoder(sd: Dict, params: Mapping, arch: PrithviArch) -> None:
-    if "temporal_embed_enc" in params or "location_embed_enc" in params:
-        raise NotImplementedError(
-            "temporal/location encoders (_tl variants) are not ported yet")
+    params = unstack_block_params(params)
     pre = "prithvi_encoder"
     kernel = np.asarray(params["patch_embed"]["proj"]["kernel"])  # (C·p, D)
     patch = tuple(arch.patch_size)
@@ -64,41 +88,52 @@ def _encoder(sd: Dict, params: Mapping, arch: PrithviArch) -> None:
         _linear(sd, f"{bp}.mlp.fc1", blk["mlp"]["fc1"])
         _linear(sd, f"{bp}.mlp.fc2", blk["mlp"]["fc2"])
     _layernorm(sd, f"{pre}.norm", params["norm"])
+    for name in ("temporal_embed_enc", "location_embed_enc"):
+        if "scale" in params.get(name, {}):
+            sd[f"{pre}.{name}.scale"] = _t(np.reshape(params[name]["scale"], (1,)))
+
+
+def _upscaling_block(sd: Dict, base: str, up: Mapping, stats: Mapping) -> None:
+    """One JAX ``UpscalingBlock`` -> [ConvT, Dropout, Conv, BN, ReLU] at ``base``."""
+    # Flipped-HWIO correlation kernel -> ConvTranspose2d (I, O, kh, kw).
+    k = np.asarray(up["convt"]["kernel"])[::-1, ::-1]
+    sd[f"{base}.0.weight"] = _t(k.transpose(2, 3, 0, 1))
+    sd[f"{base}.0.bias"] = _t(up["convt"]["bias"])
+    # HWIO -> OIHW.
+    sd[f"{base}.2.weight"] = _t(np.asarray(up["conv"]["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{base}.2.bias"] = _t(up["conv"]["bias"])
+    sd[f"{base}.3.weight"] = _t(up["bn"]["scale"])
+    sd[f"{base}.3.bias"] = _t(up["bn"]["bias"])
+    stats = stats.get("bn", {})
+    sd[f"{base}.3.running_mean"] = _t(stats.get("mean", np.zeros_like(up["bn"]["bias"])))
+    sd[f"{base}.3.running_var"] = _t(stats.get("var", np.ones_like(up["bn"]["scale"])))
 
 
 def seg_state_dict_from_jax(variables: Mapping, arch: PrithviArch,
                             num_up_blocks: int = 4) -> Dict[str, torch.Tensor]:
     """JAX ``PrithviSeg`` variables (numpy) -> the port's float32 state dict.
 
-    Head blocks are ``segmentation_head.{i}`` = [ConvT, Dropout, Conv, BN,
-    ReLU]; the classifier is ``segmentation_head.{num_up_blocks + 1}``
-    (Dropout holds the slot before it). ``arch`` must carry the depth the
-    variables were built with.
+    The torch head's blocks are ``segmentation_head.{i}`` = [ConvT,
+    Dropout, Conv, BN, ReLU]; its classifier is
+    ``segmentation_head.{num_up_blocks + 1}`` (Dropout holds the slot
+    before it). A fast-head tree (``fast_up_{0,1,2}``, ``fast_head_conv``)
+    keeps the JAX names. ``arch`` must carry the depth the variables were
+    built with.
     """
     params = variables["params"]
     batch_stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     _encoder(sd, params["prithvi_encoder"], arch)
-    for i in range(num_up_blocks):
-        up = params[f"up_{i}"]
-        base = f"segmentation_head.{i}"
-        # Flipped-HWIO correlation kernel -> ConvTranspose2d (I, O, kh, kw).
-        k = np.asarray(up["convt"]["kernel"])[::-1, ::-1]
-        sd[f"{base}.0.weight"] = _t(k.transpose(2, 3, 0, 1))
-        sd[f"{base}.0.bias"] = _t(up["convt"]["bias"])
-        # HWIO -> OIHW.
-        sd[f"{base}.2.weight"] = _t(np.asarray(up["conv"]["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"{base}.2.bias"] = _t(up["conv"]["bias"])
-        sd[f"{base}.3.weight"] = _t(up["bn"]["scale"])
-        sd[f"{base}.3.bias"] = _t(up["bn"]["bias"])
-        stats = batch_stats.get(f"up_{i}", {}).get("bn", {})
-        sd[f"{base}.3.running_mean"] = _t(
-            stats.get("mean", np.zeros_like(up["bn"]["bias"])))
-        sd[f"{base}.3.running_var"] = _t(
-            stats.get("var", np.ones_like(up["bn"]["scale"])))
-    head = f"segmentation_head.{num_up_blocks + 1}"
-    sd[f"{head}.weight"] = _t(np.asarray(params["head_conv"]["kernel"]).transpose(3, 2, 0, 1))
-    sd[f"{head}.bias"] = _t(params["head_conv"]["bias"])
+    if "fast_head_conv" in params:
+        ups = [(f"fast_up_{i}", f"fast_up_{i}") for i in range(3)]
+        head_src, head = "fast_head_conv", "fast_head_conv"
+    else:
+        ups = [(f"up_{i}", f"segmentation_head.{i}") for i in range(num_up_blocks)]
+        head_src, head = "head_conv", f"segmentation_head.{num_up_blocks + 1}"
+    for src, base in ups:
+        _upscaling_block(sd, base, params[src], batch_stats.get(src, {}))
+    sd[f"{head}.weight"] = _t(np.asarray(params[head_src]["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{head}.bias"] = _t(params[head_src]["bias"])
     return sd
 
 

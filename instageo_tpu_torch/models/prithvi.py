@@ -1,14 +1,17 @@
 """Prithvi geospatial ViT encoder in PyTorch.
 
-Counterpart of ``instageo_tpu/models/prithvi.py`` (``PrithviViT`` in the
-``"loop"`` block layout). Module and parameter names follow the reference
-timm layout (``patch_embed.proj``, ``blocks.{i}.attn.qkv``, ...), so a
-converted state dict loads with ``strict=True``.
+Counterpart of ``instageo_tpu/models/prithvi.py`` (``PrithviViT``, with the
+temporal and location encoders of the ``_tl`` variants). Module and
+parameter names follow the reference timm layout (``patch_embed.proj``,
+``blocks.{i}.attn.qkv``, ``temporal_embed_enc.scale``, ...), so a converted
+state dict loads with ``strict=True``. The JAX ``"scan"`` block layout
+stacks the same blocks' parameters; here every layout builds the same
+modules (the weight bridge unstacks a stacked tree).
 
 Compute types follow the JAX ``dtype`` field: matmuls in the compute dtype
 ``dtype`` (bf16 in serving and training), LayerNorm statistics and output in
-float32 (the caller casts), GELU and softmax statistics in float32, the
-residual stream in the compute dtype. The compute dtype is separate from the
+float32 (the caller casts), softmax statistics in float32, GELU as
+``gelu`` says (``GELUS``), the residual stream in the compute dtype. The compute dtype is separate from the
 parameters' dtype, as the JAX model's ``param_dtype=float32`` is: weights are
 cast to ``dtype`` where they are used, and the cast is differentiable, so
 float32 parameters get float32 gradients. Serving may store the matmul
@@ -113,9 +116,19 @@ def interpolate_pos_encoding(
     return torch.cat([cls_pos, patch_pos], dim=1)
 
 
+def _sincos_from_values(embed_dim: int, values: torch.Tensor) -> torch.Tensor:
+    """1D sincos embedding of runtime values, float32: (N,) -> (N, embed_dim)."""
+    omega = torch.arange(embed_dim // 2, dtype=torch.float32, device=values.device)
+    omega = 1.0 / 10000 ** (omega / (embed_dim / 2.0))
+    out = values.reshape(-1).float()[:, None] * omega[None, :]
+    return torch.cat([torch.sin(out), torch.cos(out)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
+
+GELUS = ("exact", "tanh", "bf16")
 
 
 _MATMUL_LAYERS = (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)
@@ -212,18 +225,28 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU in float32 -> fc2."""
+    """fc1 -> GELU -> fc2. ``gelu`` is the JAX ``tpu.gelu`` lowering:
+    ``exact`` (erf in float32, timm's), ``tanh`` (the tanh approximation in
+    float32) or ``bf16`` (erf in the compute dtype, no float32 round trip);
+    the result is in the compute dtype either way."""
 
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32, gelu: str = "exact") -> None:
         super().__init__()
+        if gelu not in GELUS:
+            raise ValueError(f"gelu={gelu!r}; expected one of {GELUS}")
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
         self.dtype = dtype
+        self.gelu = gelu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _linear(x, self.fc1, self.dtype)
-        y = F.gelu(y.float()).to(y.dtype)
+        if self.gelu == "bf16":
+            y = F.gelu(y)
+        else:
+            approximate = "tanh" if self.gelu == "tanh" else "none"
+            y = F.gelu(y.float(), approximate=approximate).to(y.dtype)
         return _linear(y, self.fc2, self.dtype)
 
 
@@ -231,16 +254,62 @@ class Block(nn.Module):
     """Pre-LN transformer block: x + Attn(LN(x)); x + MLP(LN(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attn_impl: str = "kernel", dtype: torch.dtype = torch.float32) -> None:
+                 attn_impl: str = "kernel", dtype: torch.dtype = torch.float32,
+                 gelu: str = "exact") -> None:
         super().__init__()
         self.norm1 = LayerNormF32(dim)
         self.attn = Attention(dim, num_heads, attn_impl, dtype)
         self.norm2 = LayerNormF32(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x).to(x.dtype))
         return x + self.mlp(self.norm2(x).to(x.dtype))
+
+
+class TemporalEncoder(nn.Module):
+    """Year and day-of-year sincos encoding of (B, T, 2) ``temporal_coords``
+    (reference pritvhi.py:273-322): half the dims each, times ``scale``
+    (learnable, 0.1 at init, with ``trainable_scale``; else 1), float32."""
+
+    def __init__(self, embed_dim: int, trainable_scale: bool = False) -> None:
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.scale = nn.Parameter(torch.full((1,), 0.1)) if trainable_scale else None
+
+    def forward(self, temporal_coords: torch.Tensor,
+                tokens_per_frame: Optional[int] = None) -> torch.Tensor:
+        b, t, _ = temporal_coords.shape
+        year_dim = self.embed_dim // 2
+        year = _sincos_from_values(year_dim, temporal_coords[:, :, 0]).reshape(b, t, -1)
+        jday = _sincos_from_values(self.embed_dim - year_dim,
+                                  temporal_coords[:, :, 1]).reshape(b, t, -1)
+        emb = torch.cat([year, jday], dim=-1)
+        if self.scale is not None:
+            emb = self.scale * emb
+        if tokens_per_frame is not None:
+            emb = emb.repeat_interleave(tokens_per_frame, dim=1)
+        return emb
+
+
+class LocationEncoder(nn.Module):
+    """Latitude and longitude sincos encoding of (B, 2) ``location_coords``
+    (reference pritvhi.py:325-367), (B, 1, D) float32, scaled as
+    ``TemporalEncoder``."""
+
+    def __init__(self, embed_dim: int, trainable_scale: bool = False) -> None:
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.scale = nn.Parameter(torch.full((1,), 0.1)) if trainable_scale else None
+
+    def forward(self, location_coords: torch.Tensor) -> torch.Tensor:
+        b = location_coords.shape[0]
+        lat_dim = self.embed_dim // 2
+        lat = _sincos_from_values(lat_dim, location_coords[:, 0]).reshape(b, 1, -1)
+        lon = _sincos_from_values(self.embed_dim - lat_dim,
+                                 location_coords[:, 1]).reshape(b, 1, -1)
+        emb = torch.cat([lat, lon], dim=-1)
+        return emb if self.scale is None else self.scale * emb
 
 
 class PrithviViT(nn.Module):
@@ -248,7 +317,11 @@ class PrithviViT(nn.Module):
 
     Input (B, C, T, H, W), or (B, C, H, W) when the temporal patch is 1;
     output (B, 1 + T·h·w, D) float32 tokens, the cls token first. The
-    residual stream runs in the compute ``dtype``.
+    residual stream runs in the compute ``dtype``. The ``_tl`` variants'
+    encoders (``coords_encoding``) are built, and, as in the reference
+    forward, add their embeddings only when coords are passed: the
+    temporal one per frame, the location one to every patch token; each in
+    float32, then cast to the token dtype.
     """
 
     def __init__(
@@ -262,22 +335,25 @@ class PrithviViT(nn.Module):
         num_heads: int = 12,
         mlp_ratio: float = 4.0,
         coords_encoding: Sequence[str] = (),
+        coords_scale_learn: bool = False,
         attn_impl: str = "kernel",
         dtype: torch.dtype = torch.float32,
+        gelu: str = "exact",
     ) -> None:
         super().__init__()
-        if coords_encoding:
-            raise NotImplementedError(
-                f"coords_encoding={tuple(coords_encoding)}: the temporal and "
-                "location encoders (_tl variants) are not ported yet")
         self.img_size = img_size
         self.patch_size = tuple(patch_size)
         self.num_frames = num_frames
         self.embed_dim = embed_dim
         self.patch_embed = PatchEmbed3D(self.patch_size, in_chans, embed_dim, dtype)
+        if "time" in coords_encoding:
+            self.temporal_embed_enc = TemporalEncoder(embed_dim, coords_scale_learn)
+        if "location" in coords_encoding:
+            self.location_embed_enc = LocationEncoder(embed_dim, coords_scale_learn)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, attn_impl, dtype) for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, attn_impl, dtype, gelu)
+            for _ in range(depth))
         self.norm = LayerNormF32(embed_dim)
         self._pos_cache: Dict[tuple, torch.Tensor] = {}
 
@@ -299,12 +375,21 @@ class PrithviViT(nn.Module):
             self._pos_cache[key] = pos
         return pos
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temporal_coords: Optional[torch.Tensor] = None,
+                location_coords: Optional[torch.Tensor] = None) -> torch.Tensor:
         if x.dim() == 4 and self.patch_size[0] == 1:
             x = x[:, :, None]
         tokens = self.patch_embed(x)
         pos = self._pos_embed(x.shape[-3:], tokens.device)
         tokens = tokens + pos[:, 1:].to(tokens.dtype)
+        if temporal_coords is not None and hasattr(self, "temporal_embed_enc"):
+            temporal_coords = temporal_coords.to(tokens.device)
+            per_frame = tokens.shape[1] // temporal_coords.shape[1]
+            tokens = tokens + self.temporal_embed_enc(temporal_coords,
+                                                      per_frame).to(tokens.dtype)
+        if location_coords is not None and hasattr(self, "location_embed_enc"):
+            tokens = tokens + self.location_embed_enc(
+                location_coords.to(tokens.device)).to(tokens.dtype)
         cls = (self.cls_token + pos[:, :1]).to(tokens.dtype)
         tokens = torch.cat([cls.expand(tokens.shape[0], -1, -1), tokens], dim=1)
         for block in self.blocks:

@@ -112,6 +112,35 @@ SEG_HEAD_KERNEL_SIZES = {
     "prithvi_eo_v2_600_tl": (5, 5, 5, 7),
 }
 
+
+# Hugging Face hub sources of the pretrained torch checkpoints
+# (reference: model.py:105-126). A table of names only: nothing is
+# downloaded; the factory reads a local file (model.pretrained_path or
+# PRITHVI_PRETRAINED_PATH).
+PRETRAINED_WEIGHTS = {
+    "prithvi_eo_v1_100": {
+        "hf_hub_id": "ibm-nasa-geospatial/Prithvi-EO-1.0-100M",
+        "hf_hub_filename": "Prithvi_EO_V1_100M.pt",
+    },
+    "prithvi_eo_v2_300": {
+        "hf_hub_id": "ibm-nasa-geospatial/Prithvi-EO-2.0-300M",
+        "hf_hub_filename": "Prithvi_EO_V2_300M.pt",
+    },
+    "prithvi_eo_v2_300_tl": {
+        "hf_hub_id": "ibm-nasa-geospatial/Prithvi-EO-2.0-300M-TL",
+        "hf_hub_filename": "Prithvi_EO_V2_300M_TL.pt",
+    },
+    "prithvi_eo_v2_600": {
+        "hf_hub_id": "ibm-nasa-geospatial/Prithvi-EO-2.0-600M",
+        "hf_hub_filename": "Prithvi_EO_V2_600M.pt",
+    },
+    "prithvi_eo_v2_600_tl": {
+        "hf_hub_id": "ibm-nasa-geospatial/Prithvi-EO-2.0-600M-TL",
+        "hf_hub_filename": "Prithvi_EO_V2_600M_TL.pt",
+    },
+}
+
+
 def get_arch(
     variant: str,
     *,

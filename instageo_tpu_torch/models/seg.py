@@ -1,11 +1,21 @@
 """Prithvi segmentation/regression model (encoder + upscaling head) in PyTorch.
 
-Counterpart of ``instageo_tpu/models/seg.py:PrithviSeg`` with the reference
-("torch") head: four upscaling stages (ConvTranspose2d ×2 → Dropout →
-Conv2d(k, padding=1) → BatchNorm2d → ReLU) that halve the channel count, then
-Dropout and a 1×1 conv to the class logits. Regression is the same network
-with ``num_classes=1``. Submodule names follow the reference state dict
-(``prithvi_encoder.*``, ``segmentation_head.{i}.{j}.*``).
+Counterpart of ``instageo_tpu/models/seg.py:PrithviSeg`` with both of its
+heads (``HEADS``):
+
+* ``"torch"``, the reference head: four upscaling stages (ConvTranspose2d
+  ×2 → Dropout → Conv2d(k, padding=1) → BatchNorm2d → ReLU) that halve the
+  channel count, then Dropout and a 1×1 conv to the class logits.
+  Submodule names follow the reference state dict (``prithvi_encoder.*``,
+  ``segmentation_head.{i}.{j}.*``);
+* ``"fast"``, the JAX package's production head: three stages of 3×3
+  convolutions with a 128-channel floor (``fast_up_{0,1,2}``), the head
+  dropout and the 1×1 classifier (``fast_head_conv``) at half resolution,
+  then a float32 bilinear resize of the logits to the input's H×W. Its
+  names are the JAX scopes', so a checkpoint of the other head fails a
+  strict load.
+
+Regression is the same network with ``num_classes=1``.
 
 Train mode follows the JAX model: the head's dropouts are ``Dropout``
 (the fused kernel of ``ops/dropout.py`` by default), and BatchNorm updates
@@ -21,7 +31,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from instageo_tpu_torch.device import resolve_device
-from instageo_tpu_torch.models.prithvi import PrithviViT, cast_matmul_weights
+from instageo_tpu_torch.models.prithvi import (
+    LocationEncoder,
+    PrithviViT,
+    TemporalEncoder,
+    cast_matmul_weights,
+)
 from instageo_tpu_torch.models.registry import (
     PRITHVI_ARCHS,
     SEG_HEAD_KERNEL_SIZES,
@@ -152,12 +167,31 @@ class UpscalingBlock(nn.Sequential):
         return self[4](self[3](x)).to(dt)
 
 
+HEADS = ("torch", "fast")
+
+
+def fast_head_dims(base: int) -> Tuple[int, ...]:
+    """Channels into and out of the fast head's three stages:
+    ``[D·T] + [max(D·T / 2^(i+1), 128) for i in 0..2]``."""
+    return (base,) + tuple(max(base // (2 ** (i + 1)), 128) for i in range(3))
+
+
+def resize_logits(logits: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """(B, C, h, w) logits -> (B, C, H, W) float32 by bilinear interpolation
+    with half-pixel centres: ``jax.image.resize(..., "bilinear")`` when
+    upsampling (its edge weights, renormalised, pick the edge pixel, as the
+    clamp here does)."""
+    return F.interpolate(logits.float(), size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=False)
+
+
 class PrithviSeg(nn.Module):
     """Segmentation head over the Prithvi encoder.
 
-    ``forward`` takes (B, C, T, H, W) imagery and returns float32 logits,
-    NCHW, or NHWC with ``channels_last``. With kernel sizes 3 the output
-    matches the input resolution.
+    ``forward`` takes (B, C, T, H, W) imagery, and the ``_tl`` variants'
+    optional coords, and returns float32 logits, NCHW, or NHWC with
+    ``channels_last``. With kernel sizes 3 (and always with the fast head)
+    the output matches the input resolution.
     """
 
     def __init__(
@@ -171,9 +205,14 @@ class PrithviSeg(nn.Module):
         attn_impl: str = "kernel",
         dtype: torch.dtype = torch.float32,
         dropout_impl: str = "kernel",
+        head_impl: str = "torch",
+        gelu: str = "exact",
     ) -> None:
         super().__init__()
+        if head_impl not in HEADS:
+            raise ValueError(f"head_impl={head_impl!r}; expected one of {HEADS}")
         self.dtype = dtype
+        self.head_impl = head_impl
         arch = get_arch(variant, in_chans=in_chans, num_frames=temporal_step,
                         img_size=image_size, depth=depth)
         self.arch = arch
@@ -188,9 +227,19 @@ class PrithviSeg(nn.Module):
             num_heads=arch.num_heads,
             mlp_ratio=arch.mlp_ratio,
             coords_encoding=tuple(arch.coords_encoding),
+            coords_scale_learn=arch.coords_scale_learn,
             attn_impl=attn_impl,
             dtype=dtype,
+            gelu=gelu,
         )
+        if head_impl == "fast":
+            dims = fast_head_dims(arch.embed_dim * temporal_step)
+            for i in range(3):
+                setattr(self, f"fast_up_{i}", UpscalingBlock(
+                    dims[i], dims[i + 1], 3, dtype=dtype, dropout_impl=dropout_impl))
+            self.head_dropout = Dropout(0.1, dropout_impl)
+            self.fast_head_conv = nn.Conv2d(dims[3], num_classes, kernel_size=1)
+            return
         # embed_dims[i] = D·T / 2^i (reference model.py:380-383).
         embed_dims = [(arch.embed_dim * temporal_step) // (2**i) for i in range(5)]
         kernels = SEG_HEAD_KERNEL_SIZES[variant]
@@ -203,8 +252,10 @@ class PrithviSeg(nn.Module):
         )
 
     def forward(self, img: torch.Tensor, return_features: bool = False,
-                channels_last: bool = False):
-        tokens = self.prithvi_encoder(img)
+                channels_last: bool = False,
+                temporal_coords: Optional[torch.Tensor] = None,
+                location_coords: Optional[torch.Tensor] = None):
+        tokens = self.prithvi_encoder(img, temporal_coords, location_coords)
         feats = tokens[:, 1:, :]  # drop the cls token
         b, l, d = feats.shape
         t = self.temporal_step
@@ -214,12 +265,20 @@ class PrithviSeg(nn.Module):
         x = x.reshape(b, d * t, side, side)
         feature_map = x
         x = x.to(self.dtype)
-        head = self.segmentation_head
-        for block in head[:-2]:
-            x = block(x)
-        conv = head[-1]
-        logits = F.conv2d(head[-2](x), conv.weight.to(self.dtype),
+        if self.head_impl == "fast":
+            for i in range(3):
+                x = getattr(self, f"fast_up_{i}")(x)
+            dropout, conv = self.head_dropout, self.fast_head_conv
+        else:
+            head = self.segmentation_head
+            for block in head[:-2]:
+                x = block(x)
+            dropout, conv = head[-2], head[-1]
+        logits = F.conv2d(dropout(x), conv.weight.to(self.dtype),
                           conv.bias.to(self.dtype)).float()
+        if self.head_impl == "fast":
+            # The classifier ran at half resolution.
+            logits = resize_logits(logits, img.shape[-2:])
         if channels_last:
             logits = logits.permute(0, 2, 3, 1)
             feature_map = feature_map.permute(0, 2, 3, 1)
@@ -233,7 +292,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init from ``generator``, in place: torch's default
     U(±1/sqrt(fan_in)) for linear and conv weights and biases (fan_in from
     dim 1 on, as torch computes it, ConvTranspose2d included), unit/zero
-    norms and BatchNorm statistics, N(0, 0.02) cls token."""
+    norms and BatchNorm statistics, N(0, 0.02) cls token, 0.1 for the
+    ``_tl`` encoders' learnable scales."""
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
             w = module.weight
@@ -250,6 +310,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 module.num_batches_tracked.zero_()
         elif isinstance(module, PrithviViT):
             module.cls_token.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(module, (TemporalEncoder, LocationEncoder)) and module.scale is not None:
+            module.scale.fill_(0.1)
     return model
 
 
@@ -265,6 +327,8 @@ def create_prithvi_seg(
     param_dtype: Optional[torch.dtype] = None,
     attn_impl: str = "kernel",
     dropout_impl: str = "kernel",
+    head_impl: str = "torch",
+    gelu: str = "exact",
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
 ) -> PrithviSeg:
@@ -284,7 +348,8 @@ def create_prithvi_seg(
         model = PrithviSeg(variant=variant, num_classes=num_classes,
                            temporal_step=temporal_step, image_size=image_size,
                            in_chans=num_bands, depth=depth, attn_impl=attn_impl,
-                           dtype=dtype, dropout_impl=dropout_impl)
+                           dtype=dtype, dropout_impl=dropout_impl, head_impl=head_impl,
+                           gelu=gelu)
     model.to_empty(device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return cast_matmul_weights(model, param_dtype or dtype).eval()

@@ -25,10 +25,15 @@ qkv projection output without copying them.
 ``flash_attention_fwd`` and ``flash_attention_bwd`` are the wrappers: on a
 CPU tensor they run ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``;
 on a CUDA tensor they launch the kernel or raise. They never fall back.
-``FlashAttention`` (an autograd Function) joins them, and the entries
-``flash_attention_blo``, ``flash_attention_bhld`` and ``flash_attention_bloq``
-are differentiable through it. The raw ``flash_attention_fwd`` refuses
-inputs that require grad.
+The forward wrapper is also the custom op ``instageo_tpu_torch::flash_attn_fwd``
+(``flash_attn_fwd_op``), with a fake version that gives O's and lse's
+shapes: ``torch.export`` records the op as one node (a ``ctypes`` launch
+cannot be traced), and the exported program runs the same wrapper.
+``FlashAttention`` (an autograd Function) joins the wrappers, and the
+entries ``flash_attention_blo``, ``flash_attention_bhld`` and
+``flash_attention_bloq`` are differentiable through it; where nothing needs
+a gradient they call the op directly. The raw ``flash_attention_fwd``
+refuses inputs that require grad.
 """
 
 from __future__ import annotations
@@ -358,6 +363,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_attention_fwd_cuda(q, k, v, layout, fwd_route(q.shape[-1]))
 
 
+@torch.library.custom_op("instageo_tpu_torch::flash_attn_fwd", mutates_args=())
+def flash_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      layout: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as a custom op (the kernel on a CUDA tensor,
+    the plain version on a CPU tensor)."""
+    return flash_attention_fwd(q, k, v, layout)
+
+
+@flash_attn_fwd_op.register_fake
+def _flash_attn_fwd_fake(q, k, v, layout):
+    b, h, l, d = q.shape
+    shape = (b, l, h * d) if layout == "merged" else (b, h, l, d)
+    lse_dtype = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return q.new_empty(shape), q.new_empty((b, h, l, 1), dtype=lse_dtype)
+
+
 def _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout, route):
     """Launch the backward on ``route`` ("wgmma" or "mma_sync"). The wrapper
     passes ``bwd_route(Dh)``; a measurement of the mma.sync design at a
@@ -434,7 +455,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, layout, impl):
         if impl not in IMPLS:
             raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
-        fwd = flash_attention_fwd if impl == "kernel" else flash_attention_fwd_plain
+        fwd = flash_attn_fwd_op if impl == "kernel" else flash_attention_fwd_plain
         o, lse = fwd(q, k, v, layout)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mark_non_differentiable(lse)
@@ -450,18 +471,27 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _attention(q, k, v, layout: str, impl: str) -> torch.Tensor:
+    """O of ``FlashAttention``; without a gradient to keep, the forward op
+    alone (one node in an exported graph)."""
+    if impl == "kernel" and not (torch.is_grad_enabled()
+                                 and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attn_fwd_op(q, k, v, layout)[0]
+    return FlashAttention.apply(q, k, v, layout, impl)[0]
+
+
 def flash_attention_blo(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         impl: str = "kernel") -> torch.Tensor:
     """Heads-first in, merged heads out: (B, H, L, Dh) -> (B, L, H·Dh).
     Counterpart of ``flash_attention_blo`` (TPU kernels #1 and #3)."""
-    return FlashAttention.apply(q, k, v, "merged", impl)[0]
+    return _attention(q, k, v, "merged", impl)
 
 
 def flash_attention_bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          impl: str = "kernel") -> torch.Tensor:
     """Heads-first in and out: (B, H, L, Dh) -> (B, H, L, Dh). Counterpart of
     ``flash_attention_bhld`` (TPU kernels #2 and #4)."""
-    return FlashAttention.apply(q, k, v, "heads_first", impl)[0]
+    return _attention(q, k, v, "heads_first", impl)
 
 
 def flash_attention_bloq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -476,4 +506,4 @@ def flash_attention_bloq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nothing, and returns dq for the L real rows. So this entry runs the same
     forward and backward as ``flash_attention_blo``.
     """
-    return FlashAttention.apply(q, k, v, "merged", impl)[0]
+    return _attention(q, k, v, "merged", impl)

@@ -26,7 +26,7 @@ from instageo_tpu_torch.models.checkpoint import (
     seg_state_dict_from_torch,
 )
 from instageo_tpu_torch.models.registry import PRETRAINED_BANDS, get_arch
-from instageo_tpu_torch.models.seg import PrithviSeg, create_prithvi_seg
+from instageo_tpu_torch.models.seg import HEADS, PrithviSeg, create_prithvi_seg
 from instageo_tpu_torch.train.checkpointing import load_checkpoint
 
 log = logging.getLogger(__name__)
@@ -60,10 +60,14 @@ TPU_KEYS = {
     "fsdp": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "zero1": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "quant": ("refused", ("none",), "ROADMAP item 10 (ops/quant.py)"),
-    "block_layout": ("refused", ("loop",), "ROADMAP item 6 (block layouts)"),
+    "block_layout": ("honoured", ("loop", "scan")),
     "remat": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
-    "gelu": ("refused", ("exact",), "ROADMAP item 6 (GELU lowerings)"),
+    "gelu": ("honoured", ("exact", "tanh", "bf16")),
 }
+# ``block_layout: scan`` builds the same modules as ``loop`` (the weight
+# bridge reads a stacked JAX tree). Values of an honoured key that wait for
+# a ROADMAP item:
+_REFUSED_VALUES = {"block_layout": {"pipeline": "ROADMAP item 11 (parallel/, pp)"}}
 
 
 def check_tpu_config(cfg: Any) -> dict:
@@ -77,6 +81,9 @@ def check_tpu_config(cfg: Any) -> dict:
             if value not in rule[1]:
                 raise NotImplementedError(
                     f"tpu.{key}={value!r} is not ported yet: {rule[2]}")
+        elif str(value) in _REFUSED_VALUES.get(key, {}):
+            raise NotImplementedError(
+                f"tpu.{key}={value!r} is not ported yet: {_REFUSED_VALUES[key][str(value)]}")
         elif rule[1] is not None and value not in rule[1]:
             raise ValueError(f"tpu.{key}={value!r} — expected one of {rule[1]}")
     return tpu_cfg
@@ -153,12 +160,10 @@ def build_model(cfg: Any, device=None, training: bool = False, seed: int = 0) ->
     unless the caller asks for the CPU), randomly initialised from
     ``seed``. Compute dtype from ``tpu.precision``; parameters float32 for
     ``training``, else in the compute dtype."""
-    check_tpu_config(cfg)
+    tpu_cfg = check_tpu_config(cfg)
     head_impl = str(cfg.model.get("head_impl", "torch"))
-    if head_impl not in ("torch", "fast"):
-        raise ValueError(f"model.head_impl={head_impl!r} — expected torch | fast")
-    if head_impl == "fast":
-        raise NotImplementedError("model.head_impl=fast is not ported yet: ROADMAP item 4")
+    if head_impl not in HEADS:
+        raise ValueError(f"model.head_impl={head_impl!r} — expected one of {HEADS}")
     dtype = compute_dtype(cfg)
     return create_prithvi_seg(
         str(cfg.model.model_name),
@@ -169,6 +174,8 @@ def build_model(cfg: Any, device=None, training: bool = False, seed: int = 0) ->
         depth=int(cfg.model.get("depth", -1)),
         dtype=dtype,
         param_dtype=torch.float32 if training else dtype,
+        head_impl=head_impl,
+        gelu=str(tpu_cfg.get("gelu", "exact")),
         device=resolve_device(device),
         seed=seed,
     )
@@ -197,7 +204,12 @@ def create_model(cfg: Any, seed: int = 0, device=None, training: bool = False) -
             reps = -(-n_bands // len(PRETRAINED_BANDS))
             model_bands = (list(PRETRAINED_BANDS) * reps)[:n_bands]
             enc = load_pretrained_encoder(pre_path, _arch(cfg), model_bands=model_bands)
-            model.prithvi_encoder.load_state_dict(enc, strict=True)
+            missing, unexpected = model.prithvi_encoder.load_state_dict(enc, strict=False)
+            # A _tl checkpoint without the encoders' learnable scales keeps
+            # their init, as the JAX reader does; anything else must match.
+            if unexpected or any(not k.endswith("_embed_enc.scale") for k in missing):
+                raise RuntimeError(f"pretrained encoder {pre_path}: missing keys {missing}, "
+                                   f"unexpected keys {unexpected}")
             log.info("Loaded pretrained encoder from %s", pre_path)
         else:
             log.warning("load_pretrained_weights=True but no local pretrained file "

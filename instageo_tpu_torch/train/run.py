@@ -11,7 +11,11 @@ the same config files, keys, required values and last-line JSON:
 * ``eval``: the sliding-window test crops of ``test_filepath`` through a
   checkpoint, with ROC-AUC;
 * ``chip_inference``: one prediction GeoTIFF per chip of ``test_filepath``
-  under ``<root_dir>/predictions``.
+  under ``<root_dir>/predictions``;
+* ``export``: the serving forward of ``checkpoint_path``'s model as a
+  ``torch.export`` artifact (``serve/export.py``) at ``export.path``
+  (``<root_dir>/predict.pt2`` by default), with a symbolic batch unless
+  ``export.batch_size`` pins it, class ids or ``export.probabilities``.
 
 The run is on ``cuda`` unless the config's top-level ``device`` says
 otherwise (``device=cpu``); no config file sets it. Seed 1042, as the
@@ -56,7 +60,6 @@ _NOT_PORTED = {
     "replica": "mode=replica (train/replica.py) is not ported yet: ROADMAP item 1",
     "sliding_inference": "mode=sliding_inference (serve/granule.py) is not ported yet: "
                          "ROADMAP item 7",
-    "export": "mode=export (serve/export.py) is not ported yet: ROADMAP item 8",
 }
 
 
@@ -111,7 +114,7 @@ def main(argv: Optional[List[str]] = None) -> Any:
     mode = cfg.get("mode", "train")
     if mode in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[mode])
-    if mode not in ("stats", "train", "eval", "chip_inference"):
+    if mode not in ("stats", "train", "eval", "chip_inference", "export"):
         raise ValueError(f"Unknown mode {mode!r}")
     device = resolve_device(cfg.get("device"))
     batch_size = int(cfg.train.get("batch_size", 8))
@@ -201,6 +204,25 @@ def main(argv: Optional[List[str]] = None) -> Any:
         del train_loader, val_loader  # stops their worker processes
         print(json.dumps({k: v for k, v in history.items() if isinstance(v, (int, float))}))
         return history
+
+    if mode == "export":
+        from instageo_tpu_torch.serve.export import export_predict
+
+        check_required_flags(["root_dir", "checkpoint_path"], cfg)
+        model = create_model(cfg, seed=SEED, device=device)
+        exp = cfg.get("export") or {}
+        out_path = str(exp.get("path") or os.path.join(cfg.root_dir, "predict.pt2"))
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        bs = exp.get("batch_size")
+        export_predict(
+            model, out_path, num_bands=int(model.arch.in_chans),
+            img_size=int(cfg.dataloader.get("img_size", 224)),
+            temporal_dim=int(cfg.dataloader.get("temporal_dim", 1)), is_reg_task=is_reg,
+            probabilities=bool(exp.get("probabilities", False)),
+            batch_size=None if bs in (None, "null") else int(bs))
+        print(json.dumps({"artifact": out_path, "bytes": os.path.getsize(out_path),
+                          "seconds": time.time() - start_time}))
+        return out_path
 
     check_required_flags(["root_dir", "test_filepath", "checkpoint_path"], cfg)
     model = create_model(cfg, seed=SEED, device=device)

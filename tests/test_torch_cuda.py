@@ -543,3 +543,38 @@ def test_restore_on_card_keeps_a_capturable_optimizer(cuda, tmp_path):
     for (name, a), b in zip(straight.model.state_dict().items(),
                             resumed.model.state_dict().values()):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("layout", tattn.LAYOUTS)
+@pytest.mark.parametrize("d", [64, 80, 32])
+def test_custom_op_is_the_kernel_call(cuda, layout, d):
+    """``instageo_tpu_torch::flash_attn_fwd`` on CUDA tensors launches the
+    route's kernel once and gives its O and lse bit for bit."""
+    q, k, v = _qkv((2, 4, 197, d), cuda, seed=d)
+    ref_o, ref_lse = tattn.flash_attention_fwd(q, k, v, layout)
+    before = tattn.launches.count
+    o, lse = torch.ops.instageo_tpu_torch.flash_attn_fwd(q, k, v, layout)
+    assert tattn.launches.count == before + 1
+    assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)
+
+
+def test_exported_artifact_launches_the_kernel(cuda, tmp_path):
+    """The tiny model exported on the card: the artifact's predict launches
+    the forward kernel once per block and gives the live predict's class ids
+    (the same kernel on the same inputs)."""
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    from instageo_tpu_torch.serve.export import export_predict, load_predict
+    from instageo_tpu_torch.serve.infer import make_predict_fn
+
+    model = create_prithvi_seg("prithvi_eo_tiny", depth=2, image_size=32, num_classes=3,
+                               dtype=torch.bfloat16, device=cuda)
+    path = export_predict(model, str(tmp_path / "p.pt2"), num_bands=6, img_size=32)
+    predict, meta = load_predict(path)
+    assert meta["device"] == "cuda"
+    x = torch.randn(5, 6, 1, 32, 32, generator=torch.Generator().manual_seed(1))
+    before = tattn.launches.count
+    got = predict(model.state_dict(), x)
+    torch.cuda.synchronize()
+    assert tattn.launches.count == before + 2
+    assert got.device.type == "cuda" and got.shape == (5, 32, 32)
+    assert torch.equal(got, make_predict_fn(model)(x))

@@ -385,3 +385,40 @@ def test_breaking_out_of_an_epoch_stops_the_producer(chip_csv):
     _wait_for_no_producer()
     assert len(list(loader)) == 7  # the next epoch runs whole
     _wait_for_no_producer()
+
+
+
+def test_dropping_a_process_epoch_early_ends_cleanly(built, tmp_path):
+    """Four spawned workers with the native decoder over 32 chips of 18 bands
+    (T=3) at 64 px: one batch of 4, then the epoch and the loader are
+    dropped. Every worker must end cleanly: before the workers handed back
+    numpy batches, each aborted at its interpreter's exit ("terminate called
+    without an active exception") while its queue still moved tensors into
+    shared memory."""
+    rng = np.random.default_rng(8)
+    rows = []
+    for i in range(32):
+        write_geotiff(str(tmp_path / f"c{i}.tif"),
+                      rng.integers(1, 10000, (18, 64, 64)).astype(np.uint16))
+        write_geotiff(str(tmp_path / f"l{i}.tif"),
+                      rng.integers(0, 3, (1, 64, 64)).astype(np.int16))
+        rows.append({"Input": f"c{i}.tif", "Label": f"l{i}.tif"})
+    csv_path = _write_rows(tmp_path, rows)
+    code = ("import sys\n"
+            "from functools import partial\n"
+            "from instageo_tpu_torch import native\n"
+            "from instageo_tpu_torch.data import dataloader as pdl\n"
+            "assert native.available(), native.unavailable_reason\n"
+            "pre = partial(pdl.process_and_augment, mean=[0.0] * 6, std=[1.0] * 6,\n"
+            "              temporal_size=3, im_size=64)\n"
+            "ds = pdl.InstaGeoDataset(sys.argv[1], sys.argv[2], pre, 0, -1, None, False, 1.0)\n"
+            "loader = pdl.create_dataloader(ds, 4, shuffle=True, num_workers=4,\n"
+            "                               worker_mode='process')\n"
+            "batches = iter(loader)\n"
+            "x, y = next(batches)\n"
+            "assert tuple(x.shape) == (4, 6, 3, 64, 64) and tuple(y.shape) == (4, 64, 64)\n"
+            "del batches, loader\n")
+    proc = subprocess.run([sys.executable, "-c", code, csv_path, str(tmp_path)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "terminate called" not in proc.stderr and "Aborted" not in proc.stderr, proc.stderr

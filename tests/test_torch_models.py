@@ -86,13 +86,23 @@ def test_state_dict_bridge_matches_jax_export(jax_models, temporal_step):
 
 
 def test_channels_last_and_coords_encoding_guard(jax_models):
+    """NHWC is NCHW permuted; coords reach only a model with the ``_tl``
+    encoders (a model without them ignores coords, as the JAX one does),
+    and a ``_tl`` variant builds with its two learnable scales."""
     _, variables = jax_models[1]
     port = _port_model(variables, 1)
     x = torch.from_numpy(
         np.random.default_rng(0).standard_normal((1, 6, 1, 32, 32)).astype(np.float32))
+    coords = dict(temporal_coords=torch.tensor([[[2021.0, 150.0]]]),
+                  location_coords=torch.tensor([[45.0, -93.0]]))
     with torch.no_grad():
         nchw = port(x)
         nhwc = port(x, channels_last=True)
+        with_coords = port(x, **coords)
     assert torch.equal(nchw.permute(0, 2, 3, 1), nhwc)
-    with pytest.raises(NotImplementedError):
-        create_prithvi_seg("prithvi_eo_v2_300_tl", depth=1, image_size=32, device="cpu")
+    assert torch.equal(nchw, with_coords)
+    tl = create_prithvi_seg("prithvi_eo_v2_300_tl", depth=1, image_size=32, device="cpu")
+    scales = {k: v for k, v in tl.state_dict().items() if k.endswith("_embed_enc.scale")}
+    assert sorted(scales) == ["prithvi_encoder.location_embed_enc.scale",
+                              "prithvi_encoder.temporal_embed_enc.scale"]
+    assert all(torch.equal(v, torch.tensor([0.1])) for v in scales.values())

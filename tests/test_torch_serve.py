@@ -22,6 +22,7 @@ from instageo_tpu.models.seg import create_prithvi_seg as jax_create_prithvi_seg
 from instageo_tpu.ops.preprocess import make_fused_predict_fn as jax_fused_predict
 from instageo_tpu.ops.preprocess import preprocess_chips as jax_preprocess_chips
 from instageo_tpu.serve.infer import make_predict_fn as jax_make_predict_fn
+from instageo_tpu_torch.configs.config import load_config
 from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
 from instageo_tpu_torch.models.checkpoint import seg_state_dict_from_jax
 from instageo_tpu_torch.models.registry import get_arch
@@ -30,6 +31,7 @@ from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
 from instageo_tpu_torch.serve.batching import DynamicBatcher
 from instageo_tpu_torch.serve.infer import make_predict_fn
 from instageo_tpu_torch.serve.server import ModelServer
+from instageo_tpu_torch.train.checkpointing import BestCheckpointer
 from tests.torch_parity import random_seg_variables
 
 torch.set_num_threads(1)
@@ -114,9 +116,25 @@ def test_dynamic_batcher_concurrent_submits():
     assert batcher.requests_served == 40 and batcher.batches_run <= 40
 
 
+def _server_cfg(port, tmp_path):
+    """A config whose checkpoint holds ``port``'s weights and whose
+    dataloader section is ``PRE`` (the tiny model, float32, on the CPU)."""
+    ckpt = BestCheckpointer(str(tmp_path / "run")).save({"model": port.state_dict()})
+    return load_config("config", overrides={
+        "device": "cpu", "checkpoint_path": ckpt, "model.model_name": "prithvi_eo_tiny",
+        "model.depth": KW["depth"], "model.num_classes": KW["num_classes"],
+        "model.load_pretrained_weights": False, "dataloader.img_size": PRE["img_size"],
+        "dataloader.bands": list(PRE["bands"]), "dataloader.mean": MEAN,
+        "dataloader.std": STD, "dataloader.temporal_dim": PRE["temporal_size"],
+        "dataloader.constant_multiplier": PRE["constant_multiplier"],
+        "tpu.precision": "f32"})
+
+
 def test_server_chip_inference_roundtrip(models, tmp_path):
     """3 chips through ModelServer.chip_inference_from_paths (batch 2, so the
-    tail batch is padded), read back with the JAX package's reader."""
+    tail batch is padded), read back with the JAX package's reader; the
+    server is built from a config whose checkpoint holds the port model's
+    weights."""
     _, _, port = models
     raw = _raw_chips(3, seed=2)
     transform = Affine.from_origin(500000.0, 4200000.0, 30.0, 30.0)
@@ -125,7 +143,7 @@ def test_server_chip_inference_roundtrip(models, tmp_path):
         path = str(tmp_path / f"tile_{i}_chip.tif")
         write_geotiff(path, raw[i], transform=transform, crs=32633)
         paths.append(path)
-    server = ModelServer(port, mean=MEAN, std=STD, device="cpu", **PRE)
+    server = ModelServer(_server_cfg(port, tmp_path))
     try:
         out = server.chip_inference_from_paths(paths, str(tmp_path / "pred"),
                                                batch_size=2)
@@ -150,21 +168,24 @@ def test_server_chip_inference_roundtrip(models, tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module and package of the port pulls in neither JAX,
-    the JAX package, nor the libraries the port does without (PyYAML,
-    pandas, OpenCV)."""
+    """Importing every module and package of the port, the serving layer
+    included, pulls in neither JAX, the JAX package, nor the libraries the
+    port does without (PyYAML, pandas, OpenCV, pydantic)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "instageo_tpu_torch")
     modules = sorted(
         os.path.relpath(d if f == "__init__.py" else os.path.join(d, f[:-3]), root)
         .replace(os.sep, ".")
         for d, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
-    assert "instageo_tpu_torch.train.run" in modules and len(modules) >= 25
+    assert "instageo_tpu_torch.train.run" in modules and len(modules) >= 30
+    for new in ("serve.export", "serve.pipeline", "serve.registry",
+                "configs.config_dataclasses"):
+        assert f"instageo_tpu_torch.{new}" in modules
     assert "instageo_tpu_torch.native" in modules  # the decoder's binding is a package
     code = ("import sys, importlib\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'flax', 'instageo_tpu', 'yaml', 'pandas', 'cv2')]\n"
+            "       ('jax', 'flax', 'instageo_tpu', 'yaml', 'pandas', 'cv2', 'pydantic')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)

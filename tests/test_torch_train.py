@@ -340,15 +340,18 @@ def test_fit_learns_the_toy_task():
 
 def test_trainer_refuses_what_is_not_ported():
     """What the port does not run raises; grad_accum, distillation, the
-    regression task, steps_per_call and checkpointing are ported and build."""
+    regression task, steps_per_call, checkpointing, the GELU lowerings and
+    the scan block layout are ported and build."""
     model = create_prithvi_seg("prithvi_eo_tiny", depth=1, image_size=32,
                                param_dtype=torch.float32, device="cpu")
-    for cfg in ({"tpu": {"tp": 2}}, {"tpu": {"quant": "int8"}}, {"tpu": {"gelu": "tanh"}}):
+    for cfg in ({"tpu": {"tp": 2}}, {"tpu": {"quant": "int8"}},
+                {"tpu": {"block_layout": "pipeline"}}):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, model, device="cpu")
     for cfg in ({"train": {"grad_accum": 2}}, {"train": {"distillation": True}},
                 {"tpu": {"steps_per_call": "auto"}}, {"tpu": {"steps_per_call": 4}},
-                {"is_reg_task": True}):
+                {"is_reg_task": True}, {"tpu": {"gelu": "tanh"}},
+                {"tpu": {"block_layout": "scan"}}):
         Trainer(cfg, model, device="cpu")
     for value in (0, "fast", 2.5):
         with pytest.raises(ValueError, match="steps_per_call"):
