@@ -65,8 +65,8 @@ Phases, one line each (any failure raises and exits non-zero):
    turns, launches per predict, kernel vs plain logits); the fast head in
    training (10 steps with the launches per step, then kernel vs plain);
    ``prithvi_eo_v2_300_tl`` (T=4, batch 16) and ``prithvi_eo_v2_600_tl``
-   (T=4, Dh 80, batch 4): launches per predict, kernel vs plain logits with
-   and without coords; the GELU lowerings in turns; the serving layer on a
+   (T=4, Dh 80, batch 4): launches per predict, kernel vs plain logits and
+   encoder features with and without coords; the GELU lowerings in turns; the serving layer on a
    fast-head checkpoint (pipeline evaluate = ``Trainer.test``, chip
    inference = the online batcher on decided pixels, the artifact run in a
    fresh interpreter without the port's models, its size); one JSON line
@@ -84,6 +84,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -109,8 +110,9 @@ CROP_CONFIG = "multitemporal_crop_classification"
 # (B, H, L, Dh, output layout, inputs): the serving shape at batch 64, also
 # as the model passes q/k/v ("qkv": views of one (B, L, 3, H, Dh) projection
 # buffer, models/prithvi.py), the training shape at batch 8, the T=1 length
-# 197, and the 600M variant's heads-first shapes (Dh=80); other rows take
-# contiguous q/k/v.
+# 197, the 600M variant's heads-first shapes (Dh=80), and the serving shapes
+# of the _tl variants at T=4 (300M: L=785, batch 16; 600M: L=1025, batch 4);
+# other rows take contiguous q/k/v.
 KERNEL_SHAPES = [
     (64, 12, 589, 64, "merged", "contiguous"),
     (64, 12, 589, 64, "merged", "qkv"),
@@ -118,6 +120,8 @@ KERNEL_SHAPES = [
     (8, 12, 197, 64, "merged", "contiguous"),
     (16, 16, 513, 80, "heads_first", "contiguous"),
     (4, 16, 1025, 80, "heads_first", "contiguous"),
+    (16, 16, 785, 64, "merged", "contiguous"),
+    (4, 16, 1025, 80, "merged", "contiguous"),
 ]
 # The forward kernels' symbols, by route, as the profiler names them.
 FWD_KERNEL_SYMBOL = {"wgmma": "flash_attn_fwd_sm90_kernel", "mma_sync": "flash_attn_fwd_kernel"}
@@ -153,16 +157,26 @@ DQ_RUN_TO_RUN_ROW = 2.0 ** -16
 KEEP_SIGMAS = 5.0  # dropout keep fraction within 5 binomial sigma of 1 - p
 # One bf16 training step with the kernels vs with the plain versions
 # (dropout off): other summation orders through 12 bf16 blocks. Gradients:
-# ‖Δ‖ ≤ tol·‖plain gradient‖ per parameter. The median parameter differs by
-# about 4e-3; the first head stage, which takes the encoder's bf16 output
-# through a BatchNorm, by up to 3.4e-2 on an H100 (a wrong stride or a
-# wrong wiring would give differences of order 1).
+# ‖Δ‖ ≤ tol·‖plain gradient‖ per parameter, or, where the model is more
+# sensitive than that to where the attention rounds P, GRAD_YARDSTICK_FACTOR
+# times the gap of a plain step that keeps P in float32. With the torch
+# head the median parameter differs by about 6e-3 and the first head stage,
+# which takes the encoder's bf16 output through a BatchNorm, by 3.4e-2 to
+# 5.0e-2 on an H100; with the fast head after 10 steps the median by 3e-2
+# and the first head stage by 0.052, as much as the float32-P step's gap
+# there (0.052). A wrong stride or a wrong wiring gives gaps of order 1.
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
+GRAD_YARDSTICK_FACTOR = 1.5
 TRAIN_BN_REL_TOL = 2e-2
 # Kernel vs plain attention through 12 bf16 blocks: the two differ only in
 # summation order, so the logits may differ by a few bf16 roundings.
 LOGIT_TOL = 0.05         # max |logit diff| / max |logit|
+# The same through the encoder alone, on its float32 feature map (what the
+# head reads): ‖kernel − plain‖ / ‖plain‖. On an H100 4.2e-3 for the 300M
+# _tl variant at T=4 (with and without coords) and 5.0e-3 for the 600M
+# (32 blocks); a wrong stride or wiring gives gaps of order 1.
+FEATURE_REL_TOL = 2e-2
 DECIDED_GAP = 0.01       # pixels whose top-2 gap is at least this x max |logit| ...
 ARGMAX_AGREEMENT = 0.99  # ... agree at least this often
 # Captured vs eager training (``steps_per_call``). The wgmma backward adds
@@ -727,6 +741,19 @@ def _describe_gap(gap: dict) -> str:
             f"{gap['decided']:.4f} whose top-2 gap >= {DECIDED_GAP} x max |logit|")
 
 
+@contextlib.contextmanager
+def plain_attention(model):
+    """``model``'s encoder blocks on the plain attention inside the block."""
+    blocks = model.prithvi_encoder.blocks
+    try:
+        for blk in blocks:
+            blk.attn.attn_impl = "plain"
+        yield
+    finally:
+        for blk in blocks:
+            blk.attn.attn_impl = "kernel"
+
+
 def kernel_vs_plain_logits(model, x, **coords) -> dict:
     """The model's float32 NHWC logits on ``x`` with the attention kernel
     and with its plain version: max |diff| within LOGIT_TOL of max |logit|,
@@ -735,16 +762,10 @@ def kernel_vs_plain_logits(model, x, **coords) -> dict:
     the kernel's logits."""
     import torch
 
-    blocks = model.prithvi_encoder.blocks
     with torch.inference_mode():
         logits_k = model(x, channels_last=True, **coords).float()
-        try:
-            for blk in blocks:
-                blk.attn.attn_impl = "plain"
+        with plain_attention(model):
             logits_p = model(x, channels_last=True, **coords).float()
-        finally:
-            for blk in blocks:
-                blk.attn.attn_impl = "kernel"
     check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
     same = logits_k.argmax(-1) == logits_p.argmax(-1)
     diff = (logits_k - logits_p).abs().max().item()
@@ -758,6 +779,28 @@ def kernel_vs_plain_logits(model, x, **coords) -> dict:
     return dict(max_abs_diff=diff, scale=scale, agreement=same.float().mean().item(),
                 agreement_decided=agree_decided, decided=decided.float().mean().item(),
                 logits=logits_k)
+
+
+def kernel_vs_plain_features(model, x, **coords) -> dict:
+    """The encoder's float32 feature map on ``x`` with the attention kernel
+    and with its plain version: ‖Δ‖ within FEATURE_REL_TOL of ‖plain
+    features‖. Returns the statistics and the kernel's features."""
+    import torch
+
+    with torch.inference_mode():
+        feats_k = model(x, return_features=True, **coords)[1]
+        with plain_attention(model):
+            feats_p = model(x, return_features=True, **coords)[1]
+    diff = feats_k - feats_p
+    stats = dict(rel=(diff.norm() / feats_p.norm()).item(), max_abs_diff=diff.abs().max().item(),
+                 scale=feats_p.abs().max().item())
+    print(f"[features] kernel vs plain encoder features: ‖Δ‖/‖f‖ {stats['rel']:.6g} "
+          f"(<= {FEATURE_REL_TOL}), max |Δ| {stats['max_abs_diff']:.6g} of max |f| "
+          f"{stats['scale']:.6g}", flush=True)
+    check(bool(torch.isfinite(feats_k).all()), "non-finite features")
+    check(stats["rel"] <= FEATURE_REL_TOL,
+          f"kernel/plain features differ by {stats['rel']} of their norm")
+    return dict(stats, features=feats_k)
 
 
 def slice_phase(device, cfg, model_kw: dict, data: dict, n_requests: int = 24,
@@ -881,56 +924,99 @@ def _crop_batch(n: int, temporal_step: int, size: int, classes: int, seed: int, 
     return x, y
 
 
-def kernel_vs_plain_step(device, model, model_kw: dict, cfg: dict, xb, yb, tag: str,
-                         hold: bool = True, **model_extra):
-    """One train step (dropout off) of ``model`` (kernels) and of a copy on
-    the plain versions, from ``model``'s state: the loss within
-    TRAIN_LOSS_REL_TOL, every gradient within TRAIN_GRAD_REL_TOL, the
-    BatchNorm statistics within TRAIN_BN_REL_TOL (checked with ``hold``,
-    else only printed). ``model_extra``: the model's other
-    ``create_prithvi_seg`` arguments (its head). Returns the loss gap and
-    the three worst gradients."""
+def attention_fwd_plain_f32p(q, k, v, layout: str = "merged"):
+    """The plain attention forward with P left in float32 for the PV
+    product, a rounding point the TPU kernel places otherwise: the gradient
+    yardstick of ``kernel_vs_plain_step``."""
     import torch
 
-    from instageo_tpu_torch.models.seg import UpscalingBlock, create_prithvi_seg, train_mode
+    b, h, l, d = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    out = (torch.matmul(p, v.float()) / denom).to(q.dtype)
+    if layout == "merged":
+        out = out.permute(0, 2, 1, 3).reshape(b, l, h * d)
+    return out, m + torch.log(denom)
+
+
+def kernel_vs_plain_step(device, model, model_kw: dict, cfg: dict, xb, yb, tag: str,
+                         **model_extra):
+    """One train step (dropout off) from ``model``'s state with the kernels,
+    with the plain versions, and with the plain versions but P in float32
+    (``attention_fwd_plain_f32p``): the loss within TRAIN_LOSS_REL_TOL, the
+    BatchNorm statistics within TRAIN_BN_REL_TOL, and each gradient's gap to
+    the plain step within TRAIN_GRAD_REL_TOL or GRAD_YARDSTICK_FACTOR times
+    the float32-P step's gap. ``model`` is left in the state and dropout
+    rate it came with. ``model_extra``: the model's other
+    ``create_prithvi_seg`` arguments (its head). Returns the loss gap and
+    the three worst gradients as (name, gap, the float32-P step's gap)."""
+    import torch
+
+    from instageo_tpu_torch.models.seg import (
+        Dropout,
+        UpscalingBlock,
+        create_prithvi_seg,
+        train_mode,
+    )
+    from instageo_tpu_torch.ops import attention as tattn
     from instageo_tpu_torch.train.trainer import Trainer
 
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rates = {m: m.p for m in model.modules() if isinstance(m, Dropout)}
     plain = create_prithvi_seg(**model_kw, **model_extra, dtype=torch.bfloat16,
                                param_dtype=torch.float32, attn_impl="plain",
                                dropout_impl="plain", device=device, seed=0)
-    plain.load_state_dict(state)
-    model.load_state_dict(state)
     step = {}
-    for name, m in (("kernel", model), ("plain", plain)):
-        train_mode(m, torch.Generator(), dropout_rate=0.0)
-        tr = Trainer(cfg, m, device=device)
-        loss = float(tr.train_step(xb, yb, torch.Generator()))
-        step[name] = (loss, {n: p.grad for n, p in m.named_parameters()},
-                      {n: b for n, b in m.named_buffers() if "running" in n})
+    try:
+        for name, m, fwd_plain in (("kernel", model, tattn.flash_attention_fwd_plain),
+                                   ("plain", plain, tattn.flash_attention_fwd_plain),
+                                   ("plain f32 P", plain, attention_fwd_plain_f32p)):
+            m.load_state_dict(state)
+            train_mode(m, torch.Generator(), dropout_rate=0.0)
+            with mock.patch.object(tattn, "flash_attention_fwd_plain", fwd_plain):
+                loss = float(Trainer(cfg, m, device=device).train_step(xb, yb,
+                                                                       torch.Generator()))
+            step[name] = (loss, {n: p.grad.float().clone() for n, p in m.named_parameters()},
+                          {n: b.clone() for n, b in m.named_buffers() if "running" in n})
+    finally:
+        model.load_state_dict(state)
+        for m, p in rates.items():
+            m.p = p
     (loss_k, grads_k, bn_k), (loss_p, grads_p, bn_p) = step["kernel"], step["plain"]
+    grads_y = step["plain f32 P"][1]
     # The bias of a conv that feeds a BatchNorm has an exact gradient of 0
     # (BatchNorm subtracts each channel's batch mean), so both versions give
     # rounding noise there: it is held against its conv weight's gradient.
     scale_of = {f"{name}.2.bias": f"{name}.2.weight" for name, mod in model.named_modules()
                 if isinstance(mod, UpscalingBlock)}
-    grad_rel = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
-                    / grads_p[scale_of.get(n, n)].float().norm().clamp_min(1e-30)).item()
+
+    def rel(grads):
+        return {n: ((grads[n] - grads_p[n]).norm()
+                    / grads_p[scale_of.get(n, n)].norm().clamp_min(1e-30)).item()
                 for n in grads_p}
+
+    grad_rel, yard_rel = rel(grads_k), rel(grads_y)
+    limit = {n: max(TRAIN_GRAD_REL_TOL, GRAD_YARDSTICK_FACTOR * yard_rel[n]) for n in grad_rel}
+    over = {n: (v, limit[n]) for n, v in grad_rel.items() if v > limit[n]}
     bn_rel = {n: _rel_err(bn_k[n], bn_p[n]) for n in bn_p}
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+    worst = [(n, v, yard_rel[n])
+             for n, v in sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]]
     print(f"[{tag}] kernel vs plain step (dropout off): loss {loss_k:.6f} vs {loss_p:.6f} "
           f"(rel {loss_rel:.3g} <= {TRAIN_LOSS_REL_TOL}); gradient rel err max "
           f"{worst[0][1]:.4g}, median {float(np.median(list(grad_rel.values()))):.4g} over "
-          f"{len(grad_rel)} params (<= {TRAIN_GRAD_REL_TOL}; the {len(scale_of)} conv biases "
-          f"ahead of BatchNorm against their weight's gradient; worst {json.dumps(worst)}); "
-          f"BN running stats rel err max {max(bn_rel.values()):.4g} (<= {TRAIN_BN_REL_TOL})",
-          flush=True)
-    if hold:
-        check(loss_rel <= TRAIN_LOSS_REL_TOL, f"kernel/plain loss {loss_k} vs {loss_p}")
-        check(worst[0][1] <= TRAIN_GRAD_REL_TOL, f"kernel/plain gradients differ: {worst}")
-        check(max(bn_rel.values()) <= TRAIN_BN_REL_TOL, f"BN running stats differ: {bn_rel}")
+          f"{len(grad_rel)} params (each <= {TRAIN_GRAD_REL_TOL} or {GRAD_YARDSTICK_FACTOR} x "
+          f"the float32-P step's gap; the {len(scale_of)} conv biases ahead of BatchNorm "
+          f"against their weight's gradient; worst "
+          f"{json.dumps(worst)} as [name, kernel, float32 P]); "
+          f"float32-P step's gap max {max(yard_rel.values()):.4g}, median "
+          f"{float(np.median(list(yard_rel.values()))):.4g}; BN running stats rel err max "
+          f"{max(bn_rel.values()):.4g} (<= {TRAIN_BN_REL_TOL})", flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL_TOL, f"kernel/plain loss {loss_k} vs {loss_p}")
+    check(not over, f"kernel/plain gradients differ (gap, limit): {over}")
+    check(max(bn_rel.values()) <= TRAIN_BN_REL_TOL, f"BN running stats differ: {bn_rel}")
     return loss_rel, worst
 
 
@@ -940,7 +1026,7 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
     gives (see the module docstring, phase 5)."""
     import torch
 
-    from instageo_tpu_torch.models.seg import create_prithvi_seg, train_mode
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
     from instageo_tpu_torch.train.trainer import Trainer
 
     t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
@@ -976,7 +1062,6 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
 
     # --- one step with the kernels vs one with the plain versions ---------
     loss_rel, worst = kernel_vs_plain_step(device, model, model_kw, cfg, xb, yb, "train")
-    train_mode(model, gen, dropout_rate=0.1)
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -1551,9 +1636,12 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
             t0 = time.perf_counter()
             loader = create_dataloader(ds, 8, num_workers=1, worker_mode=mode, device=device)
             batches = iter(loader)
-            next(batches)
+            batch = next(batches)
             first[mode].append(time.perf_counter() - t0)
             check(next(batches, None) is None, "the first-batch loader holds one batch")
+            check(device.type != "cuda" or all(t.is_pinned() for t in batch
+                                               if isinstance(t, torch.Tensor)),
+                  f"the {mode} loader's batch is not in pinned memory")
             del batches, loader
         out["first_batch_s"] = {m: sum(v) / len(v) for m, v in first.items()}
         print(f"[loader] first batch (8 chips) with one worker: thread "
@@ -1818,11 +1906,12 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     2. the fast head in training, as the train phase: 10 steps on one
        batch of 8 with the launches per step (the forward and backward once
        per block, the dropout in 3 stages and the head), then one step with
-       the kernels against one with the plain versions (and the same from
-       the random init, printed only);
+       the kernels against one with the plain versions, the gradients also
+       against a plain step that keeps P in float32;
     3. each ``_tl`` variant at T=4: launches per predict, kernel against
-       plain logits without coords and with them, and the coords' effect on
-       the encoder's features beyond the kernel/plain gap;
+       plain logits and encoder features without coords and (300M) with
+       them, and the coords' effect on the features beyond the kernel/plain
+       gap;
     4. the GELU lowerings on the crop model at batch 64, in turns: ms per
        predict and argmax agreement with ``exact``;
     5. the serving layer on a port checkpoint of the fast-head model over
@@ -1840,7 +1929,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     from instageo_tpu_torch.configs.config import load_config
     from instageo_tpu_torch.data.dataloader import create_dataloader, eval_collate, process_test
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
-    from instageo_tpu_torch.models.seg import create_prithvi_seg, train_mode
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
     from instageo_tpu_torch.ops.preprocess import (
         make_fused_predict_fn,
         preprocess_chips,
@@ -1931,13 +2020,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     x, y = _crop_batch(train_batch, model_kw["temporal_step"], model_kw["image_size"],
                        model_kw["num_classes"], seed=1, data=data)
     xb, yb = trainer.prepare_batch(x, y, train_batch)
-    # From the random init the gradients are mostly rounding noise (logits
-    # of ~0.05), so the kernel/plain gap there is only printed; the train
-    # phase's bounds hold after its 10 steps on one batch, as there.
-    _, init_worst = kernel_vs_plain_step(device, model, model_kw, train_cfg, xb, yb,
-                                         "serve_models at init", hold=False, head_impl="fast")
     gen = torch.Generator().manual_seed(0)
-    train_mode(model, gen, dropout_rate=0.1)  # the comparison turned dropout off
     reset_counts()
     losses = [float(trainer.train_step(xb, yb, gen)) for _ in range(fixed_steps)]
     counts = {k: v / fixed_steps for k, v in read_counts().items()}
@@ -1951,8 +2034,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
                                            "serve_models", head_impl="fast")
     _serve_row(smi, part="fast_head_train_step", batch=train_batch, steps=fixed_steps,
                losses=losses, launches_per_step=counts, kernel_vs_plain_loss_rel=loss_rel,
-               kernel_vs_plain_grad_rel_max=worst[0][1],
-               at_init_kernel_vs_plain_grad_rel_max=init_worst[0][1])
+               kernel_vs_plain_grad_rel_worst=worst)
     out["train_step"] = dict(launches=counts, loss_rel=loss_rel, grad_rel=worst[0][1])
     del model, trainer, xb, yb
     free()
@@ -1977,40 +2059,37 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
                 [rng.uniform(-60, 60, b), rng.uniform(-180, 180, b)], axis=1)
                 .astype(np.float32)).to(device))
         plain = kernel_vs_plain_logits(server.model, xv)
+        feats = kernel_vs_plain_features(server.model, xv)
         row = dict(part="variant", variant=variant, temporal_dim=t, batch=b,
                    tokens=int(enc.patch_embed(xv[:1]).shape[1]) + 1,
                    head_dim=enc.embed_dim // heads, depth=vdepth,
                    fwd_launches_per_predict=counts["flash_attn_fwd"],
                    mma_sync_launches=counts["flash_attn_fwd_mma"],
-                   no_coords={k: v for k, v in plain.items() if k != "logits"})
+                   no_coords={k: v for k, v in plain.items() if k != "logits"},
+                   no_coords_features={k: v for k, v in feats.items() if k != "features"})
         if variant.endswith("_600_tl"):
             row["note"] = "kernel vs plain without coords only"
         else:
             with_coords = kernel_vs_plain_logits(server.model, xv, **coords)
+            feats_c = kernel_vs_plain_features(server.model, xv, **coords)
             # With random weights the logits (~0.07) move by about one bf16
             # step; the encoder's float32 features show the embeddings
             # (scale 0.1), which must move them by more than the kernel and
             # the plain attention differ there.
-            blocks = enc.blocks
-            with torch.inference_mode():
-                feats = server.model(xv, return_features=True)[1]
-                moved = (server.model(xv, return_features=True, **coords)[1]
-                         - feats).abs().max().item()
-                for blk in blocks:
-                    blk.attn.attn_impl = "plain"
-                noise = (server.model(xv, return_features=True)[1] - feats).abs().max().item()
-                for blk in blocks:
-                    blk.attn.attn_impl = "kernel"
+            moved = (feats_c["features"] - feats["features"]).abs().max().item()
+            noise = feats["max_abs_diff"]
             check(moved > noise, f"{variant}: coords moved the features by {moved}, no more "
                   f"than the kernel/plain difference {noise}")
             row.update(with_coords={k: v for k, v in with_coords.items() if k != "logits"},
+                       with_coords_features={k: v for k, v in feats_c.items()
+                                             if k != "features"},
                        coords_moved_logits_by=(with_coords["logits"]
                                                - plain["logits"]).abs().max().item(),
-                       coords_moved_features_by=moved, kernel_vs_plain_features=noise)
-            del with_coords, feats
+                       coords_moved_features_by=moved)
+            del with_coords, feats_c
         _serve_row(smi, **row)
         out["variants"][variant] = row
-        del server, enc, xv, plain, coords
+        del server, enc, xv, plain, feats, coords
         free()
         clock.lap(variant)
 

@@ -630,21 +630,35 @@ class _ToTensors:
         return _to_tensors(self.collate_fn(samples))
 
 
+class _ArrayBatch:
+    """A worker process's batch: the collate's items, arrays still numpy.
+    torch's pin-memory thread calls ``pin_memory``, so the tensors are made
+    and pinned off the consumer's thread; ``ProcessLoader`` makes them
+    unpinned where nothing pins."""
+
+    def __init__(self, items: tuple) -> None:
+        self.items = items
+
+    def pin_memory(self) -> tuple:
+        return _to_tensors(self.items, pin=True)
+
+
 class _ToArrays:
     """Collate wrapper of a worker process: the batch's arrays contiguous,
-    still numpy (``ProcessLoader`` makes the tensors)."""
+    still numpy (``_ArrayBatch``)."""
 
     def __init__(self, collate_fn: Callable) -> None:
         self.collate_fn = collate_fn
 
-    def __call__(self, samples):
-        return tuple(np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a
-                     for a in self.collate_fn(samples))
+    def __call__(self, samples) -> _ArrayBatch:
+        return _ArrayBatch(tuple(np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a
+                                 for a in self.collate_fn(samples)))
 
 
 class ProcessLoader(DataLoader):
     """A ``DataLoader`` of spawned worker processes that hand back numpy
-    batches; the tensors are made, and pinned with ``pin``, in this process.
+    batches (``_ArrayBatch``); the tensors are made in this process, on
+    torch's pin-memory thread where the loader pins.
 
     A worker that returns tensors moves them into shared memory from its
     queue's feeder thread, inside torch's C++ code. When the consumer drops
@@ -653,13 +667,9 @@ class ProcessLoader(DataLoader):
     an active exception"). numpy batches are pickled in Python and end
     cleanly."""
 
-    def __init__(self, *args, pin: bool = False, **kwargs) -> None:
-        super().__init__(*args, **kwargs)
-        self.pin = pin
-
     def __iter__(self) -> Iterator:
         for batch in super().__iter__():
-            yield _to_tensors(batch, self.pin)
+            yield _to_tensors(batch.items) if isinstance(batch, _ArrayBatch) else batch
 
 
 class ThreadLoader:
@@ -768,8 +778,8 @@ def create_dataloader(dataset, batch_size: int, shuffle: bool = False,
                             prefetch_depth, pin_memory=pin, drop_last=drop_last)
     if workers > 0:
         return ProcessLoader(dataset, batch_size=batch_size, sampler=sampler,
-                             num_workers=workers, collate_fn=_ToArrays(collate_fn), pin=pin,
-                             drop_last=drop_last, persistent_workers=True,
+                             num_workers=workers, collate_fn=_ToArrays(collate_fn),
+                             pin_memory=pin, drop_last=drop_last, persistent_workers=True,
                              multiprocessing_context="spawn")
     return DataLoader(dataset, batch_size=batch_size, sampler=sampler,
                       collate_fn=_ToTensors(collate_fn), pin_memory=pin, drop_last=drop_last)

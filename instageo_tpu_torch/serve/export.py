@@ -101,15 +101,16 @@ def load_predict(path: str) -> Tuple[Callable[[Dict[str, torch.Tensor], Any], to
 
     ``predict`` moves the state dict's tensors and ``x`` to the artifact's
     device and returns the program's output there. Needs no model code;
-    raises when the artifact was exported for a device type this process
-    cannot run."""
+    raises when the ``.json`` sidecar is missing (it names the device) or
+    the artifact was exported for a device type this process cannot run."""
     from instageo_tpu_torch.ops import attention  # noqa: F401  (registers the ops)
 
-    meta: Dict = {}
-    if os.path.exists(path + ".json"):
-        with open(path + ".json") as f:
-            meta = json.load(f)
-    device = torch.device(meta.get("device", "cpu"))
+    if not os.path.exists(path + ".json"):
+        raise FileNotFoundError(
+            f"{path}.json is missing: the sidecar names the device the artifact runs on")
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    device = torch.device(meta["device"])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{path} was exported on cuda and CUDA is not available here")
     if device.type not in ("cuda", "cpu"):

@@ -34,7 +34,7 @@ log = logging.getLogger(__name__)
 # What the port does with each ``tpu.*`` key of the JAX config:
 #   ("honoured", allowed values)  - read and acted on;
 #   ("accepted", allowed values)  - validated, with no meaning on one card;
-#   ("refused", default, item)    - any value but the JAX default raises
+#   ("refused", allowed, item)    - any other value raises
 #                                   NotImplementedError naming the ROADMAP item.
 # Every attention and dropout value takes the port's kernel route: the port
 # has no XLA path. ``steps_per_call`` (``steps_per_call()``) groups k
@@ -60,14 +60,12 @@ TPU_KEYS = {
     "fsdp": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "zero1": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "quant": ("refused", ("none",), "ROADMAP item 10 (ops/quant.py)"),
-    "block_layout": ("honoured", ("loop", "scan")),
+    "block_layout": ("refused", ("loop", "scan"), "ROADMAP item 11 (parallel/, pp)"),
     "remat": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "gelu": ("honoured", ("exact", "tanh", "bf16")),
 }
 # ``block_layout: scan`` builds the same modules as ``loop`` (the weight
-# bridge reads a stacked JAX tree). Values of an honoured key that wait for
-# a ROADMAP item:
-_REFUSED_VALUES = {"block_layout": {"pipeline": "ROADMAP item 11 (parallel/, pp)"}}
+# bridge reads a stacked JAX tree); ``pipeline`` waits for ROADMAP item 11.
 
 
 def check_tpu_config(cfg: Any) -> dict:
@@ -81,9 +79,6 @@ def check_tpu_config(cfg: Any) -> dict:
             if value not in rule[1]:
                 raise NotImplementedError(
                     f"tpu.{key}={value!r} is not ported yet: {rule[2]}")
-        elif str(value) in _REFUSED_VALUES.get(key, {}):
-            raise NotImplementedError(
-                f"tpu.{key}={value!r} is not ported yet: {_REFUSED_VALUES[key][str(value)]}")
         elif rule[1] is not None and value not in rule[1]:
             raise ValueError(f"tpu.{key}={value!r} — expected one of {rule[1]}")
     return tpu_cfg

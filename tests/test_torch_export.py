@@ -199,3 +199,11 @@ def test_artifact_of_another_device_type_raises(models, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             load_predict(path)
+
+
+def test_artifact_without_its_sidecar_raises(models, tmp_path):
+    _, _, port = models
+    path = export_predict(port, str(tmp_path / "p.pt2"), num_bands=6, img_size=32)
+    os.remove(path + ".json")
+    with pytest.raises(FileNotFoundError, match="sidecar"):
+        load_predict(path)

@@ -29,32 +29,19 @@ Imports nothing of JAX. Exits non-zero where CUDA is not available.
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _routes(attention):
+def _routes(attention, f32p):
     """Route name -> (model attn_impl, {module global: replacement})."""
-
-    def fwd_plain_f32p(q, k, v, layout="merged"):
-        b, h, l, d = q.shape
-        s = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
-        m = s.amax(dim=-1, keepdim=True)
-        p = (s - m).exp()
-        denom = p.sum(dim=-1, keepdim=True)
-        out = ((p @ v.float()) / denom).to(q.dtype)
-        if layout == "merged":
-            out = out.permute(0, 2, 1, 3).reshape(b, l, h * d)
-        return out, m + denom.log()
-
     return {
         "kernel": ("kernel", {}),
         "fwd kernel": ("kernel", {"flash_attention_bwd": attention.flash_attention_bwd_plain}),
         "bwd kernel": ("kernel", {"flash_attn_fwd_op": attention.flash_attention_fwd_plain}),
-        "plain f32 P": ("plain", {"flash_attention_fwd_plain": fwd_plain_f32p}),
+        "plain f32 P": ("plain", {"flash_attention_fwd_plain": f32p}),
     }
 
 
@@ -81,7 +68,7 @@ def main() -> int:
     device = torch.device("cuda")
     _, model_kw, train_cfg, data = cs.crop_setup()
     first_conv = "fast_up_0.2.weight" if args.head == "fast" else "segmentation_head.0.2.weight"
-    routes = _routes(attention)
+    routes = _routes(attention, cs.attention_fwd_plain_f32p)
 
     def grads_of(model, impl: str, patch: dict, state: dict, xb, yb) -> dict:
         saved = {name: getattr(attention, name) for name in patch}
