@@ -71,8 +71,24 @@ Phases, one line each (any failure raises and exits non-zero):
    inference = the online batcher on decided pixels, the artifact run in a
    fresh interpreter without the port's models, its size); one JSON line
    per row, tagged ``[serve_models]``;
-10. one JSON line ``{"kernels": [...]}``;
-11. last line: ``{"ok": true, "device": {...}}``.
+10. granule: whole-granule inference as a user runs it,
+    ``mode=sliding_inference`` of the run CLI (in-process) on the crop config
+    from a dataset JSON over a synthetic HLS MGRS tile (T=3 granules, one
+    L30 and two S30, six band files each plus Fmask, 3660² px, a 300² px
+    nodata block), random weights from seed 0 in a checkpoint, at batch 8
+    (the yaml's) and 64: the prediction GeoTIFF (int8, the tile's
+    georeferencing, −1 exactly on the block), 12 forward launches per chip
+    batch on wgmma and none on mma.sync, the stitched canvas = the fused
+    predict on the same batch at 8 chip windows bit for bit, the kernel vs
+    the plain attention over the whole granule on decided pixels, a run at
+    overlap 16 with full coverage; decode, host-to-device, device and wall
+    seconds per granule, chips/s, peak device memory;
+11. chip_ops: ``process_tile_chips`` on the same tile (196 chips of 256 px,
+    Fmask cloud and shadow masking ``each`` and ``any``, 50,000 points with
+    one dense chip): card = CPU bit for bit, also under deterministic mode;
+    ms on each;
+12. one JSON line ``{"kernels": [...]}``;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
 ``configs/multitemporal_crop_classification.yaml``.
@@ -2225,6 +2241,364 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     return out
 
 
+# The synthetic granule of the granule and chip_ops phases: one HLS MGRS tile
+# at 30 m (3660 px), three timesteps (the first an L30 granule, the others
+# S30), and a block that is 0 in every band (top row, left column, side).
+GRANULE_SIZE = 3660
+GRANULE_BLOCK = (1000, 2000, 300)
+GRANULE_IDS = {"HLS.L30.T33TUN.2023152T095000.v2.0": "2023-06-01T09:50:00Z",
+               "HLS.S30.T33TUN.2023157T100000.v2.0": "2023-06-06T10:00:00Z",
+               "HLS.S30.T33TUN.2023162T100000.v2.0": "2023-06-11T10:00:00Z"}
+GRANULE_GAP = 1e-3   # decided pixels: the plain logits' top-2 gap at least this
+GRANULE_OVERLAP = 16
+
+
+def _write_granule(root: str, size: int, block, seed: int = 8):
+    """Three HLS granules of one synthetic MGRS tile: six uint16 band files
+    each (values 100..8999; 0 on the nodata block in every band) and an
+    Fmask plane, tiled 256 px with the writer's default compression (deflate),
+    EPSG 32633 at 30 m, written by 8 threads; and the dataset JSON with local
+    hrefs, one entry. Returns the JSON's path, the bands (18, size, size) in
+    the opener's order, the Fmask planes (3, size, size) and the transform."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
+    from instageo_tpu_torch.data.settings import BANDS_SETTINGS
+
+    rng = np.random.default_rng(seed)
+    transform = Affine.from_origin(399960.0, 4600020.0, 30.0, 30.0)
+    top, left, side = block
+    bands = rng.integers(100, 9000, (6 * len(GRANULE_IDS), size, size), dtype=np.uint16)
+    bands[:, top:top + side, left:left + side] = 0
+    # Clear, cloud (bit 1), shadow (bit 3), both, water (bit 5).
+    fmask = rng.choice(np.asarray([0, 0, 0, 2, 8, 10, 32], np.uint8),
+                       (len(GRANULE_IDS), size, size))
+    granules, jobs = [], []
+    for t, (gid, when) in enumerate(GRANULE_IDS.items()):
+        names = (BANDS_SETTINGS.HLS_L30_ASSETS if ".L30." in gid
+                 else BANDS_SETTINGS.HLS_ASSETS) + [BANDS_SETTINGS.HLS_MASK_ASSET]
+        assets = {}
+        for k, name in enumerate(names):
+            path = os.path.join(root, f"{gid}.{name}.tif")
+            jobs.append((path, bands[6 * t + k] if k < 6 else fmask[t]))
+            assets[name] = {"href": path}
+        granules.append({"id": gid, "collection": "HLS" + gid.split(".")[1] + "_2.0",
+                         "bbox": [14.999, 41.51, 16.33, 42.51],
+                         "properties": {"datetime": when, "eo:cloud_cover": 5},
+                         "assets": assets})
+    with ThreadPoolExecutor(8) as pool:
+        for _ in pool.map(lambda job: write_geotiff(job[0], job[1], transform=transform,
+                                                    crs=32633, tiled=True, tile_size=256),
+                          jobs):
+            pass
+    path = os.path.join(root, "hls_dataset.json")
+    with open(path, "w") as f:
+        json.dump({"T33TUN_2023152": {"granules": granules}}, f)
+    return path, bands, fmask, transform
+
+
+def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
+                  extra=(), batches=(8, 64), overlap: int = GRANULE_OVERLAP) -> dict:
+    """Whole-granule inference as a user runs it: ``mode=sliding_inference``
+    of the run CLI (in-process) on the crop config over the synthetic HLS
+    granule (T=3, ``size``² px), random weights from seed 0 in a checkpoint,
+    at each of ``batches`` (the yaml's 8, then 64), with the launch counts
+    set to 0 just before each run and read just after. Holds: the output
+    GeoTIFF (shape, int8, the tile's transform and CRS, classes in
+    [0, classes), −1 exactly on the nodata block); the opened bands against
+    those written; the stitched canvas against ``make_fused_predict_fn`` on
+    the same batch of chips, bit for bit, at 8 chip windows (the clamped last
+    row and column, the corners, the nodata block), where each chip is the
+    last to write; the kernel route against the plain attention over the
+    whole granule (argmax agreement on pixels whose plain top-2 gap is at
+    least GRANULE_GAP); forward launches = depth x batches, none on
+    mma.sync; one run with ``overlap`` and full coverage. Reports per run
+    the decode, host-to-device, device (CUDA events) and wall seconds of
+    the granule, chips/s and peak device memory. ``extra``: overrides (a
+    CPU rehearsal's tiny model). Returns the numbers and the tile's arrays
+    for the chip_ops phase."""
+    # Each run opens 18 assets and the loader allows 30 a minute per
+    # process by default; raise it before the loaders are imported.
+    os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
+    import torch
+    from torch import nn
+
+    from instageo_tpu_torch.configs.config import load_config_from_argv
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.data.settings import DATA_PIPELINE_SETTINGS
+    from instageo_tpu_torch.data.sources import hls
+    from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
+    from instageo_tpu_torch.serve import granule
+    from instageo_tpu_torch.train import run
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.factory import create_model
+
+    check(DATA_PIPELINE_SETTINGS.COG_DOWNLOAD_RATELIMIT >= 100,
+          f"asset loads limited to {DATA_PIPELINE_SETTINGS.COG_DOWNLOAD_RATELIMIT} a minute")
+    on_card = device.type == "cuda"
+    clock = Clock("granule")
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    try:
+        json_path, bands, fmask, transform = _write_granule(root, size, block)
+        clock.lap(f"wrote {len(GRANULE_IDS)} x 7 files of {size}² px")
+        base = [f"--config-name={CROP_CONFIG}", f"root_dir={root}", f"test_filepath={json_path}",
+                "model.load_pretrained_weights=False", "mode=sliding_inference", *extra]
+        if not on_card:
+            base.append("device=cpu")
+        cfg = load_config_from_argv(base)
+        model = create_model(cfg, seed=0, device=device)
+        ckpt = BestCheckpointer(os.path.join(root, "run")).save({"model": model.state_dict()})
+        base.append(f"checkpoint_path={ckpt}")
+        dl = cfg.dataloader
+        depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
+        chip = int(dl.img_size)
+        kw = dict(chip_size=chip, temporal_size=int(dl.temporal_dim), bands=list(dl.bands),
+                  constant_multiplier=float(dl.constant_multiplier),
+                  no_data_value=dl.no_data_value or 0)
+        mean, std = list(dl.mean), list(dl.std)
+        coords, bounds = granule.chip_grid(size, size, chip)
+        n = len(coords)
+        top, left, side = block
+        nodata = np.zeros((size, size), bool)
+        nodata[top:top + side, left:left + side] = True
+        owner = np.full((size, size), -1, np.int64)  # the chip that writes each pixel last
+        for i, ((x, y), (y0, y1, x0, x1)) in enumerate(zip(coords, bounds)):
+            owner[y + y0:y + y1, x + x0:x + x1] = i
+        pred_path = os.path.join(root, "predictions", "prediction_T33TUN_2023152.tif")
+
+        def expected_launches(batch: int, chips: int = n) -> dict:
+            return {"flash_attn_fwd": depth * -(-chips // batch), "flash_attn_fwd_mma": 0,
+                    "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+
+        runs, preds = {}, {}
+        for batch in batches:
+            rec = {}
+            opener, to_file = hls.open_hls_stac_items, granule.granule_inference_to_file
+
+            def timed_open(*a, **k):
+                t0 = time.perf_counter()
+                out = opener(*a, **k)
+                rec["decode_s"], rec["bands"] = time.perf_counter() - t0, out[0]
+                return out
+
+            def timed_file(*a, **k):
+                t0 = time.perf_counter()
+                out = to_file(*a, **k)
+                rec["file_s"], rec["stats"] = time.perf_counter() - t0, k["stats"]
+                return out
+
+            # --- one run of the CLI: counts from 0, read right after ------
+            reset_counts()
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with mock.patch.object(hls, "open_hls_stac_items", timed_open), \
+                    mock.patch.object(granule, "granule_inference_to_file", timed_file):
+                done = run.main(base + [f"train.batch_size={batch}"])
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            # -----------------------------------------------------------------
+            check(done == 1, f"sliding_inference ran {done} granules")
+            if batch == batches[0]:
+                check(np.array_equal(rec["bands"], bands),
+                      "the opened bands differ from those written")
+            with GeoTiffReader(pred_path) as r:
+                pred = r.read(1)
+                check(r.crs == 32633 and r.transform.to_gdal() == transform.to_gdal(),
+                      f"prediction georeferencing {r.crs} {r.transform.to_gdal()}")
+            check(pred.shape == (size, size) and pred.dtype == np.int8,
+                  f"prediction {pred.shape} {pred.dtype}")
+            check(bool((pred[nodata] == -1).all()), "nodata block not -1")
+            check(bool(((pred[~nodata] >= 0) & (pred[~nodata] < classes)).all()),
+                  "classes outside [0, classes) or -1 outside the nodata block")
+            if on_card:
+                check(counts == expected_launches(batch),
+                      f"batch {batch}: launches {counts}, expected {expected_launches(batch)}")
+            stats = rec["stats"]
+            granule_s = rec["decode_s"] + rec["file_s"]
+            runs[batch] = dict(
+                chips=n, batches=stats["batches"], launches=counts, cli_wall_s=wall,
+                decode_s=rec["decode_s"], h2d_s=stats["h2d_s"], device_s=stats["device_s"],
+                d2h_s=stats["d2h_s"], infer_s=stats["seconds"], granule_wall_s=granule_s,
+                chips_per_s=n / granule_s,
+                device_chips_per_s=n / stats["device_s"] if stats["device_s"] else None,
+                peak_device_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+            preds[batch] = pred
+            print(f"[granule] batch {batch}: {n} chips in {stats['batches']} batches; decode "
+                  f"{rec['decode_s']:.3f} s, to the device {stats['h2d_s']:.3f} s, device "
+                  f"{stats['device_s']} s, copy back {stats['d2h_s']:.3f} s, granule wall "
+                  f"{granule_s:.3f} s ({n / granule_s:.2f} chips/s), CLI wall {wall:.3f} s; "
+                  f"peak device memory {runs[batch]['peak_device_bytes']} B; launches "
+                  f"{json.dumps(counts)}", flush=True)
+            clock.lap(f"sliding_inference at batch {batch}")
+
+        # --- stitching: the canvas = the fused predict on the same batch ---
+        predict = make_fused_predict_fn(model, mean, std, temporal_size=kw["temporal_size"],
+                                        bands=kw["bands"],
+                                        constant_multiplier=kw["constant_multiplier"])
+        per_row = int(np.sum(coords[:, 1] == 0))
+        rows = n // per_row
+        windows = sorted({0, per_row - 1, per_row, (rows // 2) * per_row + per_row // 2,
+                          int(owner[top + side // 2, left + side // 2]), (rows - 1) * per_row,
+                          (rows - 1) * per_row + per_row // 2, n - 1})
+        sel = np.asarray(kw["bands"])
+        stitched = {}
+        for batch in batches:
+            pixels = 0
+            for b in sorted({i // batch for i in windows}):
+                ids = range(b * batch, min(n, (b + 1) * batch))
+                raw = np.stack([bands[:, y:y + chip, x:x + chip] for x, y in coords[ids]])
+                out = predict(raw).cpu().numpy()
+                out[(raw[:, sel] == kw["no_data_value"]).all(axis=1)] = -1
+                for i in windows:
+                    if i // batch != b:
+                        continue
+                    x, y = coords[i]
+                    last = owner[y:y + chip, x:x + chip] == i
+                    got = preds[batch][y:y + chip, x:x + chip][last]
+                    check(last.any() and np.array_equal(got, out[i - b * batch][last]),
+                          f"batch {batch}: the canvas differs from the fused predict at chip "
+                          f"{i} ({x}, {y})")
+                    pixels += int(last.sum())
+            stitched[batch] = pixels
+        print(f"[granule] stitching: chips {windows} of the {rows} x {per_row} grid equal the "
+              f"fused predict on their batch bit for bit: " + ", ".join(
+                  f"batch {b}: {p} px" for b, p in stitched.items()), flush=True)
+
+        # --- the kernel route against the plain attention -----------------
+        class Top2Gap(nn.Module):
+            """The model's top-2 logit gap as a one-channel regression output,
+            so the granule path stitches it as it stitches predictions."""
+
+            def __init__(self, inner):
+                super().__init__()
+                self.inner = inner
+
+            def forward(self, x, channels_last=True):
+                top2 = self.inner(x, channels_last=True).float().topk(2, dim=-1).values
+                return (top2[..., 0] - top2[..., 1])[..., None]
+
+        big = max(batches)
+        with plain_attention(model):
+            plain, _ = granule.granule_inference(bands, model, mean, std, batch_size=big, **kw)
+            gap, _ = granule.granule_inference(bands, Top2Gap(model), mean, std,
+                                               batch_size=big, is_reg_task=True, **kw)
+        decided = gap >= GRANULE_GAP  # NaN (nodata) is not decided
+        agreement = {b: float((p == plain)[decided].mean()) for b, p in preds.items()}
+        for b, a in agreement.items():
+            check(a >= ARGMAX_AGREEMENT,
+                  f"batch {b}: kernel vs plain argmax agreement {a} on decided pixels")
+        between = float((preds[batches[0]] == preds[big])[decided].mean())
+        print(f"[granule] kernel vs plain attention over the granule: argmax agreement "
+              + ", ".join(f"batch {b}: {a:.6f}" for b, a in agreement.items())
+              + f" (>= {ARGMAX_AGREEMENT}) on the {float(decided.mean()):.4f} of pixels whose "
+              f"plain top-2 gap >= {GRANULE_GAP}; batch {batches[0]} vs {big}: {between:.6f}",
+              flush=True)
+        clock.lap("stitching and kernel vs plain")
+
+        # --- overlap -------------------------------------------------------
+        o_coords, o_bounds = granule.chip_grid(size, size, chip, overlap)
+        cover = np.zeros((size, size), np.int32)
+        for (x, y), (y0, y1, x0, x1) in zip(o_coords, o_bounds):
+            cover[y + y0:y + y1, x + x0:x + x1] += 1
+        check(bool((cover >= 1).all()), f"overlap {overlap}: pixels no chip covers")
+        reset_counts()
+        o_stats = {}
+        o_pred, _ = granule.granule_inference(bands, model, mean, std, batch_size=big,
+                                              overlap=overlap, stats=o_stats, **kw)
+        o_counts = read_counts()
+        check(bool((o_pred[nodata] == -1).all()) and bool(
+            ((o_pred[~nodata] >= 0) & (o_pred[~nodata] < classes)).all()),
+            f"overlap {overlap}: nodata or classes out of place")
+        if on_card:
+            want = expected_launches(big, len(o_coords))
+            check(o_counts == want, f"overlap {overlap}: launches {o_counts}, expected {want}")
+        o_agree = float((o_pred == preds[big])[decided].mean())
+        print(f"[granule] overlap {overlap}: {len(o_coords)} chips in {o_stats['batches']} "
+              f"batches cover every pixel (1..{cover.max()} chips each); device "
+              f"{o_stats['device_s']} s; agreement with overlap 0 on decided pixels "
+              f"{o_agree:.6f}; launches {json.dumps(o_counts)}", flush=True)
+        clock.lap(f"overlap {overlap}")
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+        return dict(runs=runs, stitched_pixels=stitched, agreement=agreement,
+                    decided=float(decided.mean()), overlap=dict(
+                        chips=len(o_coords), launches=o_counts, device_s=o_stats["device_s"],
+                        agreement=o_agree),
+                    bands=bands, fmask=fmask)
+    finally:
+        tmp.cleanup()
+
+
+def chip_ops_phase(device, bands: np.ndarray, fmask: np.ndarray, chip: int = 256,
+                   n_points: int = 50_000, dense_points: int = 5_000, seed: int = 9) -> dict:
+    """``process_tile_chips`` on the granule's tile: the full ``chip``-px grid
+    (14 x 14 chips at 3660 px), Fmask cloud and cloud-shadow masking with
+    each strategy, ``window_size`` 1, ``n_points`` labelled points of which
+    ``dense_points`` fall in one chip, which then takes a power-of-two
+    bucket of its own. The device's results (chips, seg maps, validity)
+    must equal the CPU's bit for bit and dtype for dtype, also under
+    ``torch.use_deterministic_algorithms(True)``. Reports ms on each."""
+    import torch
+
+    from instageo_tpu_torch.ops.chip_ops import process_tile_chips
+
+    side = bands.shape[-1] // chip
+    coords = np.asarray([[x, y] for y in range(side) for x in range(side)], np.int32)
+    rng = np.random.default_rng(seed)
+    dense_at = (side // 3, side // 2)  # (row, col) on the chip grid
+    rc = np.concatenate([rng.integers(0, side * chip, (n_points - dense_points, 2)),
+                         rng.integers(0, chip, (dense_points, 2)) + np.asarray(dense_at) * chip])
+    rc = rc[rng.permutation(len(rc))]
+    owner = (rc[:, 0] // chip) * side + rc[:, 1] // chip
+    labels = rng.integers(0, 13, len(rc)).astype(np.float32)
+    per_chip = np.bincount(owner, minlength=len(coords))
+    check(int((per_chip > 512).sum()) == 1, f"{int((per_chip > 512).sum())} dense chips")
+    args = (bands, fmask, coords, rc, labels, owner)
+    cpu = torch.device("cpu")
+    out = {}
+    for strategy in ("each", "any"):
+        kw = dict(chip_size=chip, no_data_value=0, data_source="HLS",
+                  mask_types=("cloud", "cloud_shadow"), masking_strategy=strategy,
+                  window_size=1)
+        ms = {}
+        for name, dev, reps in (("device", device, 2), ("cpu", cpu, 1)):
+            for _ in range(reps):  # the device's first call loads its kernels
+                t0 = time.perf_counter()
+                res = process_tile_chips(*args, device=dev, **kw)
+                ms[name] = (time.perf_counter() - t0) * 1e3
+            out.setdefault(strategy, {})[name] = res
+        for got, ref, what in zip(out[strategy]["device"], out[strategy]["cpu"],
+                                  ("chips", "seg maps", "chip validity", "seg validity")):
+            check(got.dtype == ref.dtype and np.array_equal(got, ref),
+                  f"chip_ops {strategy}: {what} on the device differ from the CPU's "
+                  f"({got.dtype} vs {ref.dtype})")
+        chips, segs, cv, sv = out[strategy]["cpu"]
+        print(f"[chip_ops] {strategy}: {len(coords)} chips of {chip} px ({chips.dtype}), "
+              f"{len(rc)} points (one chip of {per_chip.max()}), seg maps {segs.dtype} with "
+              f"{int((segs != -1).sum())} labelled px, {int(cv.sum())} chips with data, "
+              f"{int(sv.sum())} with labels; device = CPU bit for bit; "
+              f"{ms['device']:.1f} ms on {device.type}, {ms['cpu']:.1f} ms on the CPU",
+              flush=True)
+        out[strategy]["ms"] = ms
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = process_tile_chips(*args, device=device, chip_size=chip, no_data_value=0,
+                                 mask_types=("cloud", "cloud_shadow"), window_size=1)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    for got, ref in zip(det, out["each"]["cpu"]):
+        check(np.array_equal(got, ref), "chip_ops under deterministic mode differ")
+    print("[chip_ops] under torch.use_deterministic_algorithms(True): equal", flush=True)
+    return {s: out[s]["ms"] for s in ("each", "any")}
+
+
 def _build_native() -> None:
     """Build the native GeoTIFF decoder (``instageo_tpu_torch/native``) and
     say what the machine offers it: zlib's header, zlib's runtime library,
@@ -2331,6 +2705,19 @@ def main() -> int:
         f"{head} head {r['ms']:.3f} ms per predict" for head, r in models["heads"]["timing"].items())
         + "; " + ", ".join(f"gelu {g} {r['ms']:.3f} ms" for g, r in models["gelu"].items()),
         flush=True)
+    granuled = granule_phase(device, smi)
+    clock.lap("granule")
+    print(f"[granule] {smi}: " + "; ".join(
+        f"batch {b}: decode {r['decode_s']:.3f} s, to the device {r['h2d_s']:.3f} s, device "
+        f"{r['device_s']:.3f} s, granule wall {r['granule_wall_s']:.3f} s, "
+        f"{r['chips_per_s']:.2f} chips/s ({r['device_chips_per_s']:.2f} on the device), peak "
+        f"{r['peak_device_bytes'] / 2**30:.3f} GiB" for b, r in granuled["runs"].items()),
+        flush=True)
+    chip_ms = chip_ops_phase(device, granuled.pop("bands"), granuled.pop("fmask"))
+    clock.lap("chip_ops")
+    print(f"[chip_ops] {smi}: process_tile_chips " + ", ".join(
+        f"{s} {m['device']:.1f} ms on the card, {m['cpu']:.1f} on the CPU"
+        for s, m in chip_ms.items()), flush=True)
 
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
@@ -2393,6 +2780,10 @@ def main() -> int:
         route = by_route[k["name"]]
         k["launches_by_path"]["serve_fast_head"] = route(models["heads"]["launches"]["fast"])
         k["launches_by_path"]["train_fast_head"] = route(models["train_step"]["launches"])
+        for b, r in granuled["runs"].items():
+            k["launches_by_path"][f"granule_batch{b}"] = route(r["launches"])
+        k["launches_by_path"][f"granule_overlap{GRANULE_OVERLAP}"] = route(
+            granuled["overlap"]["launches"])
         for variant, row in models["variants"].items():
             k["launches_by_path"][f"serve_{variant}"] = (
                 row["fwd_launches_per_predict"] - row["mma_sync_launches"]

@@ -12,6 +12,10 @@ the same config files, keys, required values and last-line JSON:
   checkpoint, with ROC-AUC;
 * ``chip_inference``: one prediction GeoTIFF per chip of ``test_filepath``
   under ``<root_dir>/predictions``;
+* ``sliding_inference``: whole granules from a chip-creator dataset JSON
+  (``test_filepath``: ``{key: {"granules": [STAC item, ...]}}``, one item
+  per timestep, opened by ``test.data_source``: HLS, S2 or S1) through
+  ``serve/granule.py``, one ``predictions/prediction_<key>.tif`` each;
 * ``export``: the serving forward of ``checkpoint_path``'s model as a
   ``torch.export`` artifact (``serve/export.py``) at ``export.path``
   (``<root_dir>/predict.pt2`` by default), with a symbolic batch unless
@@ -58,8 +62,6 @@ SEED = 1042
 # Modes of the JAX CLI that wait for a later slice.
 _NOT_PORTED = {
     "replica": "mode=replica (train/replica.py) is not ported yet: ROADMAP item 1",
-    "sliding_inference": "mode=sliding_inference (serve/granule.py) is not ported yet: "
-                         "ROADMAP item 7",
 }
 
 
@@ -114,7 +116,8 @@ def main(argv: Optional[List[str]] = None) -> Any:
     mode = cfg.get("mode", "train")
     if mode in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[mode])
-    if mode not in ("stats", "train", "eval", "chip_inference", "export"):
+    if mode not in ("stats", "train", "eval", "chip_inference", "sliding_inference",
+                    "export"):
         raise ValueError(f"Unknown mode {mode!r}")
     device = resolve_device(cfg.get("device"))
     batch_size = int(cfg.train.get("batch_size", 8))
@@ -249,6 +252,9 @@ def main(argv: Optional[List[str]] = None) -> Any:
         print(json.dumps(metrics))
         return metrics
 
+    if mode == "sliding_inference":
+        return _sliding_inference(cfg, model, batch_size)
+
     from instageo_tpu_torch.serve.infer import chip_inference
 
     out_dir = os.path.join(cfg.root_dir, "predictions")
@@ -261,6 +267,52 @@ def main(argv: Optional[List[str]] = None) -> Any:
     n, dt = chip_inference(infer_loader, out_dir, model, is_reg_task=is_reg)
     del infer_loader
     print(json.dumps({"chips": n, "seconds": dt, "chips_per_sec": n / dt if dt else 0.0}))
+    return n
+
+
+def _sliding_inference(cfg: Any, model, batch_size: int) -> int:
+    """Stream each granule of the dataset JSON through ``serve/granule.py``;
+    logs each granule's decode, copy and device seconds."""
+    from instageo_tpu_torch.data.sources import hls, s1, s2
+    from instageo_tpu_torch.serve.granule import granule_inference_to_file
+
+    openers = {"HLS": hls.open_hls_stac_items,
+               "S2": s2.open_s2_stac_items,
+               "S1": s1.open_s1_stac_items}
+    source = str(cfg.test.get("data_source", "HLS")).upper()
+    with open(cfg.test_filepath) as f:
+        dataset = json.load(f)
+    out_dir = os.path.join(cfg.root_dir, "predictions")
+    os.makedirs(out_dir, exist_ok=True)
+    start_time = time.time()
+    n = 0
+    for key, tile_dict in dataset.items():
+        t0 = time.perf_counter()
+        bands, _masks, transform, crs = openers[source](tile_dict, load_masks=False)
+        decode_s = time.perf_counter() - t0
+        safe = key.replace("/", "_")[:128]
+        stats = {}
+        granule_inference_to_file(
+            bands,
+            os.path.join(out_dir, f"prediction_{safe}.tif"),
+            model,
+            mean=list(cfg.dataloader.mean), std=list(cfg.dataloader.std),
+            transform=transform, crs=crs,
+            chip_size=int(cfg.dataloader.get("img_size", 224)),
+            temporal_size=int(cfg.dataloader.get("temporal_dim", 1)),
+            bands=cfg.dataloader.get("bands"),
+            constant_multiplier=float(cfg.dataloader.get("constant_multiplier", 1.0)),
+            is_reg_task=bool(cfg.get("is_reg_task", False)),
+            batch_size=batch_size,
+            no_data_value=cfg.dataloader.get("no_data_value", -9999) or 0,
+            stats=stats,
+        )
+        log.info("granule %s: %d chips in %d batches; decode %.3f s, to the device %.3f s, "
+                 "device %s s, wall %.3f s", key, stats["chips"], stats["batches"], decode_s,
+                 stats["h2d_s"], stats["device_s"], time.perf_counter() - t0)
+        n += 1
+    dt = time.time() - start_time
+    print(json.dumps({"granules": n, "seconds": dt, "out_dir": out_dir}))
     return n
 
 

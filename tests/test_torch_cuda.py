@@ -20,7 +20,9 @@ dk, dv bit for bit, dq within the run-to-run bound); the tiny model's
 grouped train steps (``steps_per_call`` 4, a captured graph replayed once)
 equal the one-step run bit for bit under deterministic mode, and with only
 the backward on its atomic-free kernel; its grouped eval epoch the eager
-one.
+one. The chip ops on the card equal the CPU's bit for bit; the granule
+path launches the kernel once per block and chip batch and stitches the
+fused predict's output bit for bit.
 """
 
 import os
@@ -578,3 +580,56 @@ def test_exported_artifact_launches_the_kernel(cuda, tmp_path):
     assert tattn.launches.count == before + 2
     assert got.device.type == "cuda" and got.shape == (5, 32, 32)
     assert torch.equal(got, make_predict_fn(model)(x))
+
+
+@pytest.mark.parametrize("strategy", ["each", "any"])
+def test_process_tile_chips_on_card_equals_cpu(cuda, strategy):
+    """The chip ops on the card give the CPU's chips, seg maps and validity
+    bit for bit and dtype for dtype (uint16 tile, Fmask masking, windows,
+    one dense chip in a bucket of its own)."""
+    from instageo_tpu_torch.ops.chip_ops import process_tile_chips
+
+    rng = np.random.default_rng(0)
+    tile = rng.integers(0, 40000, (6, 64, 64)).astype(np.uint16)
+    tile[:, :5, :5] = 0
+    fmask = rng.choice(np.asarray([0, 2, 8, 10, 32], np.uint8), (2, 64, 64))
+    coords = np.asarray([[x, y] for y in range(4) for x in range(4)], np.int32)
+    rc = np.concatenate([rng.integers(0, 64, (300, 2)), rng.integers(16, 32, (700, 2))])
+    owner = (rc[:, 0] // 16) * 4 + rc[:, 1] // 16
+    labels = rng.integers(0, 9, len(rc)).astype(np.float32)
+    kw = dict(chip_size=16, no_data_value=0, mask_types=("cloud", "cloud_shadow"),
+              masking_strategy=strategy, window_size=1, max_points_per_chip=64)
+    args = (tile, fmask, coords, rc, labels, owner)
+    for got, ref in zip(process_tile_chips(*args, device=cuda, **kw),
+                        process_tile_chips(*args, device="cpu", **kw)):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_granule_on_card_runs_the_kernel_and_stitches(cuda):
+    """``granule_inference`` on the card: one forward launch per block and
+    chip batch, and the canvas is the fused predict on each batch of chips,
+    pasted in chip order, bit for bit; −1 on the nodata corner."""
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
+    from instageo_tpu_torch.serve import granule
+
+    model = create_prithvi_seg("prithvi_eo_tiny", num_classes=3, image_size=32, num_bands=6,
+                               depth=2, dtype=torch.bfloat16, device=cuda, seed=0).eval()
+    tile = np.random.default_rng(1).integers(1, 10000, (6, 80, 100)).astype(np.uint16)
+    tile[:, :10, :10] = 0
+    mean, std = [5000.0] * 6, [3000.0] * 6
+    tattn.launches.reset()
+    pred, _ = granule.granule_inference(tile, model, mean, std, chip_size=32, batch_size=5)
+    coords, _ = granule.chip_grid(80, 100, 32)
+    assert tattn.launches.total() == 2 * -(-len(coords) // 5)
+    predict = make_fused_predict_fn(model, mean, std)
+    expected = np.zeros((80, 100), np.int8)
+    for b0 in range(0, len(coords), 5):
+        raw = np.stack([tile[:, y:y + 32, x:x + 32] for x, y in coords[b0:b0 + 5]])
+        out = predict(raw).cpu().numpy()
+        out[(raw == 0).all(axis=1)] = -1
+        for j, (x, y) in enumerate(coords[b0:b0 + 5]):
+            expected[y:y + 32, x:x + 32] = out[j]
+    np.testing.assert_array_equal(pred, expected)
+    assert (pred[:10, :10] == -1).all()

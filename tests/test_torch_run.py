@@ -168,9 +168,10 @@ def test_regression_plot_key_is_read_in_eval_only(chip_dir, tmp_path):
 def test_cli_refusals():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["mode=train", "root_dir=/r", "train_filepath=a", "valid_filepath=b"])
-    for mode in ("replica", "sliding_inference"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            run.main([f"mode={mode}", "device=cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+        run.main(["mode=replica", "device=cpu"])
+    with pytest.raises(ValueError, match="checkpoint_path"):
+        run.main(["mode=sliding_inference", "device=cpu", "root_dir=/r", "test_filepath=a"])
     with pytest.raises(ValueError, match="checkpoint_path"):
         run.main(["mode=export", "device=cpu", "root_dir=/r"])
     with pytest.raises(ValueError, match="Unknown mode"):

@@ -170,7 +170,7 @@ def test_server_chip_inference_roundtrip(models, tmp_path):
 def test_port_imports_nothing_of_jax():
     """Importing every module and package of the port, the serving layer
     included, pulls in neither JAX, the JAX package, nor the libraries the
-    port does without (PyYAML, pandas, OpenCV, pydantic)."""
+    port does without (PyYAML, pandas, OpenCV, pydantic, requests, absl)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "instageo_tpu_torch")
     modules = sorted(
@@ -179,13 +179,17 @@ def test_port_imports_nothing_of_jax():
         for d, _, files in os.walk(pkg) for f in files if f.endswith(".py"))
     assert "instageo_tpu_torch.train.run" in modules and len(modules) >= 30
     for new in ("serve.export", "serve.pipeline", "serve.registry",
-                "configs.config_dataclasses"):
+                "configs.config_dataclasses", "serve.granule", "ops.chip_ops",
+                "data.stac", "data.remote_io", "data.settings", "data.pipeline",
+                "data.sources.hls", "data.sources.s1", "data.sources.s2",
+                "utils.ratelimit"):
         assert f"instageo_tpu_torch.{new}" in modules
     assert "instageo_tpu_torch.native" in modules  # the decoder's binding is a package
     code = ("import sys, importlib\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'flax', 'instageo_tpu', 'yaml', 'pandas', 'cv2', 'pydantic')]\n"
+            "       ('jax', 'flax', 'instageo_tpu', 'yaml', 'pandas', 'cv2', 'pydantic',\n"
+            "        'requests', 'absl')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
