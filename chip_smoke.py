@@ -79,10 +79,14 @@ Phases, one line each (any failure raises and exits non-zero):
     (the yaml's) and 64: the prediction GeoTIFF (int8, the tile's
     georeferencing, −1 exactly on the block), 12 forward launches per chip
     batch on wgmma and none on mma.sync, the stitched canvas = the fused
-    predict on the same batch at 8 chip windows bit for bit, the kernel vs
-    the plain attention over the whole granule on decided pixels, a run at
-    overlap 16 with full coverage; decode, host-to-device, device and wall
-    seconds per granule, chips/s, peak device memory;
+    predict on the same batch (the last padded, as the path pads it) at 8
+    chip windows bit for bit, the kernel vs the plain attention over the
+    whole granule on decided pixels, a run at overlap 16 with full coverage
+    and the kernel vs plain there too; decode, host-to-device, device,
+    first-batch and wall seconds per granule, chips/s, peak device memory;
+    then the CLI at batch 8 in two fresh interpreters, one that builds the
+    forward kernel at its first launch and one on the built library: the
+    cold cost a user's first and later runs pay;
 11. chip_ops: ``process_tile_chips`` on the same tile (196 chips of 256 px,
     Fmask cloud and shadow masking ``each`` and ``any``, 50,000 points with
     one dense chip): card = CPU bit for bit, also under deterministic mode;
@@ -111,6 +115,7 @@ import tempfile
 import threading
 import time
 from functools import partial
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -2297,6 +2302,60 @@ def _write_granule(root: str, size: int, block, seed: int = 8):
     return path, bands, fmask, transform
 
 
+def _sliding_inference_timed(argv) -> dict:
+    """``run.main(argv)`` in ``mode=sliding_inference`` with the HLS opener
+    and the granule writer timed: the granule count (``done``), decode and
+    file seconds, the bands opened and ``granule_inference``'s stats."""
+    from instageo_tpu_torch.data.sources import hls
+    from instageo_tpu_torch.serve import granule
+    from instageo_tpu_torch.train import run
+
+    rec = {}
+    opener, to_file = hls.open_hls_stac_items, granule.granule_inference_to_file
+
+    def timed_open(*a, **k):
+        t0 = time.perf_counter()
+        out = opener(*a, **k)
+        rec["decode_s"], rec["bands"] = time.perf_counter() - t0, out[0]
+        return out
+
+    def timed_file(*a, **k):
+        t0 = time.perf_counter()
+        out = to_file(*a, **k)
+        rec["file_s"], rec["stats"] = time.perf_counter() - t0, k["stats"]
+        return out
+
+    with mock.patch.object(hls, "open_hls_stac_items", timed_open), \
+            mock.patch.object(granule, "granule_inference_to_file", timed_file):
+        rec["done"] = run.main(list(argv))
+    return rec
+
+
+def _granule_fresh_process(build_root: str, argv) -> None:
+    """What a fresh interpreter runs for the granule phase's cold runs:
+    ``mode=sliding_inference`` as a user starts it, with the kernels' libraries
+    under ``build_root`` (an empty directory: the forward kernel is built at
+    its first launch; "": the checkout's built libraries). Prints one JSON
+    line: the granule's seconds, the process's seconds from before ``import
+    torch`` and the seconds each kernel build took."""
+    t0 = time.perf_counter()
+    import torch
+
+    from instageo_tpu_torch.ops import _build
+
+    if build_root:
+        _build.BUILD_ROOT = Path(build_root)
+    rec = _sliding_inference_timed(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    stats = rec["stats"]
+    print(json.dumps(dict(
+        done=rec["done"], decode_s=rec["decode_s"], file_s=rec["file_s"],
+        h2d_s=stats["h2d_s"], device_s=stats["device_s"],
+        first_batch_s=stats["first_batch_s"], process_s=time.perf_counter() - t0,
+        build_s=dict(_build.build_seconds))), flush=True)
+
+
 def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
                   extra=(), batches=(8, 64), overlap: int = GRANULE_OVERLAP) -> dict:
     """Whole-granule inference as a user runs it: ``mode=sliding_inference``
@@ -2307,16 +2366,22 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
     GeoTIFF (shape, int8, the tile's transform and CRS, classes in
     [0, classes), −1 exactly on the nodata block); the opened bands against
     those written; the stitched canvas against ``make_fused_predict_fn`` on
-    the same batch of chips, bit for bit, at 8 chip windows (the clamped last
-    row and column, the corners, the nodata block), where each chip is the
-    last to write; the kernel route against the plain attention over the
-    whole granule (argmax agreement on pixels whose plain top-2 gap is at
-    least GRANULE_GAP); forward launches = depth x batches, none on
-    mma.sync; one run with ``overlap`` and full coverage. Reports per run
-    the decode, host-to-device, device (CUDA events) and wall seconds of
-    the granule, chips/s and peak device memory. ``extra``: overrides (a
-    CPU rehearsal's tiny model). Returns the numbers and the tile's arrays
-    for the chip_ops phase."""
+    the same batch of chips (the last padded with copies of chip 0, as the
+    path pads it), bit for bit, at 8 chip windows (the clamped last row and
+    column, the corners, the nodata block), where each chip is the last to
+    write; the kernel route against the plain attention over the whole
+    granule (argmax agreement on pixels whose plain top-2 gap is at least
+    GRANULE_GAP); forward launches = depth x batches, none on mma.sync; one
+    run with ``overlap``, full coverage and the kernel against the plain
+    attention there too. Reports per run the decode, host-to-device,
+    device (CUDA events), first-batch and wall seconds of the granule,
+    chips/s and peak device memory. These runs share a process that earlier
+    phases warmed; on the card two fresh interpreters then run the CLI at
+    the first of ``batches`` (``_granule_fresh_process``): one builds the
+    forward kernel into an empty directory at its first launch, one loads
+    the built library, and both predictions are held against the plain
+    attention. ``extra``: overrides (a CPU rehearsal's tiny model).
+    Returns the numbers and the tile's arrays for the chip_ops phase."""
     # Each run opens 18 assets and the loader allows 30 a minute per
     # process by default; raise it before the loaders are imported.
     os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
@@ -2326,10 +2391,8 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
     from instageo_tpu_torch.configs.config import load_config_from_argv
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
     from instageo_tpu_torch.data.settings import DATA_PIPELINE_SETTINGS
-    from instageo_tpu_torch.data.sources import hls
     from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
     from instageo_tpu_torch.serve import granule
-    from instageo_tpu_torch.train import run
     from instageo_tpu_torch.train.checkpointing import BestCheckpointer
     from instageo_tpu_torch.train.factory import create_model
 
@@ -2373,36 +2436,19 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
 
         runs, preds = {}, {}
         for batch in batches:
-            rec = {}
-            opener, to_file = hls.open_hls_stac_items, granule.granule_inference_to_file
-
-            def timed_open(*a, **k):
-                t0 = time.perf_counter()
-                out = opener(*a, **k)
-                rec["decode_s"], rec["bands"] = time.perf_counter() - t0, out[0]
-                return out
-
-            def timed_file(*a, **k):
-                t0 = time.perf_counter()
-                out = to_file(*a, **k)
-                rec["file_s"], rec["stats"] = time.perf_counter() - t0, k["stats"]
-                return out
-
             # --- one run of the CLI: counts from 0, read right after ------
             reset_counts()
             if on_card:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            with mock.patch.object(hls, "open_hls_stac_items", timed_open), \
-                    mock.patch.object(granule, "granule_inference_to_file", timed_file):
-                done = run.main(base + [f"train.batch_size={batch}"])
+            rec = _sliding_inference_timed(base + [f"train.batch_size={batch}"])
             if on_card:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = read_counts()
             # -----------------------------------------------------------------
-            check(done == 1, f"sliding_inference ran {done} granules")
+            check(rec["done"] == 1, f"sliding_inference ran {rec['done']} granules")
             if batch == batches[0]:
                 check(np.array_equal(rec["bands"], bands),
                       "the opened bands differ from those written")
@@ -2423,6 +2469,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
             runs[batch] = dict(
                 chips=n, batches=stats["batches"], launches=counts, cli_wall_s=wall,
                 decode_s=rec["decode_s"], h2d_s=stats["h2d_s"], device_s=stats["device_s"],
+                first_batch_s=stats["first_batch_s"],
                 d2h_s=stats["d2h_s"], infer_s=stats["seconds"], granule_wall_s=granule_s,
                 chips_per_s=n / granule_s,
                 device_chips_per_s=n / stats["device_s"] if stats["device_s"] else None,
@@ -2430,7 +2477,8 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
             preds[batch] = pred
             print(f"[granule] batch {batch}: {n} chips in {stats['batches']} batches; decode "
                   f"{rec['decode_s']:.3f} s, to the device {stats['h2d_s']:.3f} s, device "
-                  f"{stats['device_s']} s, copy back {stats['d2h_s']:.3f} s, granule wall "
+                  f"{stats['device_s']} s (first batch {stats['first_batch_s']:.3f} s), copy "
+                  f"back {stats['d2h_s']:.3f} s, granule wall "
                   f"{granule_s:.3f} s ({n / granule_s:.2f} chips/s), CLI wall {wall:.3f} s; "
                   f"peak device memory {runs[batch]['peak_device_bytes']} B; launches "
                   f"{json.dumps(counts)}", flush=True)
@@ -2450,7 +2498,8 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         for batch in batches:
             pixels = 0
             for b in sorted({i // batch for i in windows}):
-                ids = range(b * batch, min(n, (b + 1) * batch))
+                ids = list(range(b * batch, min(n, (b + 1) * batch)))
+                ids += [0] * (batch - len(ids))  # the path's padding: chip 0 at (0, 0)
                 raw = np.stack([bands[:, y:y + chip, x:x + chip] for x, y in coords[ids]])
                 out = predict(raw).cpu().numpy()
                 out[(raw[:, sel] == kw["no_data_value"]).all(axis=1)] = -1
@@ -2517,20 +2566,68 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         if on_card:
             want = expected_launches(big, len(o_coords))
             check(o_counts == want, f"overlap {overlap}: launches {o_counts}, expected {want}")
-        o_agree = float((o_pred == preds[big])[decided].mean())
+        with plain_attention(model):
+            o_plain, _ = granule.granule_inference(bands, model, mean, std, batch_size=big,
+                                                   overlap=overlap, **kw)
+            o_gap, _ = granule.granule_inference(bands, Top2Gap(model), mean, std,
+                                                 batch_size=big, overlap=overlap,
+                                                 is_reg_task=True, **kw)
+        o_decided = o_gap >= GRANULE_GAP
+        o_agree = float((o_pred == o_plain)[o_decided].mean())
+        check(o_agree >= ARGMAX_AGREEMENT,
+              f"overlap {overlap}: kernel vs plain argmax agreement {o_agree} on decided pixels")
         print(f"[granule] overlap {overlap}: {len(o_coords)} chips in {o_stats['batches']} "
               f"batches cover every pixel (1..{cover.max()} chips each); device "
-              f"{o_stats['device_s']} s; agreement with overlap 0 on decided pixels "
-              f"{o_agree:.6f}; launches {json.dumps(o_counts)}", flush=True)
+              f"{o_stats['device_s']} s; kernel vs plain attention argmax agreement "
+              f"{o_agree:.6f} (>= {ARGMAX_AGREEMENT}) on the {float(o_decided.mean()):.4f} of "
+              f"pixels whose plain top-2 gap >= {GRANULE_GAP}; launches {json.dumps(o_counts)}",
+              flush=True)
         clock.lap(f"overlap {overlap}")
+
+        # --- fresh interpreters: what a user's first and later runs pay ----
+        fresh = {}
+        if on_card:
+            first = batches[0]
+            for name, build_root in (("first_build", os.path.join(root, "build")),
+                                     ("built", "")):
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "chip_smoke._granule_fresh_process(sys.argv[1], sys.argv[2:])",
+                     build_root, *base, f"train.batch_size={first}"],
+                    cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                    text=True, timeout=600)
+                wall = time.perf_counter() - t0
+                check(proc.returncode == 0, f"granule in a fresh interpreter ({name}): exit "
+                      f"{proc.returncode}\n{proc.stderr[-3000:]}")
+                rec = json.loads(proc.stdout.strip().splitlines()[-1])
+                check(rec["done"] == 1, f"fresh interpreter ({name}): {rec['done']} granules")
+                with GeoTiffReader(pred_path) as r:
+                    f_pred = r.read(1)
+                f_agree = float((f_pred == plain)[decided].mean())
+                check(bool((f_pred[nodata] == -1).all()) and f_agree >= ARGMAX_AGREEMENT,
+                      f"fresh interpreter ({name}): nodata or kernel vs plain {f_agree}")
+                check((name == "built") == (not rec["build_s"]),
+                      f"fresh interpreter ({name}): kernel builds {rec['build_s']}")
+                rec.update(process_wall_s=wall, agreement=f_agree,
+                           granule_wall_s=rec["decode_s"] + rec["file_s"])
+                fresh[name] = rec
+                print(f"[granule] a fresh interpreter at batch {first} ({name}): process "
+                      f"{wall:.3f} s, decode {rec['decode_s']:.3f} s, to the device "
+                      f"{rec['h2d_s']:.3f} s, device {rec['device_s']:.3f} s, of it the first "
+                      f"batch {rec['first_batch_s']:.3f} s (kernel builds "
+                      f"{json.dumps(rec['build_s'])}), granule wall "
+                      f"{rec['granule_wall_s']:.3f} s ({n / rec['granule_wall_s']:.2f} "
+                      f"chips/s); kernel vs plain {f_agree:.6f}", flush=True)
+            clock.lap("fresh interpreters")
         del model
         if on_card:
             torch.cuda.empty_cache()
         return dict(runs=runs, stitched_pixels=stitched, agreement=agreement,
                     decided=float(decided.mean()), overlap=dict(
                         chips=len(o_coords), launches=o_counts, device_s=o_stats["device_s"],
-                        agreement=o_agree),
-                    bands=bands, fmask=fmask)
+                        agreement=o_agree, decided=float(o_decided.mean())),
+                    fresh=fresh, bands=bands, fmask=fmask)
     finally:
         tmp.cleanup()
 
@@ -2709,10 +2806,14 @@ def main() -> int:
     clock.lap("granule")
     print(f"[granule] {smi}: " + "; ".join(
         f"batch {b}: decode {r['decode_s']:.3f} s, to the device {r['h2d_s']:.3f} s, device "
-        f"{r['device_s']:.3f} s, granule wall {r['granule_wall_s']:.3f} s, "
-        f"{r['chips_per_s']:.2f} chips/s ({r['device_chips_per_s']:.2f} on the device), peak "
-        f"{r['peak_device_bytes'] / 2**30:.3f} GiB" for b, r in granuled["runs"].items()),
-        flush=True)
+        f"{r['device_s']:.3f} s (first batch {r['first_batch_s']:.3f} s), granule wall "
+        f"{r['granule_wall_s']:.3f} s, {r['chips_per_s']:.2f} chips/s "
+        f"({r['device_chips_per_s']:.2f} on the device), peak "
+        f"{r['peak_device_bytes'] / 2**30:.3f} GiB" for b, r in granuled["runs"].items())
+        + "; fresh interpreters at batch 8: " + "; ".join(
+            f"{name}: device {r['device_s']:.3f} s (first batch {r['first_batch_s']:.3f} s), "
+            f"granule wall {r['granule_wall_s']:.3f} s, process {r['process_wall_s']:.3f} s"
+            for name, r in granuled["fresh"].items()), flush=True)
     chip_ms = chip_ops_phase(device, granuled.pop("bands"), granuled.pop("fmask"))
     clock.lap("chip_ops")
     print(f"[chip_ops] {smi}: process_tile_chips " + ", ".join(

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 import weakref
 from pathlib import Path
 from typing import Dict, Iterable
@@ -142,6 +143,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output per source name (ptxas register and shared-memory counts).
 build_logs: Dict[str, str] = {}
+# Seconds from the start of a build until each source's nvcc had finished.
+build_seconds: Dict[str, float] = {}
 
 
 def sources() -> list:
@@ -176,6 +179,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     """Compile the named sources that have no library yet, one ``nvcc`` per
     source, all started together. Returns each name's library path."""
     paths = {name: _lib_path(name) for name in names}
+    t0 = time.perf_counter()
     procs = {}
     for name, path in paths.items():
         if path.exists():
@@ -190,6 +194,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     for name, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         build_logs[name] = out
+        build_seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             continue

@@ -9,9 +9,10 @@ the JAX package's: chips keep the tile's dtype (a float fill value makes
 them float32), seg maps are int16 (float32 for regression), validity is
 bool.
 
-torch has few device ops for uint16, so a uint16 tile travels as its
-int16 bit pattern and is widened to int32 on the device
-(``ops/preprocess.py:raw_to_device``); the chips go back to the host as
+torch has few device ops for uint16, so a uint16 tile travels and stays
+as its int16 bit pattern (``tile_to_device``: 2 bytes a pixel, not the 4 of
+int32) and only the gathered chips are widened to int32
+(``extract_chips_px(..., uint16=True)``); they go back to the host as
 uint16.
 """
 
@@ -23,7 +24,6 @@ import numpy as np
 import torch
 
 from instageo_tpu_torch.device import resolve_device
-from instageo_tpu_torch.ops.preprocess import raw_to_device
 
 # Fmask bit positions (HLS) and SCL classes (S2).
 MASK_DECODING_POS = {
@@ -55,11 +55,23 @@ def decode_mask(mask: torch.Tensor, pos) -> torch.Tensor:
     return decode_fmask_value(mask, int(pos))
 
 
+def tile_to_device(tile: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host tile on ``device`` in its own width; uint16 as its int16 bit
+    pattern, which ``extract_chips_px(..., uint16=True)`` widens chip by
+    chip."""
+    tile = np.ascontiguousarray(tile)
+    if tile.dtype == np.uint16:
+        tile = tile.view(np.int16)
+    return torch.from_numpy(tile).to(device)
+
+
 def extract_chips_px(tile: torch.Tensor, offsets_px: Union[np.ndarray, torch.Tensor],
-                     chip_size: int) -> torch.Tensor:
+                     chip_size: int, uint16: bool = False) -> torch.Tensor:
     """Gather chips at pixel offsets: (B, H, W) + (N, 2) xy pixel starts ->
     (N, B, cs, cs), in one indexed read. A start past the tile's edge is
-    clamped so the chip lies inside, as ``jax.lax.dynamic_slice`` does."""
+    clamped so the chip lies inside, as ``jax.lax.dynamic_slice`` does.
+    ``uint16``: the tile holds uint16 bit patterns (``tile_to_device``); the
+    chips come back widened to int32, contiguous."""
     if not isinstance(offsets_px, torch.Tensor):
         offsets_px = torch.from_numpy(np.asarray(offsets_px, np.int64))
     offsets = offsets_px.to(tile.device, torch.long).reshape(-1, 2)
@@ -67,14 +79,19 @@ def extract_chips_px(tile: torch.Tensor, offsets_px: Union[np.ndarray, torch.Ten
     span = torch.arange(chip_size, device=tile.device)
     rows = offsets[:, 1].clamp(0, h - chip_size)[:, None] + span
     cols = offsets[:, 0].clamp(0, w - chip_size)[:, None] + span
-    return tile[:, rows[:, :, None], cols[:, None, :]].transpose(0, 1)
+    chips = tile[:, rows[:, :, None], cols[:, None, :]].transpose(0, 1)
+    if uint16:
+        chips = chips.to(torch.int32, memory_format=torch.contiguous_format)
+        chips.bitwise_and_(0xFFFF)
+    return chips
 
 
 def extract_chips(tile: torch.Tensor, coords: Union[np.ndarray, torch.Tensor],
-                  chip_size: int) -> torch.Tensor:
+                  chip_size: int, uint16: bool = False) -> torch.Tensor:
     """Gather chips by chip-grid index: (B, H, W) + (N, 2) xy indices (col,
     row, as ``get_chip_coords`` gives them) -> (N, B, cs, cs)."""
-    return extract_chips_px(tile, np.asarray(coords, np.int64) * chip_size, chip_size)
+    return extract_chips_px(tile, np.asarray(coords, np.int64) * chip_size, chip_size,
+                            uint16)
 
 
 def apply_mask(
@@ -225,11 +242,13 @@ def process_tile_chips(
     n = len(chip_coords)
     chip_coords = np.asarray(chip_coords)
     tile = np.asarray(tile)
-    tile_t = raw_to_device(tile, dev)
-    chips = extract_chips(tile_t, chip_coords, chip_size)
+    tile_t = tile_to_device(tile, dev)
+    chips = extract_chips(tile_t, chip_coords, chip_size, tile.dtype == np.uint16)
     out_dtype = tile.dtype
     if mask_tile is not None and mask_types:
-        masks = extract_chips(raw_to_device(mask_tile, dev), chip_coords, chip_size)
+        mask_tile = np.asarray(mask_tile)
+        masks = extract_chips(tile_to_device(mask_tile, dev), chip_coords, chip_size,
+                              mask_tile.dtype == np.uint16)
         chips = apply_mask(chips, masks, no_data_value, data_source,
                            mask_types, masking_strategy)
         out_dtype = _result_dtype(out_dtype, no_data_value)

@@ -1,14 +1,16 @@
 """Granule-scale inference: whole tiles -> stitched prediction rasters.
 
 Counterpart of ``instageo_tpu/serve/granule.py``. The tile goes to the
-device once, in its own dtype (uint16 as its int16 bit pattern, so a T=3
-HLS tile of 3660² px is 482 MB, not the 965 MB of int32); the host loops
-over chip batches: one indexed read gathers a batch's chips
-(``ops/chip_ops.extract_chips_px``), only they are widened, then the
-preprocess, the forward and the nodata mask run, and slice assignments
-stitch the batch into one device canvas in chip order, so where clamped
-edge chips overlap the later chip wins. The canvas crosses to the host
-once per tile. Chips never touch the host.
+device once, in its own dtype (``ops/chip_ops.tile_to_device``: uint16 as
+its int16 bit pattern, so a T=3 HLS tile of 3660² px is 482 MB, not the
+965 MB of int32); the host loops over chip batches: one indexed read
+gathers a batch's chips (``ops/chip_ops.extract_chips_px``), only they are
+widened, then the preprocess, the forward and the nodata mask run, and
+slice assignments stitch the batch into one device canvas in chip order,
+so where clamped edge chips overlap the later chip wins. As in the JAX
+package, the last batch is padded to ``batch_size`` with copies of the
+first chip, which write nothing, so the forward runs at one shape. The
+canvas crosses to the host once per tile. Chips never touch the host.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from torch import nn
 
 from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
-from instageo_tpu_torch.ops.chip_ops import extract_chips_px
+from instageo_tpu_torch.ops.chip_ops import extract_chips_px, tile_to_device
 from instageo_tpu_torch.ops.preprocess import preprocess_chips
 
 log = logging.getLogger(__name__)
@@ -62,15 +64,6 @@ def chip_grid(h: int, w: int, chip_size: int, overlap: int = 0
     return coords, bounds
 
 
-def _tile_to_device(tile: np.ndarray, device: torch.device) -> Tuple[torch.Tensor, bool]:
-    """The tile on ``device`` in its own width; True where it is uint16 held
-    as int16 and must be widened after the gather."""
-    tile = np.ascontiguousarray(tile)
-    if tile.dtype == np.uint16:
-        return torch.from_numpy(tile.view(np.int16)).to(device), True
-    return torch.from_numpy(tile).to(device), False
-
-
 def granule_inference(
     tile: np.ndarray,
     model: nn.Module,
@@ -95,7 +88,9 @@ def granule_inference(
     (except along tile edges) when stitching, against seams at chip edges.
     ``stats``, if given, receives the chip and batch counts and the
     seconds of the host-to-device copy (host clock, synchronised), of the
-    device loop (CUDA events; None on the CPU) and of the copy back.
+    device loop (CUDA events; None on the CPU), of its first batch (host
+    clock, synchronised: what a process's first forward sets up, a kernel
+    build included, lands there) and of the copy back.
     """
     t0 = time.time()
     _, h, w = tile.shape
@@ -110,9 +105,11 @@ def granule_inference(
     out_dtype = torch.float32 if is_reg_task else torch.int8
     fill = float("nan") if is_reg_task else -1
 
+    n_pad = -(-n // batch_size) * batch_size
     t_copy = time.perf_counter()
-    tile_dev, widen = _tile_to_device(tile, device)
-    coords_dev = torch.from_numpy(coords).to(device)
+    tile_dev = tile_to_device(tile, device)
+    coords_dev = torch.from_numpy(np.concatenate(
+        [coords, np.zeros((n_pad - n, 2), coords.dtype)])).to(device)
     if on_card:
         torch.cuda.synchronize(device)
     h2d_s = time.perf_counter() - t_copy
@@ -120,12 +117,12 @@ def granule_inference(
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
     canvas = torch.zeros((h, w), dtype=out_dtype, device=device)
+    first_batch_s = None
+    t_first = time.perf_counter()
     with torch.inference_mode():
-        for b0 in range(0, n, batch_size):
-            chips = extract_chips_px(tile_dev, coords_dev[b0:b0 + batch_size],
-                                     chip_size).contiguous()
-            if widen:
-                chips = chips.to(torch.int32).bitwise_and_(0xFFFF)
+        for b0 in range(0, n_pad, batch_size):
+            chips = extract_chips_px(tile_dev, coords_dev[b0:b0 + batch_size], chip_size,
+                                     uint16=tile.dtype == np.uint16).contiguous()
             x = preprocess_chips(chips, mean_t, std_t, temporal_size=temporal_size,
                                  bands=bands_t, constant_multiplier=constant_multiplier)
             logits = model(x, channels_last=True)
@@ -136,10 +133,14 @@ def granule_inference(
             preds = (logits[..., 0].float() if is_reg_task
                      else logits.argmax(dim=-1).to(torch.int8))
             preds = torch.where(no_data, fill, preds)
-            for j in range(len(preds)):
+            for j in range(min(batch_size, n - b0)):  # padding chips write nothing
                 cx, cy = (int(v) for v in coords[b0 + j])
                 y0, y1, x0, x1 = (int(v) for v in bounds[b0 + j])
                 canvas[cy + y0:cy + y1, cx + x0:cx + x1] = preds[j, y0:y1, x0:x1]
+            if first_batch_s is None:
+                if on_card:
+                    torch.cuda.synchronize(device)
+                first_batch_s = time.perf_counter() - t_first
     device_s = None
     if on_card:
         end.record()
@@ -150,8 +151,8 @@ def granule_inference(
     d2h_s = time.perf_counter() - t_back
     dt = time.time() - t0
     if stats is not None:
-        stats.update(chips=n, batches=-(-n // batch_size), h2d_s=h2d_s, device_s=device_s,
-                     d2h_s=d2h_s, seconds=dt)
+        stats.update(chips=n, batches=n_pad // batch_size, h2d_s=h2d_s, device_s=device_s,
+                     first_batch_s=first_batch_s, d2h_s=d2h_s, seconds=dt)
     log.info("granule_inference: %d chips in %.2fs (%.1f chips/s)", n, dt,
              n / dt if dt else 0)
     return pred, dt

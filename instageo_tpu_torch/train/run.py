@@ -308,8 +308,9 @@ def _sliding_inference(cfg: Any, model, batch_size: int) -> int:
             stats=stats,
         )
         log.info("granule %s: %d chips in %d batches; decode %.3f s, to the device %.3f s, "
-                 "device %s s, wall %.3f s", key, stats["chips"], stats["batches"], decode_s,
-                 stats["h2d_s"], stats["device_s"], time.perf_counter() - t0)
+                 "device %s s (first batch %.3f s), wall %.3f s", key, stats["chips"],
+                 stats["batches"], decode_s, stats["h2d_s"], stats["device_s"],
+                 stats["first_batch_s"], time.perf_counter() - t0)
         n += 1
     dt = time.time() - start_time
     print(json.dumps({"granules": n, "seconds": dt, "out_dir": out_dir}))

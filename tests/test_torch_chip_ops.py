@@ -59,6 +59,21 @@ def test_extract_chips(dtype):
                 jco.extract_chips_px(jnp.asarray(tile), jnp.asarray(offsets), 4))
 
 
+def test_uint16_tile_stays_narrow_and_widens_chip_by_chip():
+    """A uint16 tile goes to the device as its int16 bit pattern (2 bytes a
+    pixel); the gathered chips widen to int32 with the values the JAX
+    package's chips hold, high bit included."""
+    tile = np.arange(2 * 10 * 12).reshape(2, 10, 12).astype(np.uint16) * 547
+    assert tile.max() > 0x7FFF
+    dev = tco.tile_to_device(tile, torch.device("cpu"))
+    assert dev.dtype == torch.int16 and dev.element_size() == 2
+    offsets = np.asarray([[0, 0], [3, 5], [9, 8], [11, 0]], np.int32)
+    ours = tco.extract_chips_px(dev, offsets, 4, uint16=True)
+    assert ours.dtype == torch.int32 and ours.is_contiguous()
+    ref = jco.extract_chips_px(jnp.asarray(tile), jnp.asarray(offsets), 4)
+    assert_same(ours.numpy().astype(np.uint16), ref)
+
+
 @pytest.mark.parametrize("strategy", ["each", "any"])
 @pytest.mark.parametrize("dtype,fill", [(np.float32, -9.0), (np.int16, 0), (np.int32, -9999),
                                         (np.int16, 0.0)])

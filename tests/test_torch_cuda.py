@@ -608,8 +608,9 @@ def test_process_tile_chips_on_card_equals_cpu(cuda, strategy):
 
 def test_granule_on_card_runs_the_kernel_and_stitches(cuda):
     """``granule_inference`` on the card: one forward launch per block and
-    chip batch, and the canvas is the fused predict on each batch of chips,
-    pasted in chip order, bit for bit; −1 on the nodata corner."""
+    chip batch, and the canvas is the fused predict on each batch of chips
+    (the last padded to the batch size), pasted in chip order, bit for bit;
+    −1 on the nodata corner."""
     from instageo_tpu_torch.models.seg import create_prithvi_seg
     from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
     from instageo_tpu_torch.serve import granule
@@ -625,8 +626,9 @@ def test_granule_on_card_runs_the_kernel_and_stitches(cuda):
     assert tattn.launches.total() == 2 * -(-len(coords) // 5)
     predict = make_fused_predict_fn(model, mean, std)
     expected = np.zeros((80, 100), np.int8)
-    for b0 in range(0, len(coords), 5):
-        raw = np.stack([tile[:, y:y + 32, x:x + 32] for x, y in coords[b0:b0 + 5]])
+    for b0 in range(0, len(coords), 5):  # the last batch padded as the granule path pads it
+        ids = list(coords[b0:b0 + 5]) + [(0, 0)] * max(0, b0 + 5 - len(coords))
+        raw = np.stack([tile[:, y:y + 32, x:x + 32] for x, y in ids])
         out = predict(raw).cpu().numpy()
         out[(raw == 0).all(axis=1)] = -1
         for j, (x, y) in enumerate(coords[b0:b0 + 5]):

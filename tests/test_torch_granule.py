@@ -145,10 +145,18 @@ def test_chip_grid_bounds_and_overlap_error():
         granule.chip_grid(20, 100, 32)
 
 
+def _padded_batch(tile, coords, b0, batch, chip=32):
+    """The chips of one batch as the granule path forms it: the last batch
+    padded to ``batch`` with copies of the chip at (0, 0)."""
+    ids = list(coords[b0:b0 + batch]) + [(0, 0)] * max(0, b0 + batch - len(coords))
+    return np.stack([tile[:, y:y + chip, x:x + chip] for x, y in ids])
+
+
 @pytest.mark.parametrize("batch", [1, 3, 8])
 def test_stitching_matches_per_batch_fused_predict(models, batch):
-    """The canvas is the port's fused predict on each batch of chips, pasted
-    in chip order (later chips win at the clamped edges), bit for bit."""
+    """The canvas is the port's fused predict on each batch of chips, the
+    last batch padded as the granule path pads it, pasted in chip order
+    (later chips win at the clamped edges), bit for bit."""
     _, _, port = models
     tile = np.random.default_rng(1).integers(1, 10000, size=(6, 80, 100)).astype(np.uint16)
     ours, _ = granule.granule_inference(tile, port, MEAN, STD, chip_size=32, batch_size=batch)
@@ -156,11 +164,43 @@ def test_stitching_matches_per_batch_fused_predict(models, batch):
     coords, bounds = granule.chip_grid(80, 100, 32)
     expected = np.zeros((80, 100), np.int8)
     for b0 in range(0, len(coords), batch):
-        raw = np.stack([tile[:, y:y + 32, x:x + 32] for x, y in coords[b0:b0 + batch]])
-        preds = predict(raw).numpy()
+        preds = predict(_padded_batch(tile, coords, b0, batch)).numpy()
         for j, (x, y) in enumerate(coords[b0:b0 + batch]):
             expected[y:y + 32, x:x + 32] = preds[j]
     np.testing.assert_array_equal(ours, expected)
+
+
+@pytest.mark.parametrize("batch", [5, 12, 16])
+def test_granule_pads_the_last_batch(models, batch):
+    """Every forward sees ``batch_size`` chips, as in the JAX package; the
+    padding chips (copies of the chip at (0, 0)) write nothing: a model
+    that marks its padding rows leaves no mark on the canvas, which equals
+    the unpadded run within 1e-5 (float32, other batch shapes)."""
+    _, _, port = models
+    seen = []
+
+    class Marked(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = port
+
+        def forward(self, x, channels_last=True):
+            first = len(seen) * batch  # the index of this batch's first chip
+            seen.append(x.shape[0])
+            out = self.inner(x, channels_last=True).float()
+            out[max(0, n - first):] = -1e4  # the padding rows
+            return out
+
+    tile = np.random.default_rng(2).integers(1, 10000, size=(6, 80, 100)).astype(np.uint16)
+    n = len(granule.chip_grid(80, 100, 32)[0])  # 12 chips
+    stats = {}
+    ours, _ = granule.granule_inference(tile, Marked(), MEAN, STD, chip_size=32,
+                                        batch_size=batch, is_reg_task=True, stats=stats)
+    assert seen == [batch] * -(-n // batch) and stats["batches"] == len(seen)
+    ref, _ = granule.granule_inference(tile, port, MEAN, STD, chip_size=32, batch_size=1,
+                                       is_reg_task=True)
+    assert np.isfinite(ours).all() and (ours > -1e3).all()
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_granule_regression_matches_jax():
