@@ -91,8 +91,21 @@ Phases, one line each (any failure raises and exits non-zero):
     Fmask cloud and shadow masking ``each`` and ``any``, 50,000 points with
     one dense chip): card = CPU bit for bit, also under deterministic mode;
     ms on each;
-12. one JSON line ``{"kernels": [...]}``;
-13. last line: ``{"ok": true, "device": {...}}``.
+12. chip_creator: observations to chips to predictions, as a user runs the
+    data CLIs (in-process, the STAC search answered with items of the
+    granule tile: no network): 20,000 labelled points in EPSG:4326 over the
+    tile through ``instageo_tpu_torch.data.chip_creator`` (HLS, 224 px,
+    cloud masking, three steps 5 days apart that pick the three granules)
+    with ``--device=cuda`` and ``--device=cpu``: every file equal byte for
+    byte, the 16 x 16 grid of 18-band chips, probe chips equal to the
+    tile's masked pixels and their seg maps to the points' labels, no kernel
+    launched; the card run's manifest through ``mode=chip_inference`` (one
+    prediction per chip, 12 forward launches per chip batch, none on
+    mma.sync); ``raster_chip_creator --is_bbox_feature=true`` over a bbox in
+    the tile on both devices, equal; wall, decode and ``process_tile_chips``
+    seconds, peak device memory;
+13. one JSON line ``{"kernels": [...]}``;
+14. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
 ``configs/multitemporal_crop_classification.yaml``.
@@ -2696,6 +2709,322 @@ def chip_ops_phase(device, bands: np.ndarray, fmask: np.ndarray, chip: int = 256
     return {s: out[s]["ms"] for s in ("each", "any")}
 
 
+# The chip creator phase: observations over the granule tile, dated so that
+# the three temporal steps (5 days apart, ±2 days) pick the three granules.
+OBS_POINTS = 20_000
+OBS_DATE = "2023-06-16"
+CHIP_CREATOR_FLAGS = ["--data_source=HLS", "--chip_size=224", "--mask_types=cloud",
+                      "--min_count=1", "--temporal_step=5", "--num_steps=3",
+                      "--temporal_tolerance=2", "--noshift_to_month_start"]
+RASTER_FLAGS = ["--is_bbox_feature=true", "--date=2023-06-11", "--data_source=HLS",
+                "--chip_size=224", "--num_steps=3", "--temporal_step=5",
+                "--temporal_tolerance=2", "--mask_types=cloud"]
+
+
+def _tree(root: str) -> dict:
+    """Every file under ``root``: relative path -> bytes."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def _same_trees(a: str, b: str, what: str, relative_csv: str = "") -> int:
+    """The two output trees hold the same files with the same bytes (the
+    CSV ``relative_csv``, whose paths are absolute, compared with each
+    tree's root taken out). Returns the file count."""
+    ta, tb = _tree(a), _tree(b)
+    check(sorted(ta) == sorted(tb), f"{what}: files differ: "
+          f"{sorted(set(ta) ^ set(tb))[:5]}")
+    for rel in ta:
+        x, y = ta[rel], tb[rel]
+        if rel == relative_csv:
+            x, y = x.replace(a.encode(), b""), y.replace(b.encode(), b"")
+        check(x == y, f"{what}: {rel} differs between the card and the CPU")
+    return len(ta)
+
+
+def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
+                       n_points: int = OBS_POINTS, chip: int = 224, extra=(),
+                       raster_px=(1400, 600, 2500, 1500), seed: int = 12) -> dict:
+    """Observations to chips to predictions on the card, through the entry
+    points a user calls. On the granule tile (T=3 HLS granules of
+    ``size``² px, written again here) with STAC items of them (the search
+    answers with them: no network), an observations CSV of ``n_points``
+    points from ``seed`` in EPSG:4326 with labels 0/1:
+
+    1. ``python -m instageo_tpu_torch.data.chip_creator`` (``main``, in
+       process) with ``CHIP_CREATOR_FLAGS`` on the card, then on the CPU:
+       every file equal byte for byte; the whole grid of ``chip``-px chips
+       written (18 bands, uint16), each chip equal to the tile's pixels in
+       the selected granules' order with the cloud bit's pixels 0, each seg
+       map's singly-labelled pixels equal to the points' labels; the chip
+       creation launches no kernel; wall, decode and ``process_tile_chips``
+       seconds (CUDA events on the card), peak device memory;
+    2. the card run's manifest through the run CLI's ``mode=chip_inference``
+       (crop config, random weights from seed 0 in a checkpoint): one
+       prediction per chip, 12 forward launches per chip batch on wgmma,
+       none on mma.sync;
+    3. ``raster_chip_creator`` with ``--is_bbox_feature=true`` over the bbox of
+       the tile's pixels ``raster_px`` (col0, row0, col1, row1), on the card
+       then on the CPU: the same files (the manifest's absolute paths aside),
+       the grid chips written, wall seconds.
+
+    ``extra``: run-CLI overrides (a CPU rehearsal's tiny model)."""
+    os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
+    import copy
+    import csv
+
+    import torch
+
+    from instageo_tpu_torch.configs.config import load_config_from_argv
+    from instageo_tpu_torch.data import chip_creator, pipeline, raster_chip_creator, stac
+    from instageo_tpu_torch.data.crs import utm_to_latlon
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.data.settings import DATA_PIPELINE_SETTINGS
+    from instageo_tpu_torch.data.sources import hls
+    from instageo_tpu_torch.train import run
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.factory import create_model
+
+    check(DATA_PIPELINE_SETTINGS.COG_DOWNLOAD_RATELIMIT >= 100,
+          f"asset loads limited to {DATA_PIPELINE_SETTINGS.COG_DOWNLOAD_RATELIMIT} a minute")
+    on_card = device.type == "cuda"
+    cpu = torch.device("cpu")
+    clock = Clock("chip_creator")
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    try:
+        json_path, bands, fmask, transform = _write_granule(root, size, block)
+        with open(json_path) as f:
+            granules = next(iter(json.load(f).values()))["granules"]
+        # The items' footprint: the tile's corners in EPSG:4326.
+        x0, y0 = transform * (0, 0)
+        x1, y1 = transform * (size, size)
+        lat, lon = utm_to_latlon(np.asarray([x0, x1, x0, x1]), np.asarray([y0, y0, y1, y1]),
+                                 33, False)
+        for g in granules:
+            g["bbox"] = [float(lon.min()), float(lat.min()), float(lon.max()), float(lat.max())]
+        rng = np.random.default_rng(seed)
+        px = rng.uniform(0, size, (n_points, 2))
+        plat, plon = utm_to_latlon(x0 + px[:, 0] * 30.0, y0 - px[:, 1] * 30.0, 33, False)
+        labels = rng.integers(0, 2, n_points)
+        obs = os.path.join(root, "observations.csv")
+        with open(obs, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["x", "y", "label", "date"])
+            w.writerows((repr(float(a)), repr(float(b)), int(c), OBS_DATE)
+                        for a, b, c in zip(plon, plat, labels))
+        clock.lap(f"wrote the tile and {n_points} observations")
+
+        rec = {}
+        opener, chip_fn = hls.open_hls_stac_items, pipeline.process_tile_chips
+        search_fn, writer = hls.add_hls_stac_items, pipeline.write_geotiff
+
+        def timed(fn, key):
+            def wrapped(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                rec.setdefault(key, []).append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        def timed_chips(*a, **k):
+            on = torch.device(k["device"]).type == "cuda"
+            if on:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            out = chip_fn(*a, **k)
+            if on:
+                end.record()
+                end.synchronize()
+            rec.setdefault("chips_s", []).append(
+                start.elapsed_time(end) / 1e3 if on else time.perf_counter() - t0)
+            return out
+
+        search = lambda self, **kw: [stac.StacItem.from_dict(copy.deepcopy(g))  # noqa: E731
+                                     for g in granules]
+        out, runs = {}, {}
+        with mock.patch.object(stac.StacClient, "search", search), \
+                mock.patch.object(hls, "open_hls_stac_items", timed(opener, "decode_s")), \
+                mock.patch.object(pipeline, "process_tile_chips", timed_chips), \
+                mock.patch.object(pipeline, "write_geotiff", timed(writer, "write_s")), \
+                mock.patch.dict(chip_creator.DATA_SOURCE_CONFIG["HLS"],
+                                add_stac_items_func=timed(search_fn, "stac_s")):
+            for name, dev in (("card", device), ("cpu", cpu)):
+                out[name] = os.path.join(root, f"points_{name}")
+                rec.clear()
+                # --- chip creation: counts from 0, read right after ---------
+                reset_counts()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                chip_creator.main([f"--dataframe_path={obs}", f"--output_directory={out[name]}",
+                                   *CHIP_CREATOR_FLAGS, f"--device={dev.type}"])
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                # ---------------------------------------------------------------
+                check(not any(counts.values()), f"chip creation launched {counts}")
+                check(len(rec.get("decode_s", [])) == 1 and len(rec.get("chips_s", [])) == 1,
+                      f"{name}: tile loads {rec}")
+                runs[name] = dict(wall_s=wall, stac_s=rec["stac_s"][0],
+                                  decode_s=rec["decode_s"][0],
+                                  process_tile_chips_s=rec["chips_s"][0],
+                                  write_s=sum(rec["write_s"]),
+                                  peak_device_bytes=torch.cuda.max_memory_allocated()
+                                  if dev.type == "cuda" else None)
+                clock.lap(f"chip_creator --device={dev.type}")
+            files = _same_trees(out["card"], out["cpu"], "chip_creator")
+            clock.lap("compared")
+
+            # --- what came out -------------------------------------------------
+            side = size // chip
+            with open(os.path.join(out["card"], "hls_dataset.csv"), newline="") as f:
+                manifest = list(csv.DictReader(f))
+            with open(os.path.join(out["card"], "hls_dataset.json")) as f:
+                dataset = json.load(f)
+            order = [list(GRANULE_IDS).index(g["id"]) for g in
+                     next(iter(dataset.values()))["granules"]]
+            check(len(dataset) == 1 and order == [2, 1, 0],
+                  f"granule sets {list(dataset)}: each step must pick its granule")
+            check(len(manifest) == side * side, f"{len(manifest)} chips of a {side}² grid")
+            with open(os.path.join(out["card"], "processed_tiles.json")) as f:
+                check(json.load(f) == list(dataset), "processed_tiles.json")
+            cloud = (fmask[order] // 2) % 2 == 1  # (T, H, W), the chips' step order
+            ref_bands = bands.reshape(3, 6, size, size)[order]
+            pcol, prow = np.floor(px[:, 0]).astype(int), np.floor(px[:, 1]).astype(int)
+            # A point within 1e-6 px of a pixel edge may land on either side
+            # after the trip through EPSG:4326: its cells are not checked.
+            edge = (np.minimum(px % 1, 1 - px % 1) < 1e-6).any(axis=1)
+            unsure = {(r + dr, c + dc) for r, c in zip(prow[edge], pcol[edge])
+                      for dr in (-1, 0, 1) for dc in (-1, 0, 1)}
+            probe = [(0, 0), (side - 1, side - 1), (block[1] // chip, block[0] // chip),
+                     (side // 2, 3)]
+            for cx, cy in probe:
+                name = next(r for r in manifest if r["Input"].endswith(f"_{cx}_{cy}.tif"))
+                with GeoTiffReader(os.path.join(out["card"], name["Input"])) as r:
+                    got = r.read()
+                sl = np.s_[cy * chip:(cy + 1) * chip, cx * chip:(cx + 1) * chip]
+                want = np.where(cloud[:, None][(slice(None), slice(None)) + sl], 0,
+                                ref_bands[(slice(None), slice(None)) + sl]).reshape(18, chip, chip)
+                check(got.dtype == np.uint16 and np.array_equal(got, want),
+                      f"chip ({cx}, {cy}) differs from the tile's masked pixels")
+                with GeoTiffReader(os.path.join(out["card"], name["Label"])) as r:
+                    seg = r.read(1)
+                inside = (pcol // chip == cx) & (prow // chip == cy)
+                cells = {}
+                for rr, cc, lab in zip(prow[inside], pcol[inside], labels[inside]):
+                    cells.setdefault((rr, cc), set()).add(int(lab))
+                single = [((rr - cy * chip, cc - cx * chip), v.pop())
+                          for (rr, cc), v in cells.items() if len(v) == 1 and (rr, cc) not in unsure]
+                has_data = (got != 0).any(axis=0)
+                check(seg.dtype == np.int16 and all(
+                    seg[k] == (v if has_data[k] else -1) for k, v in single),
+                    f"seg map ({cx}, {cy}) differs from the points' labels")
+                check(int((seg != -1).sum()) <= len(cells), f"seg map ({cx}, {cy}) labels "
+                      f"{int((seg != -1).sum())} px for {len(cells)} points")
+            print(f"[chip_creator] {n_points} points, {size}² px tile, T=3: {len(manifest)} "
+                  f"chips of 18x{chip}x{chip} and as many seg maps, {files} files, card = CPU "
+                  f"byte for byte; chips {probe} = the tile's pixels with the cloud bit 0; "
+                  f"launches during chip creation 0", flush=True)
+            for name, r in runs.items():
+                print(f"[chip_creator] --device={'cuda' if name == 'card' else 'cpu'}: wall "
+                      f"{r['wall_s']:.3f} s: STAC search and selection {r['stac_s']:.3f} s, "
+                      f"decode {r['decode_s']:.3f} s, process_tile_chips "
+                      f"{r['process_tile_chips_s']:.3f} s "
+                      f"({'CUDA events' if on_card and name == 'card' else 'host clock'}), GeoTIFF writes "
+                      f"{r['write_s']:.3f} s; peak device memory {r['peak_device_bytes']} B",
+                      flush=True)
+
+            # --- the chain: the manifest through mode=chip_inference -----------
+            base = [f"--config-name={CROP_CONFIG}", f"root_dir={out['card']}",
+                    f"test_filepath={os.path.join(out['card'], 'hls_dataset.csv')}",
+                    "model.load_pretrained_weights=False", "mode=chip_inference", *extra]
+            if not on_card:
+                base.append("device=cpu")
+            cfg = load_config_from_argv(base)
+            model = create_model(cfg, seed=0, device=device)
+            ckpt = BestCheckpointer(os.path.join(root, "run")).save({"model": model.state_dict()})
+            depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
+            batch = int(cfg.train.batch_size)
+            del model
+            # --- one run of the CLI: counts from 0, read right after ----------
+            reset_counts()
+            t0 = time.perf_counter()
+            n = run.main(base + [f"checkpoint_path={ckpt}"])
+            if on_card:
+                torch.cuda.synchronize()
+            infer_wall = time.perf_counter() - t0
+            infer_counts = read_counts()
+            # -------------------------------------------------------------------
+            preds = sorted(os.listdir(os.path.join(out["card"], "predictions")))
+            check(n == len(manifest) == len(preds), f"chip_inference: {n} served, "
+                  f"{len(preds)} predictions for {len(manifest)} chips")
+            for p in preds[:: max(1, len(preds) // 8)]:
+                with GeoTiffReader(os.path.join(out["card"], "predictions", p)) as r:
+                    pred = r.read(1)
+                check(pred.dtype == np.int8 and bool(((pred >= 0) & (pred < classes)).all()),
+                      f"prediction {p}: {pred.dtype}, classes {np.unique(pred)[:8]}")
+            want = {"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
+                    "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+            if on_card:
+                check(infer_counts == want, f"chip_inference launches {infer_counts}, "
+                      f"expected {want}")
+            print(f"[chip_creator] mode=chip_inference over the card run's manifest: {n} "
+                  f"predictions in {infer_wall:.3f} s wall ({n / infer_wall:.2f} chips/s) at "
+                  f"batch {batch}; launches {json.dumps(infer_counts)} ({depth} per chip "
+                  f"batch)", flush=True)
+            clock.lap("chip_inference")
+
+            # --- the raster chip creator over a bbox in the tile ---------------
+            c0, r0, c1, r1 = raster_px
+            bx = x0 + np.asarray([c0, c1, c0, c1]) * 30.0
+            by = y0 - np.asarray([r0, r0, r1, r1]) * 30.0
+            blat, blon = utm_to_latlon(bx, by, 33, False)
+            bbox_path = os.path.join(root, "bounding_boxes.json")
+            with open(bbox_path, "w") as f:
+                json.dump({"bboxes": [[float(blon.min()), float(blat.min()),
+                                       float(blon.max()), float(blat.max())]]}, f)
+            raster = {}
+            for name, dev in (("card", device), ("cpu", cpu)):
+                d = os.path.join(root, f"raster_{name}")
+                reset_counts()
+                t0 = time.perf_counter()
+                raster_chip_creator.main([f"--bbox_feature_path={bbox_path}",
+                                          f"--output_directory={d}", *RASTER_FLAGS,
+                                          f"--device={dev.type}"])
+                raster[name] = dict(dir=d, wall_s=time.perf_counter() - t0)
+                check(not any(read_counts().values()), "raster chip creation launched kernels")
+                clock.lap(f"raster_chip_creator --device={dev.type}")
+        rfiles = _same_trees(raster["card"]["dir"], raster["cpu"]["dir"], "raster_chip_creator",
+                             relative_csv="hls_raster_dataset.csv")
+        with open(os.path.join(raster["card"]["dir"], "hls_raster_dataset.csv"),
+                  newline="") as f:
+            grid = list(csv.DictReader(f))
+        check(len(grid) > 0 and all(os.path.exists(g["Input"]) for g in grid),
+              f"raster manifest {len(grid)} rows")
+        for g in grid[:4]:
+            with GeoTiffReader(g["Input"]) as r:
+                check((r.count, r.height, r.width) == (18, chip, chip)
+                      and r.dtypes[0] == "uint16", f"raster chip {g['Input']}")
+        print(f"[chip_creator] raster_chip_creator --is_bbox_feature=true: {len(grid)} grid "
+              f"chips of 18x{chip}x{chip}, {rfiles} files, card = CPU byte for byte; wall "
+              f"{raster['card']['wall_s']:.3f} s on the card, {raster['cpu']['wall_s']:.3f} s "
+              f"on the CPU", flush=True)
+        return dict(runs=runs, chips=len(manifest), files=files,
+                    chip_inference=dict(chips=n, wall_s=infer_wall, launches=infer_counts,
+                                        batch=batch),
+                    raster=dict(chips=len(grid), files=rfiles,
+                                wall_s={k: v["wall_s"] for k, v in raster.items()}))
+    finally:
+        tmp.cleanup()
+
+
 def _build_native() -> None:
     """Build the native GeoTIFF decoder (``instageo_tpu_torch/native``) and
     say what the machine offers it: zlib's header, zlib's runtime library,
@@ -2819,6 +3148,17 @@ def main() -> int:
     print(f"[chip_ops] {smi}: process_tile_chips " + ", ".join(
         f"{s} {m['device']:.1f} ms on the card, {m['cpu']:.1f} on the CPU"
         for s, m in chip_ms.items()), flush=True)
+    created = chip_creator_phase(device, smi)
+    clock.lap("chip_creator")
+    card, host = created["runs"]["card"], created["runs"]["cpu"]
+    print(f"[chip_creator] {smi}: {created['chips']} chips; wall {card['wall_s']:.3f} s on the "
+          f"card ({host['wall_s']:.3f} on the CPU), decode {card['decode_s']:.3f} s, "
+          f"process_tile_chips {card['process_tile_chips_s']:.3f} s on the card "
+          f"({host['process_tile_chips_s']:.3f} on the CPU), peak "
+          f"{card['peak_device_bytes'] / 2**30:.3f} GiB; chip_inference "
+          f"{created['chip_inference']['wall_s']:.3f} s; raster "
+          f"{created['raster']['chips']} chips in {created['raster']['wall_s']['card']:.3f} s",
+          flush=True)
 
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
@@ -2885,6 +3225,9 @@ def main() -> int:
             k["launches_by_path"][f"granule_batch{b}"] = route(r["launches"])
         k["launches_by_path"][f"granule_overlap{GRANULE_OVERLAP}"] = route(
             granuled["overlap"]["launches"])
+        k["launches_by_path"]["chip_creator"] = 0  # checked: chip creation launches none
+        k["launches_by_path"]["chip_creator_chip_inference"] = route(
+            created["chip_inference"]["launches"])
         for variant, row in models["variants"].items():
             k["launches_by_path"][f"serve_{variant}"] = (
                 row["fwd_launches_per_predict"] - row["mma_sync_launches"]

@@ -6,17 +6,19 @@ HTTP Range requests with a 1 MiB block cache, retries with backoff, and the
 file size from ``Content-Range`` (else a HEAD request). The ``session`` is
 injectable: any object with ``get(url, headers=, timeout=)`` and
 ``head(url, headers=, timeout=)`` returning responses with ``status_code``,
-``headers``, ``content`` and ``raise_for_status()``.
+``headers``, ``content`` and ``raise_for_status()``. ``UrllibSession.post``
+serves the STAC search and the CDSE token requests.
 """
 
 from __future__ import annotations
 
 import http.client
 import io
-import json
+import json as _json
 import logging
 import os
 import urllib.error
+import urllib.parse
 import urllib.request
 from typing import Any, Dict, Optional
 
@@ -52,8 +54,12 @@ class Response:
         if self.status_code >= 400:
             raise HTTPStatusError(self.url, self.status_code)
 
+    @property
+    def text(self) -> str:
+        return self.content.decode("utf-8", "replace")
+
     def json(self) -> Any:
-        return json.loads(self.content)
+        return _json.loads(self.content)
 
 
 class UrllibSession:
@@ -61,15 +67,16 @@ class UrllibSession:
     back as a response, as with ``requests``."""
 
     def _open(self, method: str, url: str, headers: Optional[Dict[str, str]],
-              timeout: Optional[float]) -> Response:
-        req = urllib.request.Request(url, headers=dict(headers or {}), method=method)
+              timeout: Optional[float], data: Optional[bytes] = None) -> Response:
+        req = urllib.request.Request(url, data=data, headers=dict(headers or {}),
+                                     method=method)
         try:
             with urllib.request.urlopen(req, timeout=timeout) as r:
-                body = r.read() if method == "GET" else b""
+                body = r.read() if method != "HEAD" else b""
                 return Response(url, r.status, dict(r.headers.items()), body)
         except urllib.error.HTTPError as e:
             return Response(url, e.code, dict(e.headers.items()) if e.headers else {},
-                            e.read() if method == "GET" else b"")
+                            e.read() if method != "HEAD" else b"")
 
     def get(self, url: str, headers: Optional[Dict[str, str]] = None,
             timeout: Optional[float] = None) -> Response:
@@ -78,6 +85,19 @@ class UrllibSession:
     def head(self, url: str, headers: Optional[Dict[str, str]] = None,
              timeout: Optional[float] = None) -> Response:
         return self._open("HEAD", url, headers, timeout)
+
+    def post(self, url: str, json: Any = None, data: Optional[Dict[str, str]] = None,
+             headers: Optional[Dict[str, str]] = None,
+             timeout: Optional[float] = None) -> Response:
+        """A JSON body (``json``) or a form (``data``), as ``requests.post``."""
+        headers = dict(headers or {})
+        if json is not None:
+            body = _json.dumps(json).encode()
+            headers.setdefault("Content-Type", "application/json")
+        else:
+            body = urllib.parse.urlencode(data or {}).encode()
+            headers.setdefault("Content-Type", "application/x-www-form-urlencoded")
+        return self._open("POST", url, headers, timeout, body)
 
 
 class HttpFile(io.RawIOBase):

@@ -1,20 +1,36 @@
-"""Sentinel-2 L2A granules: Planetary Computer signing, the SCL mask, the opener.
+"""Sentinel-2 L2A source: Microsoft Planetary Computer STAC + SAS signing.
 
-The port's own copy of the opening half of ``instageo_tpu/data/sources/s2.py``
-(the points/raster pipelines wait for ROADMAP item 13). SCL scene classes
-{cloud: [8, 9], water: [6]} drive masking.
+The port's own copy of ``instageo_tpu/data/sources/s2.py``: the STAC search
+and granule selection, the opener, and the points and raster pipelines.
+SCL scene classes {cloud: [8, 9], water: [6]} drive masking.
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from instageo_tpu_torch.data.pipeline import (
+    BaseDataPipeline,
+    BaseRasterPipeline,
+    get_tile_info,
+    with_input_features_date,
+)
 from instageo_tpu_torch.data.remote_io import UrllibSession
-from instageo_tpu_torch.data.settings import BANDS_SETTINGS
-from instageo_tpu_torch.data.stac import parse_datetime, open_stac_items
+from instageo_tpu_torch.data.settings import BANDS_SETTINGS, S2_API
+from instageo_tpu_torch.data.stac import (
+    StacClient,
+    find_best_items,
+    open_stac_items,
+    parse_datetime,
+    retrieve_stac_metadata,
+)
+from instageo_tpu_torch.data.table import Record
+
+log = logging.getLogger(__name__)
 
 _SAS_URL = "https://planetarycomputer.microsoft.com/api/sas/v1/token"
 
@@ -55,6 +71,45 @@ def create_mask_from_scl(scl: np.ndarray, classes) -> np.ndarray:
     return out
 
 
+def get_client() -> StacClient:
+    return StacClient.open(S2_API.URL)
+
+
+def add_s2_stac_items(
+    client: StacClient,
+    data: Sequence[Record],
+    num_steps: int = 3,
+    temporal_step: int = 10,
+    temporal_tolerance: int = 12,
+    temporal_tolerance_minutes: int = 0,
+    cloud_coverage: int = 10,
+    daytime_only: bool = False,
+) -> Dict[str, List[Record]]:
+    """Search + select the best S2 granules per observation."""
+    data = with_input_features_date(data)
+    tiles_info, tile_queries = get_tile_info(
+        data, num_steps=num_steps, temporal_step=temporal_step,
+        temporal_tolerance=temporal_tolerance,
+        temporal_tolerance_minutes=temporal_tolerance_minutes,
+    )
+    data = [{**r, "tile_queries": q} for r, q in zip(data, tile_queries)]
+    tiles_database = retrieve_stac_metadata(
+        client, tiles_info,
+        collections=S2_API.COLLECTIONS,
+        bands_nameplate=BANDS_SETTINGS.NAMEPLATES,
+        cloud_coverage=cloud_coverage,
+        daytime_only=daytime_only,
+    )
+    return find_best_items(
+        data, tiles_database,
+        item_id_field="s2_item_id",
+        candidate_items_field="s2_candidate_items",
+        items_field="s2_items",
+        temporal_tolerance=temporal_tolerance,
+        temporal_tolerance_minutes=temporal_tolerance_minutes,
+    )
+
+
 def open_s2_stac_items(tile_dict: Dict[str, Any], load_masks: bool = True,
                        signer: Optional[MPCSigner] = None
                        ) -> Tuple[np.ndarray, Optional[np.ndarray], Any, int]:
@@ -70,3 +125,39 @@ def open_s2_stac_items(tile_dict: Dict[str, Any], load_masks: bool = True,
         sign_func=signer,
     )
     return bands, masks, transform, crs
+
+
+class S2PointsPipeline(BaseDataPipeline):
+    """Points -> S2 chips + seg maps."""
+
+    @property
+    def data_source(self) -> str:
+        return "S2"
+
+    def load_tile(self, key: str, dataset: Any) -> Optional[Tuple]:
+        tile_dict = dataset[key]
+        try:
+            bands, masks, transform, crs = open_s2_stac_items(
+                tile_dict, load_masks=bool(self.mask_types))
+        except Exception as e:
+            log.error("Failed to load S2 tile %s: %s", key, e)
+            return None
+        granules = tile_dict["granules"]
+        first_id = (granules[0].get("id") if isinstance(granules[0], dict)
+                    else granules[0].id)
+        # e.g. S2B_MSIL2A_20220101T..._T33TUN_... -> S2B_MSIL2A_T33TUN_date
+        splits = first_id.split("_")
+        tile_id = ("_".join([splits[0], splits[1], splits[5], splits[2]])
+                   if len(splits) >= 6 else first_id)
+        return bands, masks, transform, crs, tile_id
+
+
+class S2RasterPipeline(BaseRasterPipeline):
+    """Raster/bbox-grid S2 variant."""
+
+    @property
+    def data_source(self) -> str:
+        return "S2"
+
+    def load_tile(self, key: str, dataset: Any) -> Optional[Tuple]:
+        return S2PointsPipeline.load_tile(self, key, dataset)

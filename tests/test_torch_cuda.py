@@ -25,6 +25,7 @@ path launches the kernel once per block and chip batch and stitches the
 fused predict's output bit for bit.
 """
 
+import json
 import os
 
 import numpy as np
@@ -635,3 +636,64 @@ def test_granule_on_card_runs_the_kernel_and_stitches(cuda):
             expected[y:y + 32, x:x + 32] = out[j]
     np.testing.assert_array_equal(pred, expected)
     assert (pred[:10, :10] == -1).all()
+
+
+def _small_hls_world(root):
+    """One HLS granule of a 64 px tile (six uint16 bands and an Fmask with
+    cloud, shadow and water bits), its STAC item dict, and an observations
+    CSV of 40 seeded points in EPSG:4326."""
+    import pandas as pd
+
+    from instageo_tpu_torch.data.crs import latlon_to_utm, utm_to_latlon
+    from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
+
+    e0, n0, zone, south = latlon_to_utm(43.0, 15.0)
+    ox, oy = float(e0) - 960.0, float(n0) + 960.0
+    tr = Affine.from_origin(ox, oy, 30.0, 30.0)
+    rng = np.random.default_rng(2)
+    assets = {}
+    for b in ("B02", "B03", "B04", "B8A", "B11", "B12", "Fmask"):
+        arr = (rng.choice(np.asarray([0, 0, 2, 8, 32], np.uint16), (64, 64)) if b == "Fmask"
+               else rng.integers(100, 5000, (64, 64)).astype(np.uint16))
+        assets[b] = {"href": os.path.join(root, f"{b}.tif")}
+        write_geotiff(assets[b]["href"], arr[None], transform=tr, crs=32633, nodata=0)
+    lat_a, lon_a = utm_to_latlon(ox, oy - 1920.0, zone, south)
+    lat_b, lon_b = utm_to_latlon(ox + 1920.0, oy, zone, south)
+    item = {"id": "HLS.S30.T33TUN.2022145T100000.v2.0", "collection": "HLSS30_2.0",
+            "bbox": [float(lon_a), float(lat_a), float(lon_b), float(lat_b)],
+            "properties": {"datetime": "2022-05-25T10:00:00Z", "eo:cloud_cover": 5},
+            "assets": assets}
+    px = rng.uniform(0, 64, (40, 2))
+    lat, lon = utm_to_latlon(ox + px[:, 0] * 30.0, oy - px[:, 1] * 30.0, zone, south)
+    path = os.path.join(root, "obs.csv")
+    pd.DataFrame({"x": lon, "y": lat, "label": rng.integers(0, 2, 40),
+                  "date": "2022-05-25"}).to_csv(path, index=False)
+    return item, path
+
+
+def test_chip_creator_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """The point chip creator (HLS, cloud and shadow masking, a 3x3 window)
+    with ``--device=cuda`` writes the same files as with ``--device=cpu``,
+    byte for byte."""
+    from instageo_tpu_torch.data import chip_creator, stac
+    from instageo_tpu_torch.data.sources import hls
+
+    item, obs = _small_hls_world(str(tmp_path))
+    monkeypatch.setattr(stac.StacClient, "search",
+                        lambda self, **kw: [stac.StacItem.from_dict(json.loads(json.dumps(item)))])
+    monkeypatch.setattr(hls, "retrieve_stac_metadata", hls.retrieve_stac_metadata.__wrapped__)
+    monkeypatch.setattr(stac, "_load_asset", stac._load_asset.__wrapped__)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = tmp_path / dev
+        chip_creator.main([f"--dataframe_path={obs}", f"--output_directory={outs[dev]}",
+                           "--data_source=HLS", "--chip_size=32", "--min_count=1",
+                           "--noshift_to_month_start", "--is_time_series_task=false",
+                           "--mask_types=cloud,cloud_shadow", "--window_size=1",
+                           f"--device={dev}"])
+    files = sorted(str(p.relative_to(outs["cpu"])) for p in outs["cpu"].rglob("*") if p.is_file())
+    assert len([f for f in files if f.startswith("chips/")]) == 4
+    assert files == sorted(str(p.relative_to(outs["cuda"])) for p in outs["cuda"].rglob("*")
+                           if p.is_file())
+    for f in files:
+        assert (outs["cuda"] / f).read_bytes() == (outs["cpu"] / f).read_bytes(), f
