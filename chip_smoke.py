@@ -104,8 +104,21 @@ Phases, one line each (any failure raises and exits non-zero):
     mma.sync); ``raster_chip_creator --is_bbox_feature=true`` over a bbox in
     the tile on both devices, equal; wall, decode and ``process_tile_chips``
     seconds, peak device memory;
-13. one JSON line ``{"kernels": [...]}``;
-14. last line: ``{"ok": true, "device": {...}}``.
+13. webapp: the web platform as it is deployed (``webapp_phase``): the
+    port's server in this process with its three spawned queue workers and
+    a job process per stage, on the card; a ``POST /api/run-model`` of the
+    shipped registry's ``crop_classification`` (Prithvi-EO-V2-300M at full
+    width and depth, random weights from seed 0) over a bbox of the granule
+    tile holding its nodata block, polled to ``completed`` (stage seconds,
+    each job process's cold-start parts and launches, peak device memory);
+    visualize, tilejson, previews, statistics and the map's tiles at z
+    10-12 from 8 client threads (p50, p99, tiles/s, each PNG decoded); stages
+    2 and 3 in this process on copies of the chips, with the kernel
+    (launches 24 per chip batch; the COG = the worker-run one bit for bit)
+    and with the plain attention (argmax on decided pixels); ``python -m
+    instageo_tpu_torch.webapp.main`` in a fresh interpreter;
+14. one JSON line ``{"kernels": [...]}``;
+15. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
 ``configs/multitemporal_crop_classification.yaml``.
@@ -156,6 +169,7 @@ KERNEL_SHAPES = [
     (4, 16, 1025, 80, "heads_first", "contiguous"),
     (16, 16, 785, 64, "merged", "contiguous"),
     (4, 16, 1025, 80, "merged", "contiguous"),
+    (8, 16, 589, 64, "merged", "contiguous"),  # the web stage 2's 300M at batch 8
 ]
 # The forward kernels' symbols, by route, as the profiler names them.
 FWD_KERNEL_SYMBOL = {"wgmma": "flash_attn_fwd_sm90_kernel", "mma_sync": "flash_attn_fwd_kernel"}
@@ -2315,6 +2329,23 @@ def _write_granule(root: str, size: int, block, seed: int = 8):
     return path, bands, fmask, transform
 
 
+def top2_gap(model):
+    """``model``'s top-2 logit gap as a one-channel regression output, so the
+    granule and chip paths carry it as they carry predictions."""
+    from torch import nn
+
+    class Top2Gap(nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x, channels_last=True):
+            top2 = self.inner(x, channels_last=True).float().topk(2, dim=-1).values
+            return (top2[..., 0] - top2[..., 1])[..., None]
+
+    return Top2Gap(model)
+
+
 def _sliding_inference_timed(argv) -> dict:
     """``run.main(argv)`` in ``mode=sliding_inference`` with the HLS opener
     and the granule writer timed: the granule count (``done``), decode and
@@ -2399,7 +2430,6 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
     # process by default; raise it before the loaders are imported.
     os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
     import torch
-    from torch import nn
 
     from instageo_tpu_torch.configs.config import load_config_from_argv
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
@@ -2532,22 +2562,10 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
                   f"batch {b}: {p} px" for b, p in stitched.items()), flush=True)
 
         # --- the kernel route against the plain attention -----------------
-        class Top2Gap(nn.Module):
-            """The model's top-2 logit gap as a one-channel regression output,
-            so the granule path stitches it as it stitches predictions."""
-
-            def __init__(self, inner):
-                super().__init__()
-                self.inner = inner
-
-            def forward(self, x, channels_last=True):
-                top2 = self.inner(x, channels_last=True).float().topk(2, dim=-1).values
-                return (top2[..., 0] - top2[..., 1])[..., None]
-
         big = max(batches)
         with plain_attention(model):
             plain, _ = granule.granule_inference(bands, model, mean, std, batch_size=big, **kw)
-            gap, _ = granule.granule_inference(bands, Top2Gap(model), mean, std,
+            gap, _ = granule.granule_inference(bands, top2_gap(model), mean, std,
                                                batch_size=big, is_reg_task=True, **kw)
         decided = gap >= GRANULE_GAP  # NaN (nodata) is not decided
         agreement = {b: float((p == plain)[decided].mean()) for b, p in preds.items()}
@@ -2582,7 +2600,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         with plain_attention(model):
             o_plain, _ = granule.granule_inference(bands, model, mean, std, batch_size=big,
                                                    overlap=overlap, **kw)
-            o_gap, _ = granule.granule_inference(bands, Top2Gap(model), mean, std,
+            o_gap, _ = granule.granule_inference(bands, top2_gap(model), mean, std,
                                                  batch_size=big, overlap=overlap,
                                                  is_reg_task=True, **kw)
         o_decided = o_gap >= GRANULE_GAP
@@ -3025,6 +3043,556 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
         tmp.cleanup()
 
 
+# --- the web platform ----------------------------------------------------------
+WEB_BBOX_PX = (600, 600, 2400, 2400)  # col0, row0, col1, row1: holds the nodata block
+WEB_MODEL = "prithvi_eo_v2_300"       # the shipped registry's crop_classification, base
+WEB_POST = {"model_key": "crop_classification", "date": "2023-06-11", "temporal_step": 5,
+            "temporal_tolerance": 2, "parameters": {"mask_types": ["cloud"]}}
+WEB_ZOOMS = (10, 11, 12)
+WEB_CLIENTS = 8
+WEB_TASK_TIMEOUT_S = 480.0
+# Read by this script when the web phase's workers and job processes import
+# it (as ``__mp_main__``, the spawn start method's name for the parent's
+# main module): the STAC items the search answers with, and where each job
+# process writes its record.
+STAC_ITEMS_ENV = "INSTAGEO_SMOKE_STAC_ITEMS"
+JOB_RECORDS_ENV = "INSTAGEO_SMOKE_JOB_RECORDS"
+
+
+def _install_webapp_hooks() -> None:
+    """In a process that the web phase's queue workers spawn: the STAC search
+    answers with the phase's items (no network), and each job records, in
+    ``$INSTAGEO_SMOKE_JOB_RECORDS/<job id>.json``, when this hook ran, the
+    seconds of ``import torch``, of the CUDA context and (the model stage) of
+    ``import torch._dynamo``, which the job pays anyway, timed here one
+    after the other before it runs, then the job's seconds and the
+    process's kernel launches."""
+    hook_at = time.time()
+    import copy
+
+    from instageo_tpu_torch.data import stac
+    from instageo_tpu_torch.webapp import queue
+
+    with open(os.environ[STAC_ITEMS_ENV]) as f:
+        items = json.load(f)
+    stac.StacClient.search = lambda self, **kw: [stac.StacItem.from_dict(copy.deepcopy(g))
+                                                 for g in items]
+    run_job = queue.run_job
+
+    def recorded(job, db_path=None):
+        func = job["func"].split(":")[1]
+        rec = dict(func=func, hook_at=hook_at)
+        if func != "process_visualization_preparation_with_task":
+            t0 = time.perf_counter()
+            import torch
+            rec["import_torch_s"] = time.perf_counter() - t0
+            if os.environ.get("INSTAGEO_DEVICE", "cuda") == "cuda":
+                t0 = time.perf_counter()
+                torch.cuda.init()
+                torch.empty(1, device="cuda")
+                torch.cuda.synchronize()
+                rec["cuda_context_s"] = time.perf_counter() - t0
+        if func == "process_model_prediction_with_task":
+            t0 = time.perf_counter()
+            import torch._dynamo  # noqa: F401
+            rec["dynamo_import_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok = run_job(job, db_path)
+        rec.update(job_s=time.perf_counter() - t0, ok=ok)
+        if "instageo_tpu_torch.ops.attention" in sys.modules:
+            rec["launches"] = read_counts()
+        path = os.path.join(os.environ[JOB_RECORDS_ENV], f"{job['job_id']}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+        return ok
+
+    queue.run_job = recorded
+
+
+if __name__ == "__mp_main__" and os.environ.get(STAC_ITEMS_ENV):
+    _install_webapp_hooks()
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """A PNG file's pixels, (H, W, 4) uint8, for 8-bit RGBA non-interlaced
+    images with filter type 0 on every scanline (what `webapp/png.py`
+    writes): the signature, every chunk's CRC, the IHDR and the zlib stream
+    of the IDAT chunks. Any other filter type fails the check."""
+    import struct
+    import zlib
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG signature")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(zlib.crc32(kind + body) & 0xFFFFFFFF == crc, f"PNG {kind!r} chunk CRC")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    check(header is not None and header[2:] == (8, 6, 0, 0, 0), f"PNG header {header}")
+    w, h = header[:2]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    check(raw.size == h * (1 + 4 * w), f"PNG data {raw.size} B for {w}x{h}")
+    rows = raw.reshape(h, 1 + 4 * w)
+    filters = set(rows[:, 0].tolist())
+    check(filters == {0}, f"PNG filter types {sorted(filters)}, the writer uses 0 only")
+    return rows[:, 1:].reshape(h, w, 4).copy()
+
+
+def _http(base: str, path: str, body=None, timeout: float = 120.0):
+    """(status, content type, body bytes, ms) of one request to the server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method="POST" if data else "GET",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            out = (r.status, r.headers["Content-Type"], r.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.headers["Content-Type"], e.read())
+    return (*out, (time.perf_counter() - t0) * 1e3)
+
+
+def _get_json(base: str, path: str, status: int = 200):
+    code, _, body, _ = _http(base, path)
+    check(code == status, f"GET {path}: {code} {body[:300]!r}")
+    return json.loads(body)
+
+
+def _xyz(lon: float, lat: float, z: int):
+    return (int((lon + 180) / 360 * 2 ** z),
+            int((1 - math.asinh(math.tan(math.radians(lat))) / math.pi) / 2 * 2 ** z))
+
+
+def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
+                 bbox_px=WEB_BBOX_PX, overrides=None, zooms=WEB_ZOOMS) -> dict:
+    """The web platform as it is deployed, on the granule tile (written again
+    here, its STAC items the search's answer in every process): the port's
+    server (``create_app(start_workers=True)``) on a free localhost port in
+    this process, its three spawned queue workers, an isolated job process
+    per stage, all on ``INSTAGEO_DEVICE`` (``cuda`` on the card), auth off;
+    this process talks to it over HTTP only, as the SPA does.
+
+    1. With auth on, a request without a token is answered 401.
+    2. ``POST /api/run-model`` of ``crop_classification`` (the shipped
+       registry; ``base`` is ``WEB_MODEL``, its config the crop yaml with that
+       model, random weights from seed 0) over the tile's pixels ``bbox_px``,
+       three steps 5 days apart from 2023-06-11 that pick the three granules;
+       ``/api/task/{id}`` polled until ``completed``. Reported: each stage's
+       seconds from the task record, each job's seconds and what its process
+       paid before the job (``_install_webapp_hooks``), the launches in each
+       job process (24 per chip batch in stage 2), peak device memory per
+       stage, the wall from the POST.
+    3. ``/api/visualize``, then for both layers ``tilejson``, ``preview.png``
+       and ``statistics``; every z in ``zooms`` tile over the bbox for both
+       layers, fetched twice by ``WEB_CLIENTS`` client threads: each a 256 px
+       RGBA PNG (``read_png``); count, p50 and p99 ms, tiles/s.
+    4. In this process, stage 2 and 3 through ``queue.drain`` on copies of the
+       task's chips, with the kernels (launches counted from 0 just before,
+       read just after: 24 x the chip batches on wgmma, none on mma.sync) and
+       with the plain attention: the kernel run's predictions COG equals the
+       worker-run one bit for bit; kernel and plain argmax agree on at least
+       ARGMAX_AGREEMENT of decided pixels (plain top-2 gap at least
+       GRANULE_GAP, nodata inputs not decided) and mark the same pixels −1.
+    5. ``python -m instageo_tpu_torch.webapp.main`` in a fresh interpreter
+       answers ``/api/health`` and ``/api/models``, and stops on SIGTERM.
+
+    ``overrides``: config overrides of the model (a CPU rehearsal's tiny one).
+    """
+    import csv
+    import shutil
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from instageo_tpu_torch.configs.config import load_config, save_config
+    from instageo_tpu_torch.data.crs import utm_to_latlon
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.factory import create_model
+
+    on_card = device.type == "cuda"
+    clock = Clock("webapp")
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    saved_env = dict(os.environ)
+    server = None
+    try:
+        # --- the tile, its items, the model in a models directory ------------
+        _, bands, _, transform = _write_granule(root, size, block)
+        with open(os.path.join(root, "hls_dataset.json")) as f:
+            granules = next(iter(json.load(f).values()))["granules"]
+        x0, y0 = transform * (0, 0)
+        x1, y1 = transform * (size, size)
+        lat, lon = utm_to_latlon(np.asarray([x0, x1, x0, x1]), np.asarray([y0, y0, y1, y1]),
+                                 33, False)
+        for g in granules:
+            g["bbox"] = [float(lon.min()), float(lat.min()), float(lon.max()), float(lat.max())]
+        items_path = os.path.join(root, "stac_items.json")
+        with open(items_path, "w") as f:
+            json.dump(granules, f)
+        c0, r0, c1, r1 = bbox_px
+        blat, blon = utm_to_latlon(x0 + np.asarray([c0, c1, c0, c1]) * 30.0,
+                                   y0 - np.asarray([r0, r0, r1, r1]) * 30.0, 33, False)
+        bbox = [float(blon.min()), float(blat.min()), float(blon.max()), float(blat.max())]
+        run_dir = os.path.join(root, "models", "crop_classification", "base")
+        cfg = load_config(CROP_CONFIG, overrides={
+            "model.model_name": WEB_MODEL, "model.load_pretrained_weights": False,
+            **(overrides or {})})
+        save_config(cfg, run_dir)
+        model = create_model(cfg, seed=0, device=device)
+        BestCheckpointer(run_dir).save({"model": model.state_dict()})
+        depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
+        batch, dl = int(cfg.train.batch_size), cfg.dataloader
+        del model
+        records = os.path.join(root, "job_records")
+        os.makedirs(records)
+        os.environ.update({
+            "TASKS_DATA_DIR": os.path.join(root, "tasks"),
+            "DATABASE_URL": os.path.join(root, "backend.sqlite"),
+            "MODELS_PATH": os.path.join(root, "models"), "AUTH_DISABLED": "true",
+            "TESTING": "true", "INSTAGEO_DEVICE": device.type,
+            "INSTAGEO_COG_RATELIMIT": "1000", STAC_ITEMS_ENV: items_path,
+            JOB_RECORDS_ENV: records})
+        os.makedirs(os.environ["TASKS_DATA_DIR"])
+        os.environ.pop("MODELS_REGISTRY_PATH", None)
+        from instageo_tpu_torch.webapp import queue, web
+        from instageo_tpu_torch.webapp.main import create_app
+        from instageo_tpu_torch.webapp.settings import settings
+        from instageo_tpu_torch.webapp.tasks import Task
+
+        check(settings.DEVICE == device.type and settings.AUTH_DISABLED,
+              f"settings {settings}")
+        clock.lap("wrote the tile, its items and the model")
+
+        # --- the server and its workers ---------------------------------------
+        t0 = time.perf_counter()
+        app = create_app(start_workers=True)
+        server = web.AppServer(app, "127.0.0.1", 0)
+        base = f"http://127.0.0.1:{server.port}"
+        health = _get_json(base, "/api/health")
+        check(health["status"] == "healthy" and health["workers"]["count"] == 3,
+              f"health {health}")
+        settings.AUTH_DISABLED = False
+        try:
+            code, _, body, _ = _http(base, "/api/tasks")
+        finally:
+            settings.AUTH_DISABLED = True
+        check(code == 401 and json.loads(body) == {"detail": "Missing bearer token"},
+              f"auth on, no token: {code} {body!r}")
+        models = [m["model_key"] for m in _get_json(base, "/api/models")["models"]]
+        check("crop_classification" in models, f"models {models}")
+        server_s = time.perf_counter() - t0
+        clock.lap("server up")
+
+        # --- one task through the three stages ---------------------------------
+        post = dict(WEB_POST, bboxes=[bbox])
+        t_post = time.time()
+        code, _, body, post_ms = _http(base, "/api/run-model", post)
+        check(code == 202, f"POST /api/run-model: {code} {body!r}")
+        task_id = json.loads(body)["task_id"]
+        while True:
+            task = _get_json(base, f"/api/task/{task_id}")
+            if task["status"] in ("completed", "failed"):
+                break
+            check(time.time() - t_post < WEB_TASK_TIMEOUT_S,
+                  f"task still {task['status']} after {WEB_TASK_TIMEOUT_S} s")
+            time.sleep(0.25)
+        wall = time.time() - t_post
+        check(task["status"] == "completed", f"task failed: {json.dumps(task['stages'])}")
+        stages = {s: task["stages"][s]["finished_at"] - task["stages"][s]["started_at"]
+                  for s in ("data_processing", "model_prediction", "visualization_preparation")}
+        jobs = {j["func"].split(":")[1]: j for j in _get_json(base, "/api/jobs")["jobs"]
+                if j["task_id"] == task_id}
+        check(len(jobs) == 3 and all(j["status"] == "finished" for j in jobs.values()),
+              f"jobs {[(k, j['status']) for k, j in jobs.items()]}")
+        parts = {}
+        for func, j in jobs.items():
+            with open(os.path.join(records, f"{j['job_id']}.json")) as f:
+                rec = json.load(f)
+            rec["spawn_s"] = rec.pop("hook_at") - j["started_at"]
+            rec["peak_device_bytes"] = json.loads(j["result"]).get("peak_device_bytes")
+            parts[func] = rec
+        task_dir = os.path.join(os.environ["TASKS_DATA_DIR"], task_id)
+        with open(os.path.join(task_dir, "hls_raster_dataset.csv"), newline="") as f:
+            manifest = [r["Input"] for r in csv.DictReader(f)]
+        n = len(manifest)
+        check(n > 0 and sorted(manifest) == sorted(
+            "chips/" + c for c in os.listdir(os.path.join(task_dir, "chips"))),
+            f"manifest of {n} chips")
+        check(len(os.listdir(os.path.join(task_dir, "predictions"))) == n,
+              "one prediction per chip")
+        stage2 = parts["process_model_prediction_with_task"]
+        want = {"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
+                "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+        if on_card:
+            check(stage2.get("launches") == want,
+                  f"stage 2 in its job process launched {stage2.get('launches')}, expected {want}")
+        print(f"[webapp] POST /api/run-model ({post_ms:.1f} ms): {n} grid chips of 18x"
+              f"{dl.img_size}x{dl.img_size} over the tile's pixels {bbox_px}, completed in "
+              f"{wall:.3f} s wall; stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+              + "; stage 2's job process launched " + json.dumps(stage2.get("launches"))
+              + f" ({depth} per chip batch of {batch})", flush=True)
+        for func, rec in parts.items():
+            cold = ", ".join(f"{what} {rec[key]:.3f} s" for key, what in (
+                ("import_torch_s", "import torch"), ("cuda_context_s", "CUDA context"),
+                ("dynamo_import_s", "import torch._dynamo")) if key in rec)
+            print(f"[webapp] {func} job process: spawn to job {rec['spawn_s']:.3f} s"
+                  f"{', ' + cold if cold else ''}, the job {rec['job_s']:.3f} s; peak device "
+                  f"memory {rec['peak_device_bytes']} B", flush=True)
+        clock.lap("task")
+
+        # --- what the map reads -----------------------------------------------
+        viz = _get_json(base, f"/api/visualize/{task_id}")
+        check(sorted(viz["layers"]) == ["chips", "predictions"], f"layers {viz}")
+        layers = {}
+        for layer in ("chips", "predictions"):
+            urls = viz["layers"][layer]
+            tj = _get_json(base, urls["tilejson"])
+            b = tj["bounds"]
+            check(b[0] <= bbox[0] + 0.01 and b[2] >= bbox[2] - 0.01 and b[1] <= bbox[1] + 0.01
+                  and b[3] >= bbox[3] - 0.01, f"{layer} tilejson bounds {b} vs the bbox {bbox}")
+            code, ctype, png, ms = _http(base, urls["preview"])
+            check(code == 200 and ctype == "image/png", f"{layer} preview {code}")
+            preview = read_png(png)
+            check(max(preview.shape[:2]) <= 512 and (preview[..., 3] > 0).any(),
+                  f"{layer} preview {preview.shape}")
+            stats = _get_json(base, urls["statistics"])
+            if layer == "predictions":
+                check(0 <= stats["b1"]["min"] and stats["b1"]["max"] < classes,
+                      f"predictions statistics {stats}")
+            else:
+                check(sorted(stats) == ["b1", "b2", "b3"], f"chips statistics {stats}")
+            layers[layer] = dict(bounds=b, preview_shape=list(preview.shape), preview_ms=ms,
+                                 statistics=stats)
+        tiles = [(layer, z, x, y) for layer in ("chips", "predictions") for z in zooms
+                 for x in range(_xyz(bbox[0], 0, z)[0], _xyz(bbox[2], 0, z)[0] + 1)
+                 for y in range(_xyz(0, bbox[3], z)[1], _xyz(0, bbox[1], z)[1] + 1)]
+
+        def fetch(t):
+            layer, z, x, y = t
+            code, ctype, png, ms = _http(base, f"/api/titiler/{task_id}/{layer}/tiles/"
+                                               f"{z}/{x}/{y}.png")
+            check(code == 200 and ctype == "image/png", f"tile {t}: {code}")
+            px = read_png(png)
+            check(px.shape == (256, 256, 4), f"tile {t}: {px.shape}")
+            return ms, int((px[..., 3] > 0).sum())
+
+        tile_runs = {}
+        for name in ("cold", "warm"):
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(WEB_CLIENTS) as pool:
+                got = list(pool.map(fetch, tiles))
+            dt = time.perf_counter() - t0
+            ms = np.asarray([g[0] for g in got])
+            check(sum(g[1] for g in got) > 0, "every tile transparent")
+            tile_runs[name] = dict(tiles=len(tiles), p50_ms=float(np.percentile(ms, 50)),
+                                   p99_ms=float(np.percentile(ms, 99)), tiles_per_s=len(tiles) / dt,
+                                   seconds=dt)
+            print(f"[webapp] map tiles ({name}): {len(tiles)} tiles of z {list(zooms)} over the "
+                  f"bbox, both layers, {WEB_CLIENTS} client threads: p50 "
+                  f"{tile_runs[name]['p50_ms']:.3f} ms, p99 {tile_runs[name]['p99_ms']:.3f} ms, "
+                  f"{tile_runs[name]['tiles_per_s']:.2f} tiles/s; every tile a 256 px RGBA PNG",
+                  flush=True)
+        # The same tiles rendered in this process, one thread, no HTTP: the
+        # render's own share of a request.
+        tilers = {layer: app["tiler"].get_tiler(task_id, layer) for layer in layers}
+        render_ms = {}
+        for layer, z, x, y in tiles:
+            t0 = time.perf_counter()
+            tilers[layer].render_tile(z, x, y, mode="classes" if layer == "predictions" else "rgb")
+            render_ms.setdefault(layer, []).append((time.perf_counter() - t0) * 1e3)
+        tile_runs["render_ms"] = {k: dict(p50=float(np.percentile(v, 50)),
+                                          p99=float(np.percentile(v, 99)), total=float(sum(v)))
+                                  for k, v in render_ms.items()}
+        print(f"[webapp] the same tiles rendered in this process, one thread, no HTTP: " + ", ".join(
+            f"{k} p50 {v['p50']:.3f} ms, p99 {v['p99']:.3f} ms"
+            for k, v in tile_runs["render_ms"].items())
+            + f"; {len(os.sched_getaffinity(0))} CPUs for this process", flush=True)
+        clock.lap("map")
+
+        # --- stage 2 in this process: the kernel against the plain attention ---
+        from instageo_tpu_torch.train import factory
+
+        inproc_db = os.path.join(root, "inproc.sqlite")
+        make_model = factory.create_model
+
+        def plain_model(*a, **k):
+            m = make_model(*a, **k)
+            for blk in m.prithvi_encoder.blocks:
+                blk.attn.attn_impl = "plain"
+            return m
+
+        def read_cog(path):
+            with GeoTiffReader(path) as r:
+                return r.read(1)
+
+        inproc = {}
+        for name in ("kernel", "plain"):
+            t = Task(bboxes=[bbox], parameters=task["parameters"], model_key=task["model_key"],
+                     model_size=task["model_size"], db_path=inproc_db)
+            os.makedirs(t.data_dir)
+            shutil.copytree(os.path.join(task_dir, "chips"), os.path.join(t.data_dir, "chips"))
+            shutil.copy(os.path.join(task_dir, "hls_raster_dataset.csv"), t.data_dir)
+            t.save()
+            with mock.patch.object(factory, "create_model",
+                                   make_model if name == "kernel" else plain_model):
+                t.start_model_prediction()
+                # --- stages 2 and 3: counts from 0, read right after ------------
+                reset_counts()
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                done = queue.drain(db_path=inproc_db)
+                if on_card:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = read_counts()
+                # -----------------------------------------------------------------
+            check(done == 2 and Task.load(t.task_id, inproc_db).status == "completed",
+                  f"in-process {name} run: {done} jobs, {Task.load(t.task_id, inproc_db).stages}")
+            inproc[name] = dict(seconds=seconds, launches=counts, task_id=t.task_id,
+                                pred=read_cog(os.path.join(t.data_dir,
+                                                           f"{t.task_id}_predictions.tif")),
+                                peak_device_bytes=torch.cuda.max_memory_allocated()
+                                if on_card else None)
+        if on_card:
+            check(inproc["kernel"]["launches"] == want,
+                  f"in-process stage 2 launched {inproc['kernel']['launches']}, expected {want}")
+        check(not any(inproc["plain"]["launches"].values()),
+              f"the plain run launched {inproc['plain']['launches']}")
+        worker_pred = read_cog(os.path.join(task_dir, f"{task_id}_predictions.tif"))
+        check(np.array_equal(inproc["kernel"]["pred"], worker_pred),
+              "the in-process predictions COG differs from the worker-run one")
+        # Decided pixels: the plain top-2 gap, chip by chip as stage 2 runs.
+        from instageo_tpu_torch.configs.config import merge
+        from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
+        from instageo_tpu_torch.serve.server import ModelServer
+
+        gcfg = merge(cfg, {"checkpoint_path": os.path.join(run_dir, "instageo_best_checkpoint"),
+                           "device": device.type})
+        gmodel = ModelServer(gcfg).model
+        gap_fn = make_fused_predict_fn(top2_gap(gmodel), list(dl.mean), list(dl.std),
+                                       temporal_size=int(dl.temporal_dim), bands=list(dl.bands),
+                                       constant_multiplier=float(dl.constant_multiplier),
+                                       is_reg_task=True, img_size=int(dl.img_size))
+        same = decided = 0
+        plain_dir = os.path.join(os.environ["TASKS_DATA_DIR"], inproc["plain"]["task_id"])
+        kern_dir = os.path.join(os.environ["TASKS_DATA_DIR"], inproc["kernel"]["task_id"])
+        with plain_attention(gmodel):
+            for i in range(0, n, batch):
+                paths = manifest[i:i + batch]
+                raw = []
+                for p in paths:
+                    with GeoTiffReader(os.path.join(task_dir, p)) as r:
+                        raw.append(r.read())
+                raw = np.stack(raw)
+                gap = gap_fn(raw).float().cpu().numpy()
+                ok = (gap >= GRANULE_GAP) & ~(raw == 0).all(axis=1)
+                for j, p in enumerate(paths):
+                    name = os.path.basename(p).replace("chip", "prediction")
+                    k = read_cog(os.path.join(kern_dir, "predictions", name))
+                    q = read_cog(os.path.join(plain_dir, "predictions", name))
+                    same += int((k == q)[ok[j]].sum())
+                    decided += int(ok[j].sum())
+        del gmodel
+        agreement = same / max(decided, 1)
+        kp, pp = inproc["kernel"]["pred"], inproc["plain"]["pred"]
+        check(np.array_equal(kp == -1, pp == -1), "kernel and plain mark different pixels -1")
+        check(decided > 0 and agreement >= ARGMAX_AGREEMENT,
+              f"kernel vs plain argmax agreement {agreement} on {decided} decided pixels")
+        nodata_px = int((kp == -1).sum())
+        print(f"[webapp] stages 2 and 3 in this process on copies of the task's {n} chips: "
+              f"kernel {inproc['kernel']['seconds']:.3f} s, launches "
+              f"{json.dumps(inproc['kernel']['launches'])}; plain attention "
+              f"{inproc['plain']['seconds']:.3f} s, launches "
+              f"{json.dumps(inproc['plain']['launches'])}; the kernel run's predictions COG = "
+              f"the worker-run one bit for bit; kernel vs plain argmax agreement "
+              f"{agreement:.6f} (>= {ARGMAX_AGREEMENT}) on {decided} decided pixels (plain "
+              f"top-2 gap >= {GRANULE_GAP}, nodata inputs out), {nodata_px} px -1 in both; "
+              f"peak device memory {inproc['kernel']['peak_device_bytes']} B", flush=True)
+        clock.lap("in-process stages, kernel vs plain")
+
+        # --- a fresh interpreter ------------------------------------------------
+        # PORT=0: the server binds a free port and logs it ("Serving on ...").
+        env = {k: v for k, v in os.environ.items() if k not in (STAC_ITEMS_ENV, JOB_RECORDS_ENV)}
+        env.update(PORT="0", DATABASE_URL=os.path.join(root, "fresh.sqlite"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "instageo_tpu_torch.webapp.main"],
+                                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                                errors="replace")
+        err_lines, bound = [], {}
+        serving = threading.Event()
+
+        def read_stderr():
+            for line in proc.stderr:
+                err_lines.append(line)
+                if "Serving on http://" in line and not serving.is_set():
+                    bound["port"] = int(line.rsplit(":", 1)[1])
+                    serving.set()
+
+        reader = threading.Thread(target=read_stderr, daemon=True)
+        reader.start()
+        try:
+            check(serving.wait(60), "python -m instageo_tpu_torch.webapp.main logged no port "
+                  f"in 60 s: {''.join(err_lines)[-2000:]}")
+            fresh_base = f"http://127.0.0.1:{bound['port']}"
+            fresh = _get_json(fresh_base, "/api/health")
+            first_answer_s = time.perf_counter() - t0
+            check(fresh["status"] == "healthy",
+                  f"python -m instageo_tpu_torch.webapp.main: {fresh}")
+            fresh_models = _get_json(fresh_base, "/api/models")["models"]
+            check(len(fresh_models) >= 2, f"fresh interpreter models {fresh_models}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            reader.join(timeout=10)
+        err = "".join(err_lines)
+        check(rc == 0 and "Traceback" not in err, f"webapp.main exit {rc}: {err[-2000:]}")
+        print(f"[webapp] python -m instageo_tpu_torch.webapp.main in a fresh interpreter: "
+              f"/api/health answered {first_answer_s:.3f} s after the start "
+              f"({fresh['workers']['count']} workers), /api/models "
+              f"{len(fresh_models)} models; stopped on SIGTERM, exit 0", flush=True)
+        # What a bare interpreter pays for the imports each stage's process pays.
+        bare = json.loads(subprocess.run(
+            [sys.executable, "-c", "import json, time; t = time.perf_counter(); import torch; "
+             "a = time.perf_counter(); import torch._dynamo; "
+             "print(json.dumps([a - t, time.perf_counter() - a]))"],
+            capture_output=True, text=True, check=True, timeout=300).stdout)
+        print(f"[webapp] a bare interpreter: import torch {bare[0]:.3f} s, import "
+              f"torch._dynamo {bare[1]:.3f} s", flush=True)
+        clock.lap("fresh interpreter")
+        return dict(chips=n, wall_s=wall, stages_s=stages, jobs=parts, server_s=server_s,
+                    layers=layers, tiles=tile_runs, launches=inproc["kernel"]["launches"],
+                    worker_launches=stage2.get("launches"),
+                    inproc_s={k: v["seconds"] for k, v in inproc.items()},
+                    inproc_peak_device_bytes=inproc["kernel"]["peak_device_bytes"],
+                    agreement=agreement, decided=decided, fresh_s=first_answer_s,
+                    bare_import_s=dict(torch=bare[0], dynamo=bare[1]))
+    finally:
+        if server is not None:
+            server.close()
+        os.environ.clear()
+        os.environ.update(saved_env)
+        tmp.cleanup()
+
+
 def _build_native() -> None:
     """Build the native GeoTIFF decoder (``instageo_tpu_torch/native``) and
     say what the machine offers it: zlib's header, zlib's runtime library,
@@ -3159,6 +3727,14 @@ def main() -> int:
           f"{created['chip_inference']['wall_s']:.3f} s; raster "
           f"{created['raster']['chips']} chips in {created['raster']['wall_s']['card']:.3f} s",
           flush=True)
+    web = webapp_phase(device, smi)
+    clock.lap("webapp")
+    print(f"[webapp] {smi}: {web['chips']} chips, POST to completed {web['wall_s']:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in web["stages_s"].items()) + "); map tiles "
+          + ", ".join(f"{k}: p50 {web['tiles'][k]['p50_ms']:.3f} ms, p99 "
+                      f"{web['tiles'][k]['p99_ms']:.3f} ms, {web['tiles'][k]['tiles_per_s']:.2f} "
+                      "tiles/s" for k in ("cold", "warm"))
+          + f"; in-process stage 2 + 3 {web['inproc_s']['kernel']:.3f} s", flush=True)
 
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
@@ -3228,6 +3804,8 @@ def main() -> int:
         k["launches_by_path"]["chip_creator"] = 0  # checked: chip creation launches none
         k["launches_by_path"]["chip_creator_chip_inference"] = route(
             created["chip_inference"]["launches"])
+        k["launches_by_path"]["webapp"] = route(web["launches"])
+        k["launches_by_path"]["webapp_job_process"] = route(web["worker_launches"])
         for variant, row in models["variants"].items():
             k["launches_by_path"][f"serve_{variant}"] = (
                 row["fwd_launches_per_predict"] - row["mma_sync_launches"]

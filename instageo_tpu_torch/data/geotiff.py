@@ -2,14 +2,15 @@
 
 The port's own copy of the reader and writer in
 ``instageo_tpu/data/geotiff.py`` (``Affine``, ``GeoTiffReader``,
-``write_geotiff`` and their helpers; ``write_cog`` is not copied):
+``write_geotiff``, ``write_cog`` and their helpers):
 
 * **Reader**: baseline TIFF, striped and tiled, chunky and planar,
   uint8/int8/uint16/int16/int32/uint32/float32/float64 samples, compressions
   none (1), LZW (5), deflate (8/32946), PackBits (32773), horizontal
   predictor (2), GeoTIFF georeferencing tags, GDAL nodata tag.
 * **Writer**: striped or tiled chunky GeoTIFFs, deflate/LZW/none, GeoTIFF
-  tags (pixel scale + tiepoint + EPSG geokeys), GDAL nodata.
+  tags (pixel scale + tiepoint + EPSG geokeys), GDAL nodata; Cloud-Optimized
+  GeoTIFFs (tiles plus a 2x overview pyramid, one IFD per level).
 
 The surface mirrors the slice of rasterio the reference uses (``read()``
 returning (bands, rows, cols), ``Affine``-style transforms).
@@ -610,12 +611,14 @@ def _serialize_ifd(
     compress: str,
     base_offset: int,
     predictor: bool = False,
+    is_overview: bool = False,
 ) -> Tuple[bytes, bytes, List[bytes], int]:
     """Build one IFD's (entries+ext, blocks).
 
     Returns (ifd_bytes_without_next, ext_bytes, blocks, data_size). The
     caller appends the next-IFD pointer. ``base_offset`` is where this IFD
-    starts in the file.
+    starts in the file. An overview IFD is marked reduced-resolution and
+    carries no georeferencing or nodata tags.
     """
     s, h, w = array.shape
     arr = np.ascontiguousarray(array.transpose(1, 2, 0))
@@ -672,6 +675,8 @@ def _serialize_ifd(
     ]
     if use_pred:
         tags.append((T_PREDICTOR, 3, [2]))
+    if is_overview:
+        tags.append((254, 4, [1]))  # NewSubfileType: reduced-resolution
     if tiled:
         tags += [
             (T_TILE_WIDTH, 3, [tile_size]),
@@ -686,14 +691,14 @@ def _serialize_ifd(
             (T_STRIP_OFFSETS, 4, [0] * len(blocks)),
             (T_STRIP_BYTE_COUNTS, 4, [len(b) for b in blocks]),
         ]
-    if transform is not None:
+    if transform is not None and not is_overview:
         tags.append((T_MODEL_PIXEL_SCALE, 12, [transform.a, -transform.e, 0.0]))
         tags.append((T_MODEL_TIEPOINT, 12,
                      [0.0, 0.0, 0.0, transform.c, transform.f, 0.0]))
-    gk = _geokeys(crs)
+    gk = _geokeys(crs) if not is_overview else None
     if gk:
         tags.append((T_GEO_KEY_DIRECTORY, 3, gk))
-    if nodata is not None:
+    if nodata is not None and not is_overview:
         tags.append((T_GDAL_NODATA, 2, [f"{nodata:.10g}\0"]))
     tags.sort(key=lambda t: t[0])
 
@@ -738,3 +743,50 @@ def _serialize_ifd(
     ifd = struct.pack("<H", n_tags) + entries  # next-IFD appended by caller
     pad = data_offset - (ext_offset + len(ext))
     return ifd, bytes(ext) + b"\0" * pad, blocks, pos - base_offset
+
+
+def write_cog(
+    path: str,
+    array: np.ndarray,
+    transform: Optional[Affine] = None,
+    crs: Optional[int] = None,
+    nodata: Optional[float] = None,
+    tile_size: int = 256,
+    num_overviews: int = 6,
+    compress: str = "deflate",
+) -> None:
+    """Write a Cloud-Optimized GeoTIFF: tiled + 2x overview pyramid.
+
+    The reference's ``gdal_translate -of COG`` (cog_converter.py:125-174):
+    deflate/LZW tiles, overview levels by nearest-neighbour decimation,
+    halving until a level's short side is under ``max(2, tile_size // 4)``.
+    """
+    if array.ndim == 2:
+        array = array[None]
+    levels = [array]
+    cur = array
+    for _ in range(num_overviews):
+        if min(cur.shape[1], cur.shape[2]) < max(2, tile_size // 4):
+            break
+        cur = cur[:, ::2, ::2]
+        levels.append(cur)
+
+    parts: List[Tuple[bytes, bytes, List[bytes], int]] = []
+    offset = 8
+    for i, lvl in enumerate(levels):
+        ifd, ext, blocks, _ = _serialize_ifd(
+            lvl, transform, crs, nodata, tiled=True, tile_size=tile_size,
+            compress=compress, base_offset=offset, is_overview=i > 0)
+        parts.append((ifd, ext, blocks, offset))
+        offset += len(ifd) + 4 + len(ext) + sum(len(b) + (len(b) % 2) for b in blocks)
+
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", 8))
+        for i, (ifd, ext, blocks, _) in enumerate(parts):
+            next_off = parts[i + 1][3] if i + 1 < len(parts) else 0
+            f.write(ifd + struct.pack("<I", next_off))
+            f.write(ext)
+            for b in blocks:
+                f.write(b)
+                if len(b) % 2:
+                    f.write(b"\0")

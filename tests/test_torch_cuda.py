@@ -22,7 +22,10 @@ equal the one-step run bit for bit under deterministic mode, and with only
 the backward on its atomic-free kernel; its grouped eval epoch the eager
 one. The chip ops on the card equal the CPU's bit for bit; the granule
 path launches the kernel once per block and chip batch and stitches the
-fused predict's output bit for bit.
+fused predict's output bit for bit. A web task on the card equals the
+CPU's (chips and manifest byte for byte, argmax on at least 0.99 of decided
+pixels); a float32 model's task fails at stage 2 naming the dtype, with no
+plain attention run in the kernel's place.
 """
 
 import json
@@ -697,3 +700,136 @@ def test_chip_creator_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
                            if p.is_file())
     for f in files:
         assert (outs["cuda"] / f).read_bytes() == (outs["cpu"] / f).read_bytes(), f
+
+
+def test_web_task_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """A web task (the tiny model in bf16, as the port serves on the card; one
+    96 px HLS granule, 32 px chips) through the three stages drained in process
+    with ``INSTAGEO_DEVICE=cuda`` and with ``cpu``: the chips and the manifest
+    byte for byte; the predictions' argmax agrees on at least 0.99 of decided
+    pixels (the CPU logits' top-2 gap at least 0.01 x their max |logit|, as
+    ``chip_smoke.py`` decides serving pixels)."""
+    from instageo_tpu_torch.configs.config import load_config, merge
+    from instageo_tpu_torch.data import stac
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.data.sources import hls
+    from instageo_tpu_torch.ops.preprocess import preprocess_chips, raw_to_device
+    from instageo_tpu_torch.serve.server import ModelServer
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.factory import create_model
+    from instageo_tpu_torch.webapp import queue, settings
+    from instageo_tpu_torch.webapp.tasks import Task
+    import torch_webapp_helpers as helpers  # tests/ is on sys.path (no __init__.py)
+
+    item, bbox = helpers.granule_world(str(tmp_path))
+    cfg = load_config("config", overrides={**helpers.model_overrides(),
+                                           "tpu.precision": "bf16"})
+    ckpt = BestCheckpointer(str(tmp_path / "run")).save(
+        {"model": create_model(cfg, seed=0, device="cpu").state_dict()})
+    registry, models = helpers.write_model(str(tmp_path), cfg.to_yaml(), ckpt)
+    monkeypatch.setenv("MODELS_REGISTRY_PATH", registry)
+    monkeypatch.setenv("MODELS_PATH", models)
+    monkeypatch.setattr(stac.StacClient, "search",
+                        lambda self, **kw: [stac.StacItem.from_dict(helpers.copy_item(item))])
+    monkeypatch.setattr(hls, "retrieve_stac_metadata", hls.retrieve_stac_metadata.__wrapped__)
+    monkeypatch.setattr(stac, "_load_asset", stac._load_asset.__wrapped__)
+    monkeypatch.setattr(settings.settings, "TASKS_DATA_DIR", str(tmp_path / "tasks"))
+    dbp = str(tmp_path / "web.sqlite")
+    dirs = {}
+    for dev in ("cuda", "cpu"):
+        monkeypatch.setattr(settings.settings, "DEVICE", dev)
+        task = Task(bboxes=[bbox], parameters={"date": "2024-06-01", "chip_size": 32,
+                                               "num_steps": 1, "data_source": "HLS"},
+                    model_key="toy_model", model_size="base", db_path=dbp)
+        task.save()
+        task.start_data_processing()
+        assert queue.drain(db_path=dbp) == 3
+        assert Task.load(task.task_id, dbp).status == "completed", Task.load(task.task_id, dbp).stages
+        dirs[dev] = task.data_dir
+    chips = sorted(os.listdir(os.path.join(dirs["cpu"], "chips")))
+    assert chips and chips == sorted(os.listdir(os.path.join(dirs["cuda"], "chips")))
+    for rel in [os.path.join("chips", c) for c in chips] + ["hls_raster_dataset.csv"]:
+        with open(os.path.join(dirs["cuda"], rel), "rb") as a, \
+                open(os.path.join(dirs["cpu"], rel), "rb") as b:
+            assert a.read() == b.read(), rel
+    model = ModelServer(merge(cfg, {"checkpoint_path": ckpt, "device": "cpu"})).model
+    same = decided = 0
+    for c in chips:
+        with GeoTiffReader(os.path.join(dirs["cpu"], "chips", c)) as r:
+            raw = r.read()[None]
+        x = preprocess_chips(raw_to_device(raw, torch.device("cpu")), torch.tensor(helpers.MEAN),
+                             torch.tensor(helpers.STD), 1, torch.arange(6), 1.0, img_size=32)
+        with torch.no_grad():
+            logits = model(x, channels_last=True)[0].float()
+        top2 = logits.topk(2, dim=-1).values
+        ok = ((top2[..., 0] - top2[..., 1]) >= 0.01 * logits.abs().max()).numpy()
+        preds = []
+        for dev in ("cuda", "cpu"):
+            with GeoTiffReader(os.path.join(dirs[dev], "predictions",
+                                            c.replace("chip", "prediction"))) as r:
+                preds.append(r.read(1))
+        same += int((preds[0] == preds[1])[ok].sum())
+        decided += int(ok.sum())
+    assert decided > 0 and same >= 0.99 * decided
+
+
+def test_web_task_f32_model_fails_on_card_naming_dtype(cuda, tmp_path, monkeypatch):
+    """An f32 model config on ``INSTAGEO_DEVICE=cuda`` is not served (the
+    Hopper attention kernels take bf16 only): stage 2 fails the task with the
+    wrapper's message naming the dtype, writes no predictions, launches no
+    kernel and never runs the plain attention or SDPA in its place."""
+    import torch.nn.functional as F
+
+    from instageo_tpu_torch.configs.config import load_config
+    from instageo_tpu_torch.data import stac
+    from instageo_tpu_torch.data.sources import hls
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.factory import create_model
+    from instageo_tpu_torch.webapp import queue, settings
+    from instageo_tpu_torch.webapp.tasks import Task
+    import torch_webapp_helpers as helpers  # tests/ is on sys.path (no __init__.py)
+
+    item, bbox = helpers.granule_world(str(tmp_path))
+    cfg = load_config("config", overrides=helpers.model_overrides())
+    assert cfg.tpu.precision == "f32"
+    ckpt = BestCheckpointer(str(tmp_path / "run")).save(
+        {"model": create_model(cfg, seed=0, device="cpu").state_dict()})
+    registry, models = helpers.write_model(str(tmp_path), cfg.to_yaml(), ckpt)
+    monkeypatch.setenv("MODELS_REGISTRY_PATH", registry)
+    monkeypatch.setenv("MODELS_PATH", models)
+    monkeypatch.setattr(stac.StacClient, "search",
+                        lambda self, **kw: [stac.StacItem.from_dict(helpers.copy_item(item))])
+    monkeypatch.setattr(hls, "retrieve_stac_metadata", hls.retrieve_stac_metadata.__wrapped__)
+    monkeypatch.setattr(stac, "_load_asset", stac._load_asset.__wrapped__)
+    monkeypatch.setattr(settings.settings, "TASKS_DATA_DIR", str(tmp_path / "tasks"))
+    monkeypatch.setattr(settings.settings, "DEVICE", "cuda")
+    plain_calls = []
+
+    def recording(fn):
+        def wrapper(*args, **kwargs):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(tattn, "flash_attention_fwd_plain",
+                        recording(tattn.flash_attention_fwd_plain))
+    monkeypatch.setattr(F, "scaled_dot_product_attention",
+                        recording(F.scaled_dot_product_attention))
+    dbp = str(tmp_path / "web.sqlite")
+    task = Task(bboxes=[bbox], parameters={"date": "2024-06-01", "chip_size": 32,
+                                           "num_steps": 1, "data_source": "HLS"},
+                model_key="toy_model", model_size="base", db_path=dbp)
+    task.save()
+    task.start_data_processing()
+    launches0 = tattn.launches.count
+    assert queue.drain(db_path=dbp) == 2
+    rec = Task.load(task.task_id, dbp)
+    assert rec.status == "failed", rec.stages
+    assert rec.stages["data_processing"]["status"] == "completed", rec.stages
+    assert rec.stages["model_prediction"]["status"] == "failed", rec.stages
+    assert ("the attention kernels take bfloat16; q is torch.float32"
+            in rec.stages["model_prediction"]["error"]), rec.stages
+    pred_dir = os.path.join(rec.data_dir, "predictions")
+    assert not os.path.isdir(pred_dir) or os.listdir(pred_dir) == []
+    assert tattn.launches.count == launches0
+    assert plain_calls == []

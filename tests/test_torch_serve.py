@@ -168,10 +168,11 @@ def test_server_chip_inference_roundtrip(models, tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module and package of the port, the serving layer and
-    the chip creators included, pulls in neither JAX, the JAX package, nor
-    the libraries the port does without (PyYAML, pandas, OpenCV, pydantic,
-    requests, absl, pyarrow, scikit-learn, PIL)."""
+    """Importing every module and package of the port, the serving layer, the
+    chip creators and the web platform included, pulls in neither JAX, the
+    JAX package, nor the libraries the port does without (PyYAML, pandas,
+    OpenCV, pydantic, requests, absl, pyarrow, scikit-learn, PIL, aiohttp,
+    cryptography)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "instageo_tpu_torch")
     modules = sorted(
@@ -185,7 +186,10 @@ def test_port_imports_nothing_of_jax():
                 "data.sources.hls", "data.sources.s1", "data.sources.s2",
                 "utils.ratelimit", "data.crs", "data.geo_utils", "data.table",
                 "data.flags", "data.downloads", "data.chip_creator",
-                "data.raster_chip_creator"):
+                "data.raster_chip_creator", "webapp.settings", "webapp.db", "webapp.queue",
+                "webapp.tasks", "webapp.data_processor", "webapp.cog", "webapp.png",
+                "webapp.tiler", "webapp.auth", "webapp.docs", "webapp.web", "webapp.main",
+                "webapp.selftest_goldens", "apps.viz", "apps.app"):
         assert f"instageo_tpu_torch.{new}" in modules
     assert "instageo_tpu_torch.native" in modules  # the decoder's binding is a package
     code = ("import sys, importlib\n"
@@ -193,6 +197,7 @@ def test_port_imports_nothing_of_jax():
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'flax', 'instageo_tpu', 'yaml', 'pandas', 'cv2', 'pydantic',\n"
-            "        'requests', 'absl', 'pyarrow', 'sklearn', 'PIL')]\n"
+            "        'requests', 'absl', 'pyarrow', 'sklearn', 'PIL', 'aiohttp',\n"
+            "        'cryptography')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
