@@ -58,6 +58,11 @@ Phases, one line each (any failure raises and exits non-zero):
    replays included), eval against the saved epoch's validation metrics,
    the CLI's predictions against ``ModelServer``'s; chips/s and wall
    seconds per mode;
+   replica: ``mode=replica`` of the same CLI (stats, train, eval on val and
+   test, the report) over 128 + 16 + 16 such chips, from a fresh init
+   (``replica.require_pretrained=False``): each stage's launches and
+   seconds, the report naming the card, the test split's metrics against a
+   direct ``mode=eval`` of the best checkpoint;
 9. serve_models: every model the JAX package builds, through the serving
    entry points (``ModelServer(cfg)``, ``EvaluationPipeline``, the export
    artifact), bf16 with random weights from seed 0: the crop model with
@@ -71,6 +76,13 @@ Phases, one line each (any failure raises and exits non-zero):
    inference = the online batcher on decided pixels, the artifact run in a
    fresh interpreter without the port's models, its size); one JSON line
    per row, tagged ``[serve_models]``;
+   quant: ``tpu.quant: int8`` (W8A8 through ``torch._int_mm``) through
+   ``ModelServer(cfg)`` at batch 64: ms per predict against bf16 in turns,
+   launches per predict, kernel vs plain attention, int8 vs bf16 argmax,
+   the card against the CPU, the export artifact in a fresh interpreter,
+   the Trainer's refusal, one fc1 GEMM int8 vs bf16 in turns; then a
+   ``tpu.precision: f32`` model on the "xla" attention route (no kernel
+   launch) against the CPU;
 10. granule: whole-granule inference as a user runs it,
     ``mode=sliding_inference`` of the run CLI (in-process) on the crop config
     from a dataset JSON over a synthetic HLS MGRS tile (T=3 granules, one
@@ -104,6 +116,11 @@ Phases, one line each (any failure raises and exits non-zero):
     mma.sync); ``raster_chip_creator --is_bbox_feature=true`` over a bbox in
     the tile on both devices, equal; wall, decode and ``process_tile_chips``
     seconds, peak device memory;
+    data_prep: on the host, the data cleaner (drop, buffer, limit) over the
+    card run's chips and the splitter over the cleaned CSV; whether
+    ``libopenjp2`` loads and decodes the committed JP2 fixture; whether
+    matplotlib is here for the regression plot; the compile cache
+    (``INSTAGEO_COMPILE_CACHE_DIR``) in two fresh interpreters;
 13. webapp: the web platform as it is deployed (``webapp_phase``): the
     port's server in this process with its three spawned queue workers and
     a job process per stage, on the card; a ``POST /api/run-model`` of the
@@ -141,14 +158,14 @@ import tempfile
 import threading
 import time
 from functools import partial
-from pathlib import Path
 from unittest import mock
 
 import numpy as np
 
-# Card peaks for the bound (H100 SXM data sheet, dense): bf16 tensor-core
-# rate and HBM3 bandwidth.
+# Card peaks for the bound (H100 SXM data sheet, dense): bf16 and int8
+# tensor-core rates and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # The configuration every path runs, from the port's config files.
@@ -293,7 +310,7 @@ def time_ms(fn, device, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 2, match=None, attempts: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 2, match=None, attempts: int = 5) -> float:
     """Mean device time per call of ``fn`` from a ``torch.profiler`` trace of
     ``iters`` calls. Unlike ``time_ms`` it leaves out the host's time and the
     gaps between launches. With ``match``, ``fn`` launches one kernel whose
@@ -711,10 +728,11 @@ def _counters() -> dict:
 
 def reset_counts() -> None:
     from instageo_tpu_torch import native
+    from instageo_tpu_torch.models import prithvi
     from instageo_tpu_torch.ops import _build
 
     for counter in (*_counters().values(), _build.graph_replays, native.decodes,
-                    native.fallback_decodes):
+                    native.fallback_decodes, prithvi.xla_attn_calls):
         counter.reset()
 
 
@@ -1517,19 +1535,19 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
 
 
 def _write_dataset(root: str, n_train: int, n_val: int, n_bands: int, size: int,
-                   classes: int) -> list:
+                   classes: int, n_test: int = 0) -> list:
     """Synthetic uint16 chips of ``n_bands`` bands and int16 label rasters
     (labels 0..classes, constant over 16-px patches; signed, since
-    ``reduce_to_zero`` maps 0 to the ignored -1) with train.csv and val.csv
-    (columns Input, Label; paths relative to ``root``). Returns the val
-    chips' paths."""
+    ``reduce_to_zero`` maps 0 to the ignored -1) with train.csv, val.csv and,
+    for ``n_test`` chips more, test.csv (columns Input, Label; paths
+    relative to ``root``). Returns the val chips' paths."""
     import csv
 
     from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
 
     rng = np.random.default_rng(2)
     rows = []
-    for i in range(n_train + n_val):
+    for i in range(n_train + n_val + n_test):
         raw = rng.integers(1, 10000, (n_bands, size, size), dtype=np.uint16)
         patches = rng.integers(0, classes + 1, (-(-size // 16), -(-size // 16)))
         label = np.repeat(np.repeat(patches, 16, axis=0), 16, axis=1)[:size, :size]
@@ -1539,12 +1557,15 @@ def _write_dataset(root: str, n_train: int, n_val: int, n_bands: int, size: int,
         write_geotiff(os.path.join(root, f"tile_{i:03d}_label.tif"),
                       label[None].astype(np.int16), transform=transform, crs=32615)
         rows.append({"Input": f"tile_{i:03d}_chip.tif", "Label": f"tile_{i:03d}_label.tif"})
-    for name, part in (("train.csv", rows[:n_train]), ("val.csv", rows[n_train:])):
+    parts = [("train.csv", rows[:n_train]), ("val.csv", rows[n_train:n_train + n_val])]
+    if n_test:
+        parts.append(("test.csv", rows[n_train + n_val:]))
+    for name, part in parts:
         with open(os.path.join(root, name), "w", newline="") as f:
             writer = csv.DictWriter(f, ["Input", "Label"])
             writer.writeheader()
             writer.writerows(part)
-    return [os.path.join(root, r["Input"]) for r in rows[n_train:]]
+    return [os.path.join(root, r["Input"]) for r in rows[n_train:n_train + n_val]]
 
 
 def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: int = 64,
@@ -1901,6 +1922,123 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
         tmp.cleanup()
 
 
+def replica_phase(device, smi: str, extra=(), n_train: int = 128, n_val: int = 16,
+                  n_test: int = 16) -> dict:
+    """``mode=replica`` of the run CLI (``instageo_tpu_torch.train.run.main``,
+    in-process) on the crop config at full width, as a user replicates:
+    ``replica.require_pretrained=False`` (no pretrained file in the
+    repository), one epoch, graphs of 8 steps, over the run phase's
+    synthetic chips (``n_train`` train, ``n_val`` val, ``n_test`` test).
+    Each stage (stats, train, eval on val, eval on test) runs with the
+    launch counts set to 0 just before it and read just after, replays
+    included. Checks that ``report.json`` and ``REPORT.md`` are written,
+    that ``hardware`` names the card, each stage's launches (every
+    attention launch on wgmma, 5 dropout launches per step, none on
+    mma.sync), and that the test split's metrics equal a direct
+    ``mode=eval`` on the best checkpoint (within EVAL_TOL).
+    ``extra``: more overrides (a tiny model for a CPU rehearsal)."""
+    import torch
+
+    from instageo_tpu_torch.configs.config import load_config_from_argv
+    from instageo_tpu_torch.models.registry import get_arch
+    from instageo_tpu_torch.train import replica, run
+
+    on_card = device.type == "cuda"
+    clock = Clock("replica")
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    run_dir = os.path.join(root, "replica")
+    base = [f"--config-name={CROP_CONFIG}", f"root_dir={root}",
+            f"train_filepath={root}/train.csv", f"valid_filepath={root}/val.csv",
+            f"test_filepath={root}/test.csv", f"run_dir={run_dir}",
+            "model.load_pretrained_weights=False", "train.num_epochs=1",
+            "replica.require_pretrained=False", *extra]
+    if not on_card:
+        base.append("device=cpu")
+    cfg = load_config_from_argv(base)
+    dl = cfg.dataloader
+    size, classes = int(dl.img_size), int(cfg.model.num_classes)
+    batch = int(cfg.train.batch_size)
+    depth = get_arch(str(cfg.model.model_name), depth=int(cfg.model.depth)).depth
+    try:
+        _write_dataset(root, n_train, n_val, len(dl.bands), size, classes, n_test=n_test)
+        clock.lap(f"wrote {n_train} + {n_val} + {n_test} chips")
+        stages = {}
+        cli = run.main
+
+        def staged(argv):
+            """One stage of the replica: counts from 0, read right after."""
+            mode = next(a.split("=", 1)[1] for a in argv if a.startswith("mode="))
+            if mode == "eval":
+                mode = os.path.basename(
+                    [a.split("=", 1)[1] for a in argv if a.startswith("run_dir=")][-1])
+            reset_counts()
+            t0 = time.perf_counter()
+            result = cli(argv)
+            if on_card:
+                torch.cuda.synchronize()
+            stages[mode] = dict(wall_s=time.perf_counter() - t0, counts=read_counts(),
+                                graph_replays=read_graph_counts()["graph_replays"])
+            return result
+
+        t0 = time.perf_counter()
+        with mock.patch.object(run, "main", staged):
+            report = cli(base + ["mode=replica"])
+        wall = time.perf_counter() - t0
+        check(list(stages) == ["stats", "train", "eval_val", "eval_test"],
+              f"replica stages {list(stages)}")
+        for name in ("report.json", "REPORT.md"):
+            check(os.path.getsize(os.path.join(run_dir, name)) > 0, f"replica wrote no {name}")
+        with open(os.path.join(run_dir, "report.json")) as f:
+            saved = json.load(f)
+        kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+        check(kind in saved["hardware"], f"report hardware {saved['hardware']!r}")
+        with open(os.path.join(run_dir, "REPORT.md")) as f:
+            check(kind in f.read(), "REPORT.md does not name the device")
+
+        steps, val_batches = -(-n_train // batch), -(-n_val // batch)
+        test_batches = -(-n_test // batch)
+        none = {"flash_attn_fwd": 0, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
+                "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+        expected = {
+            "stats": none,
+            "train": dict(none, flash_attn_fwd=depth * (steps + val_batches),
+                          flash_attn_bwd=depth * steps, fused_dropout=5 * steps),
+            "eval_val": dict(none, flash_attn_fwd=depth * val_batches),
+            "eval_test": dict(none, flash_attn_fwd=depth * test_batches),
+        }
+        if on_card:
+            for name, want in expected.items():
+                check(stages[name]["counts"] == want,
+                      f"replica {name}: launches {stages[name]['counts']}, expected {want}")
+            check(stages["train"]["graph_replays"] == steps // 8 - 1,
+                  f"replica train: {stages['train']['graph_replays']} graph replays")
+
+        # --- the test split against a direct mode=eval of the checkpoint ----
+        reset_counts()
+        direct = cli(["--config-path", os.path.join(run_dir, ".hydra"), "--config-name",
+                      "config", "mode=eval", f"checkpoint_path={report['checkpoint']}",
+                      f"test_filepath={root}/test.csv", f"run_dir={root}/direct_eval"])
+        gap = {col: abs(report["metrics"]["test"][col] / 100.0 - float(direct[key]))
+               for col, key in replica._EVAL_KEYS.items()}
+        check(max(gap.values()) <= EVAL_TOL,
+              f"replica test metrics vs a direct mode=eval: {gap}")
+        for name, st in stages.items():
+            print(f"[replica] stage {name}: {st['wall_s']:.3f} s wall (report: "
+                  f"{report['stages'].get(name + '_s', float('nan')):.3f} s); launches "
+                  f"{json.dumps(st['counts'])}, graph replays {st['graph_replays']}", flush=True)
+        print(f"[replica] {smi}: mode=replica {wall:.3f} s wall; hardware "
+              f"{saved['hardware']!r}; test {json.dumps(report['metrics']['test'])}, val "
+              f"{json.dumps(report['metrics']['val'])}; reference deltas "
+              f"{json.dumps(report.get('deltas'))}; test vs a direct mode=eval: max gap "
+              f"{max(gap.values()):.3g} (<= {EVAL_TOL})", flush=True)
+        clock.lap("mode=replica")
+        return dict(stages=stages, wall_s=wall, metrics=report["metrics"], eval_gap=gap,
+                    hardware=saved["hardware"])
+    finally:
+        tmp.cleanup()
+
+
 SERVE_TURNS = 3           # predict timings: turns of each model in alternation
 ARTIFACT_AGREEMENT = 0.999  # artifact vs server class ids on decided pixels
 
@@ -1938,6 +2076,94 @@ def _predict_launches(predict, raw, depth: int, tag: str, on_card: bool) -> dict
     if on_card:
         check(counts == want, f"{tag}: launches per predict {counts}, expected {want}")
     return counts
+
+
+def _artifact_check(server, x, root: str, depth: int, on_card: bool,
+                    batches=(64, 7)) -> dict:
+    """``server``'s export artifact (``ModelServer.export_artifact``) run in a
+    fresh interpreter that imports none of the port's models, on the first
+    ``b`` chips of ``x`` for each of ``batches``: its class ids against the
+    server's on decided pixels (>= ARTIFACT_AGREEMENT), ``depth`` forward
+    launches per call on the card, its size under 4 bytes per parameter."""
+    import torch
+
+    from instageo_tpu_torch.serve.infer import make_predict_fn
+
+    path = os.path.join(root, "predict.pt2")
+    t0 = time.perf_counter()
+    server.export_artifact(path)
+    export_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in server.model.parameters())
+    nbytes = os.path.getsize(path)
+    check(nbytes < 4 * n_params, f"artifact {nbytes} bytes for {n_params} parameters")
+    state_path, x_path = os.path.join(root, "state.pt"), os.path.join(root, "x.pt")
+    torch.save(server.model.state_dict(), state_path)
+    torch.save(x.cpu(), x_path)
+    code = ("import json, sys, torch\n"
+            "from instageo_tpu_torch.ops import attention\n"
+            "from instageo_tpu_torch.serve.export import load_predict\n"
+            "predict, meta = load_predict(sys.argv[1])\n"
+            "state = torch.load(sys.argv[2], weights_only=True)\n"
+            "x = torch.load(sys.argv[3], weights_only=True)\n"
+            "launches = {}\n"
+            f"for b in {tuple(batches)!r}:\n"
+            "    before = attention.launches.count\n"
+            "    y = predict(state, x[:b])\n"
+            "    launches[b] = attention.launches.count - before\n"
+            "    torch.save(y.cpu(), f'{sys.argv[4]}.{b}.pt')\n"
+            "models = [m for m in sys.modules if m.startswith('instageo_tpu_torch.models')]\n"
+            "print(json.dumps({'launches': launches, 'models_imported': models,\n"
+            "                  'meta': meta}))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, path, state_path, x_path,
+                           os.path.join(root, "y")], cwd=os.path.dirname(
+                               os.path.abspath(__file__)), capture_output=True, text=True,
+                          timeout=600)
+    reload_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the artifact's interpreter failed:\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not child["models_imported"], f"load_predict imported {child['models_imported']}")
+    live = make_predict_fn(server.model)
+    agreement = {}
+    with torch.inference_mode():
+        logits = server.model(x, channels_last=True).float()
+    top2 = logits.topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * logits.abs().max()).cpu()
+    for b in batches:
+        got = torch.load(f"{os.path.join(root, 'y')}.{b}.pt", weights_only=True)
+        same = got == live(x[:b]).cpu()
+        agreement[b] = same[decided[:b]].float().mean().item()
+        check(agreement[b] >= ARTIFACT_AGREEMENT,
+              f"artifact vs server at batch {b}: {agreement[b]} of decided pixels")
+        if on_card:
+            check(child["launches"][str(b)] == depth,
+                  f"artifact at batch {b}: {child['launches'][str(b)]} forward launches")
+    return dict(bytes=nbytes, params=n_params, agreement=agreement, export_s=export_s,
+                fresh_interpreter_s=reload_s, child=child)
+
+
+def _server_predict(server):
+    """The fused predict (raw chips to class ids on the card) of a
+    ``ModelServer``'s model with its config's preprocessing."""
+    from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
+
+    pre = {k: v for k, v in server.preprocess.items() if k not in ("mean", "std")}
+    return make_fused_predict_fn(server.model, server.preprocess["mean"],
+                                 server.preprocess["std"], **pre)
+
+
+def _server_chips(server, raw, device):
+    """Raw chips preprocessed on ``device`` as ``server``'s config says."""
+    import torch
+
+    from instageo_tpu_torch.ops.preprocess import preprocess_chips, raw_to_device
+
+    p = server.preprocess
+    return preprocess_chips(
+        raw_to_device(raw, device), torch.tensor(p["mean"], device=device),
+        torch.tensor(p["std"], device=device), p["temporal_size"],
+        torch.tensor(list(p["bands"]), device=device), p["constant_multiplier"],
+        img_size=p["img_size"])
 
 
 def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_batch: int = 8,
@@ -1978,12 +2204,6 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     from instageo_tpu_torch.data.dataloader import create_dataloader, eval_collate, process_test
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
     from instageo_tpu_torch.models.seg import create_prithvi_seg
-    from instageo_tpu_torch.ops.preprocess import (
-        make_fused_predict_fn,
-        preprocess_chips,
-        raw_to_device,
-    )
-    from instageo_tpu_torch.serve.infer import make_predict_fn
     from instageo_tpu_torch.serve.pipeline import EvaluationPipeline
     from instageo_tpu_torch.serve.server import ModelServer
     from instageo_tpu_torch.train import run
@@ -2002,11 +2222,6 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
         return load_config(CROP_CONFIG, overrides={
             "model.load_pretrained_weights": False, **overrides, **more})
 
-    def fused(server):
-        pre = {k: v for k, v in server.preprocess.items() if k not in ("mean", "std")}
-        return make_fused_predict_fn(server.model, server.preprocess["mean"],
-                                     server.preprocess["std"], **pre)
-
     def free():
         gc.collect()
         if on_card:
@@ -2017,14 +2232,6 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
         return rng.integers(0, 10000, (n, len(dl.bands), int(dl.img_size), int(dl.img_size)),
                             dtype=np.uint16)
 
-    def device_chips(server, raw):
-        p = server.preprocess
-        return preprocess_chips(
-            raw_to_device(raw, device), torch.tensor(p["mean"], device=device),
-            torch.tensor(p["std"], device=device), p["temporal_size"],
-            torch.tensor(list(p["bands"]), device=device), p["constant_multiplier"],
-            img_size=p["img_size"])
-
     out = {}
     # --- 1. fast head vs torch head ----------------------------------------
     cfg = config()
@@ -2032,11 +2239,12 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
                for head in ("torch", "fast")}
     depth = len(servers["torch"].model.prithvi_encoder.blocks)
     raw = raw_chips(batch, cfg)
-    predicts = {head: fused(sv) for head, sv in servers.items()}
+    predicts = {head: _server_predict(sv) for head, sv in servers.items()}
     launches = {head: _predict_launches(fn, raw, depth, f"{head} head", on_card)
                 for head, fn in predicts.items()}
     timing = _predict_turns(predicts, raw, turns, iters)
-    gap = kernel_vs_plain_logits(servers["fast"].model, device_chips(servers["fast"], raw))
+    gap = kernel_vs_plain_logits(servers["fast"].model,
+                                 _server_chips(servers["fast"], raw, device))
     print(f"[serve_models] fast head, kernel vs plain attention, batch {batch}: "
           f"{_describe_gap(gap)}", flush=True)
     for head in ("torch", "fast"):
@@ -2097,8 +2305,8 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
         enc = server.model.prithvi_encoder
         vdepth, heads = len(enc.blocks), enc.blocks[0].attn.num_heads
         raw = raw_chips(b, vcfg)
-        counts = _predict_launches(fused(server), raw, vdepth, variant, on_card)
-        xv = device_chips(server, raw)
+        counts = _predict_launches(_server_predict(server), raw, vdepth, variant, on_card)
+        xv = _server_chips(server, raw, device)
         years = torch.from_numpy(rng.integers(2015, 2025, (b, t)).astype(np.float32))
         days = torch.from_numpy(rng.integers(1, 366, (b, t)).astype(np.float32))
         coords = dict(
@@ -2145,8 +2353,9 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     servers = {g: ModelServer(config(**{"tpu.gelu": g}), device=device)
                for g in ("exact", "tanh", "bf16")}
     raw = raw_chips(batch, cfg)
-    timing = _predict_turns({g: fused(sv) for g, sv in servers.items()}, raw, turns, iters)
-    preds = {g: fused(sv)(raw).cpu() for g, sv in servers.items()}
+    timing = _predict_turns({g: _server_predict(sv) for g, sv in servers.items()}, raw, turns,
+                            iters)
+    preds = {g: _server_predict(sv)(raw).cpu() for g, sv in servers.items()}
     for g in servers:
         agree = (preds[g] == preds["exact"]).float().mean().item()
         _serve_row(smi, part="gelu", gelu=g, batch=batch, ms_per_predict=timing[g]["ms"],
@@ -2191,7 +2400,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
                 raws.append(r.read())
             with GeoTiffReader(os.path.join(root, "predictions", name)) as r:
                 written.append(r.read(1))
-        xs = device_chips(server, np.stack(raws))
+        xs = _server_chips(server, np.stack(raws), device)
         batcher = server.online_batcher(max_batch=batch_size)
         online = np.stack([batcher.submit(c).result(timeout=600) for c in xs.cpu().numpy()])
         with torch.inference_mode():
@@ -2204,56 +2413,10 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
               f"chip_inference vs online batcher: {int((~same[decided_ci]).sum())} decided "
               "pixels differ")
 
-        path = os.path.join(root, "predict.pt2")
-        t0 = time.perf_counter()
-        server.export_artifact(path)
-        export_s = time.perf_counter() - t0
-        n_params = sum(p.numel() for p in server.model.parameters())
-        nbytes = os.path.getsize(path)
-        check(nbytes < 4 * n_params, f"artifact {nbytes} bytes for {n_params} parameters")
-        state_path, x_path = os.path.join(root, "state.pt"), os.path.join(root, "x.pt")
-        torch.save(server.model.state_dict(), state_path)
-        x64 = device_chips(server, raw_chips(batch, cfg))
-        torch.save(x64.cpu(), x_path)
-        code = ("import json, sys, torch\n"
-                "from instageo_tpu_torch.ops import attention\n"
-                "from instageo_tpu_torch.serve.export import load_predict\n"
-                "predict, meta = load_predict(sys.argv[1])\n"
-                "state = torch.load(sys.argv[2], weights_only=True)\n"
-                "x = torch.load(sys.argv[3], weights_only=True)\n"
-                "launches = {}\n"
-                "for b in (64, 7):\n"
-                "    before = attention.launches.count\n"
-                "    y = predict(state, x[:b])\n"
-                "    launches[b] = attention.launches.count - before\n"
-                "    torch.save(y.cpu(), f'{sys.argv[4]}.{b}.pt')\n"
-                "models = [m for m in sys.modules if m.startswith('instageo_tpu_torch.models')]\n"
-                "print(json.dumps({'launches': launches, 'models_imported': models,\n"
-                "                  'meta': meta}))\n")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", code, path, state_path, x_path,
-                               os.path.join(root, "y")], cwd=os.path.dirname(
-                                   os.path.abspath(__file__)), capture_output=True, text=True,
-                              timeout=600)
-        reload_s = time.perf_counter() - t0
-        check(proc.returncode == 0, f"the artifact's interpreter failed:\n{proc.stderr[-4000:]}")
-        child = json.loads(proc.stdout.strip().splitlines()[-1])
-        check(not child["models_imported"], f"load_predict imported {child['models_imported']}")
-        live = make_predict_fn(server.model)
-        agreement = {}
-        with torch.inference_mode():
-            logits = server.model(x64, channels_last=True).float()
-        top2 = logits.topk(2, dim=-1).values
-        decided = ((top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * logits.abs().max()).cpu()
-        for b in (64, 7):
-            got = torch.load(os.path.join(root, f"y.{b}.pt"), weights_only=True)
-            same = got == live(x64[:b]).cpu()
-            agreement[b] = same[decided[:b]].float().mean().item()
-            check(agreement[b] >= ARTIFACT_AGREEMENT,
-                  f"artifact vs server at batch {b}: {agreement[b]} of decided pixels")
-            if on_card:
-                check(child["launches"][str(b)] == depth,
-                      f"artifact at batch {b}: {child['launches'][str(b)]} forward launches")
+        x64 = _server_chips(server, raw_chips(batch, cfg), device)
+        art = _artifact_check(server, x64, root, depth, on_card)
+        nbytes, n_params, agreement = art["bytes"], art["params"], art["agreement"]
+        export_s, reload_s, child = art["export_s"], art["fresh_interpreter_s"], art["child"]
         _serve_row(smi, part="serving_layer", chips=n_chips,
                    evaluate_vs_trainer_test_max_gap=eval_gap,
                    chip_inference_vs_online_decided_pixels=int(decided_ci.sum()),
@@ -2276,6 +2439,222 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
 # The synthetic granule of the granule and chip_ops phases: one HLS MGRS tile
 # at 30 m (3660 px), three timesteps (the first an L30 granule, the others
 # S30), and a block that is 0 in every band (top row, left column, side).
+F32_LOGIT_TOL = 1e-3  # f32 card vs CPU: max |logit diff| / max |logit| (f32 sums in other orders)
+GEMM_SHAPE = (64 * 589, 768, 3072)  # fc1 of V1-100M at batch 64: (B·L, D) x (D, 4D)
+
+
+def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: int = 16,
+                cpu_chips: int = 2, turns: int = SERVE_TURNS, iters: int = 5,
+                gemm_shape=GEMM_SHAPE, gemm_iters: int = 20) -> dict:
+    """``tpu.quant: int8`` (dynamic W8A8, ``ops/quant.py``) served through
+    ``ModelServer(cfg)`` on the crop config at full width, random weights
+    from seed 0:
+
+    1. the int8 and the bf16 model at ``batch``: ms per fused predict in
+       turns, launches per predict (the forward kernel once per block, on
+       wgmma), the int8 model's logits with the kernel against the plain
+       attention, its argmax against the bf16 model's (reported);
+    2. the int8 model on the card against the same config on the CPU, on
+       ``cpu_chips`` chips: max |logit diff| within LOGIT_TOL of max |logit|,
+       argmax agreement at least ARGMAX_AGREEMENT on decided pixels;
+    3. its export artifact in a fresh interpreter against the server;
+    4. the Trainer refusing it in training;
+    5. ``int8_matmul`` (quantize, ``torch._int_mm``, rescale; the weight
+       quantized once, as a served layer holds it) against ``F.linear`` in
+       bf16 at ``gemm_shape``, in turns, with the quantize pass and the
+       int8 product timed apart;
+    6. the crop config with ``tpu.precision: f32`` at ``f32_batch``: the
+       "xla" attention route once per block per predict, no kernel launch,
+       logits within F32_LOGIT_TOL of the CPU's.
+
+    ``overrides``: config overrides (a CPU rehearsal's tiny model); on the
+    CPU no kernel launches, so the launch checks hold only on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from instageo_tpu_torch.configs.config import load_config
+    from instageo_tpu_torch.models import prithvi
+    from instageo_tpu_torch.ops.quant import int8_matmul, quantize_symmetric
+    from instageo_tpu_torch.serve.server import ModelServer
+    from instageo_tpu_torch.train.trainer import Trainer
+
+    on_card = device.type == "cuda"
+    cpu = torch.device("cpu")
+    overrides = dict(overrides or {})
+    clock = Clock("quant")
+    rng = np.random.default_rng(11)
+
+    def config(**more):
+        return load_config(CROP_CONFIG, overrides={
+            "model.load_pretrained_weights": False, **overrides, **more})
+
+    def logits_of(model, x):
+        with torch.inference_mode():
+            return model(x, channels_last=True).float()
+
+    def against_cpu(card_logits, cpu_logits, tol, tag):
+        """max |Δ| / max |logit| and argmax agreement on decided pixels."""
+        diff = (card_logits - cpu_logits).abs().max().item()
+        scale = cpu_logits.abs().max().item()
+        top2 = cpu_logits.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * scale
+        agree = (card_logits.argmax(-1) == cpu_logits.argmax(-1))[decided].float().mean().item()
+        check(diff <= tol * scale and agree >= ARGMAX_AGREEMENT,
+              f"{tag}: card vs CPU max |diff| {diff} of {scale} (<= {tol}), argmax "
+              f"agreement {agree} on decided pixels")
+        return dict(max_abs_diff=diff, scale=scale, agreement_decided=agree,
+                    decided=decided.float().mean().item())
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # --- 1. int8 vs bf16 through ModelServer ----------------------------
+        qcfg = config(**{"tpu.quant": "int8"})
+        servers = {"int8": ModelServer(qcfg, device=device),
+                   "bf16": ModelServer(config(), device=device)}
+        depth = len(servers["int8"].model.prithvi_encoder.blocks)
+        dl = qcfg.dataloader
+        raw = rng.integers(0, 10000, (batch, len(dl.bands), int(dl.img_size),
+                                      int(dl.img_size)), dtype=np.uint16)
+        predicts = {name: _server_predict(sv) for name, sv in servers.items()}
+        launches = {name: _predict_launches(fn, raw, depth, f"{name} predict", on_card)
+                    for name, fn in predicts.items()}
+        timing = _predict_turns(predicts, raw, turns, iters)
+        x = _server_chips(servers["int8"], raw, device)
+        gap = kernel_vs_plain_logits(servers["int8"].model, x)
+        q_logits = gap.pop("logits")
+        b_logits = logits_of(servers["bf16"].model, x)
+        top2 = b_logits.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * b_logits.abs().max()
+        same = q_logits.argmax(-1) == b_logits.argmax(-1)
+        vs_bf16 = dict(agreement=same.float().mean().item(),
+                       agreement_decided=same[decided].float().mean().item(),
+                       decided=decided.float().mean().item())
+        print(f"[quant] {smi}: batch {batch}, ms per fused predict in turns: int8 "
+              f"{timing['int8']['ms']:.3f} {timing['int8']['turns']}, bf16 "
+              f"{timing['bf16']['ms']:.3f} {timing['bf16']['turns']} (int8 / bf16 "
+              f"{timing['int8']['ms'] / timing['bf16']['ms']:.4f}); launches per predict "
+              f"{json.dumps(launches['int8'])}; int8 kernel vs plain attention: "
+              f"{_describe_gap(gap)}; int8 vs bf16 argmax agreement "
+              f"{vs_bf16['agreement']:.6f} of all pixels, {vs_bf16['agreement_decided']:.6f} "
+              f"of the {vs_bf16['decided']:.4f} decided by the bf16 logits", flush=True)
+        out.update(timing=timing, launches=launches, kernel_vs_plain=gap, vs_bf16=vs_bf16)
+        del predicts, b_logits
+        clock.lap("int8 vs bf16")
+
+        # --- 2. the card against the CPU, under quant -----------------------
+        # The same weights on the CPU (a CPU generator draws others from the seed).
+        cpu_server = ModelServer(config(**{"tpu.quant": "int8", "device": "cpu"}), device=cpu)
+        cpu_server.model.load_state_dict(servers["int8"].model.state_dict())
+        xc = _server_chips(cpu_server, raw[:cpu_chips], cpu)
+        out["vs_cpu"] = against_cpu(q_logits[:cpu_chips].cpu(),
+                                    logits_of(cpu_server.model, xc), LOGIT_TOL, "int8")
+        print(f"[quant] int8 on the card vs the port on the CPU, {cpu_chips} chips: max |logit "
+              f"diff| {out['vs_cpu']['max_abs_diff']:.6g} (<= {LOGIT_TOL} x max |logit| "
+              f"{out['vs_cpu']['scale']:.6g}); argmax agreement "
+              f"{out['vs_cpu']['agreement_decided']:.6f} (>= {ARGMAX_AGREEMENT}) of the "
+              f"{out['vs_cpu']['decided']:.4f} decided pixels", flush=True)
+        del cpu_server, xc, q_logits
+        clock.lap("int8 card vs CPU")
+
+        # --- 3. the export artifact in a fresh interpreter ------------------
+        art = _artifact_check(servers["int8"], x, tmp.name, depth, on_card)
+        print(f"[quant] int8 export artifact: {art['bytes']} bytes (< {4 * art['params']}), "
+              f"exported in {art['export_s']:.3f} s; a fresh interpreter in "
+              f"{art['fresh_interpreter_s']:.3f} s: launches {art['child']['launches']}, "
+              f"class ids vs the server {art['agreement']} of decided pixels (>= "
+              f"{ARTIFACT_AGREEMENT})", flush=True)
+        out["artifact"] = {k: v for k, v in art.items() if k != "child"}
+        clock.lap("int8 artifact")
+
+        # --- 4. training refused --------------------------------------------
+        trainer = Trainer(qcfg, servers["int8"].model, device=device)
+        labels = torch.zeros(x[:2].shape[0], *x.shape[-2:], dtype=torch.long, device=device)
+        try:
+            trainer.train_step(x[:2], labels, torch.Generator().manual_seed(0))
+        except ValueError as e:
+            refused = str(e)
+        else:
+            refused = ""
+        check("inference-only" in refused, f"the Trainer trained a quantized model: {refused!r}")
+        print(f"[quant] Trainer.train_step on the int8 model: refused ({refused})", flush=True)
+        del servers, trainer, x, labels
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # --- 5. one GEMM: int8_matmul vs F.linear in bf16, in turns -----------
+        m, k, n = gemm_shape
+        g = torch.Generator(device=device).manual_seed(3)
+        xa = torch.randn(m, k, generator=g, device=device).to(torch.bfloat16)
+        w = torch.randn(n, k, generator=g, device=device) * k ** -0.5
+        b = torch.randn(n, generator=g, device=device) * 0.02
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        wq = quantize_symmetric(w)
+        xq, _ = quantize_symmetric(xa)
+        fns = {"int8_matmul": lambda: int8_matmul(xa, w, b, torch.bfloat16, wq),
+               "bf16_linear": lambda: F.linear(xa, w16, b16),
+               "quantize_x": lambda: quantize_symmetric(xa),
+               "int_mm": lambda: torch._int_mm(xq, wq[0].t())}
+        per = {name: [] for name in fns}
+        with torch.inference_mode():
+            for _ in range(turns):
+                for name, fn in fns.items():
+                    per[name].append(time_ms(fn, device, gemm_iters))
+            ref = F.linear(xa.float(), w, b)
+            rel = ((int8_matmul(xa, w, b, torch.float32, wq) - ref).norm() / ref.norm()).item()
+        gemm = {name: float(np.mean(v)) for name, v in per.items()}
+        ops = 2.0 * m * k * n
+        gemm_bounds = {"int8_ops_ms": ops / PEAK_INT8_OPS * 1e3,
+                       "bf16_ops_ms": ops / PEAK_BF16_FLOPS * 1e3,
+                       "bf16_bytes_ms": 2.0 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S * 1e3}
+        check(rel < 0.02, f"int8_matmul vs the float32 product: relative error {rel}")
+        print(f"[quant] {smi}: ({m} x {k}) @ ({k} x {n}), ms per call in turns: "
+              + ", ".join(f"{name} {ms:.4f} {[round(t, 4) for t in per[name]]}"
+                          for name, ms in gemm.items())
+              + f"; bounds: int8 operations {gemm_bounds['int8_ops_ms']:.4f} ms, bf16 "
+              f"operations {gemm_bounds['bf16_ops_ms']:.4f} ms, bf16 bytes "
+              f"{gemm_bounds['bf16_bytes_ms']:.4f} ms; int8 vs float32 product: relative "
+              f"error {rel:.3g}", flush=True)
+        out["gemm"] = dict(ms=gemm, turns=per, bounds=gemm_bounds, rel_err=rel,
+                           shape=[m, k, n])
+        del xa, w, b, w16, b16, wq, xq, fns
+        clock.lap("GEMM in turns")
+
+        # --- 6. a float32 model: the "xla" route, no kernel ------------------
+        fcfg = config(**{"tpu.precision": "f32"})
+        f_server = ModelServer(fcfg, device=device)
+        check({blk.attn.attn_impl for blk in f_server.model.prithvi_encoder.blocks} == {"xla"},
+              "the f32 model's attention is not on the xla route")
+        f_raw = raw[:f32_batch]
+        reset_counts()
+        pred = _server_predict(f_server)(f_raw).cpu()
+        counts, xla_calls = read_counts(), prithvi.xla_attn_calls.count
+        check(xla_calls == depth and not any(counts.values()),
+              f"f32 predict: xla_attn_calls {xla_calls} (expected {depth}), launches {counts}")
+        f_cpu = ModelServer(config(**{"tpu.precision": "f32", "device": "cpu"}), device=cpu)
+        f_cpu.model.load_state_dict(f_server.model.state_dict())
+        out["f32"] = against_cpu(
+            logits_of(f_server.model, _server_chips(f_server, f_raw[:cpu_chips], device)).cpu(),
+            logits_of(f_cpu.model, _server_chips(f_cpu, f_raw[:cpu_chips], cpu)), F32_LOGIT_TOL,
+            "f32")
+        out["f32"].update(xla_attn_calls=xla_calls, launches=counts,
+                          predicted=list(pred.shape))
+        print(f"[quant] f32 crop model at batch {f32_batch}: xla_attn_calls {xla_calls} per "
+              f"predict, launches {json.dumps(counts)}; vs the CPU on {cpu_chips} chips: max "
+              f"|logit diff| {out['f32']['max_abs_diff']:.6g} (<= {F32_LOGIT_TOL} x "
+              f"{out['f32']['scale']:.6g}), argmax agreement "
+              f"{out['f32']['agreement_decided']:.6f} of decided pixels", flush=True)
+        del f_server, f_cpu
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        clock.lap("f32 model")
+        return out
+    finally:
+        tmp.cleanup()
+
+
 GRANULE_SIZE = 3660
 GRANULE_BLOCK = (1000, 2000, 300)
 GRANULE_IDS = {"HLS.L30.T33TUN.2023152T095000.v2.0": "2023-06-01T09:50:00Z",
@@ -2383,12 +2762,12 @@ def _granule_fresh_process(build_root: str, argv) -> None:
     line: the granule's seconds, the process's seconds from before ``import
     torch`` and the seconds each kernel build took."""
     t0 = time.perf_counter()
+    if build_root:
+        os.environ["INSTAGEO_COMPILE_CACHE_DIR"] = build_root
     import torch
 
     from instageo_tpu_torch.ops import _build
 
-    if build_root:
-        _build.BUILD_ROOT = Path(build_root)
     rec = _sliding_inference_timed(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -2766,7 +3145,8 @@ def _same_trees(a: str, b: str, what: str, relative_csv: str = "") -> int:
 
 def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
                        n_points: int = OBS_POINTS, chip: int = 224, extra=(),
-                       raster_px=(1400, 600, 2500, 1500), seed: int = 12) -> dict:
+                       raster_px=(1400, 600, 2500, 1500), seed: int = 12,
+                       keep: str = "") -> dict:
     """Observations to chips to predictions on the card, through the entry
     points a user calls. On the granule tile (T=3 HLS granules of
     ``size``² px, written again here) with STAC items of them (the search
@@ -2790,7 +3170,9 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
        then on the CPU: the same files (the manifest's absolute paths aside),
        the grid chips written, wall seconds.
 
-    ``extra``: run-CLI overrides (a CPU rehearsal's tiny model)."""
+    ``extra``: run-CLI overrides (a CPU rehearsal's tiny model). ``keep``: a
+    directory that gets the card run's output directory (``points``) and the
+    observations CSV, for the data_prep phase."""
     os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
     import copy
     import csv
@@ -3034,11 +3416,232 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
               f"chips of 18x{chip}x{chip}, {rfiles} files, card = CPU byte for byte; wall "
               f"{raster['card']['wall_s']:.3f} s on the card, {raster['cpu']['wall_s']:.3f} s "
               f"on the CPU", flush=True)
+        if keep:
+            os.replace(out["card"], os.path.join(keep, "points"))
+            os.replace(obs, os.path.join(keep, "observations.csv"))
         return dict(runs=runs, chips=len(manifest), files=files,
                     chip_inference=dict(chips=n, wall_s=infer_wall, launches=infer_counts,
                                         batch=batch),
                     raster=dict(chips=len(grid), files=rfiles,
                                 wall_s={k: v["wall_s"] for k, v in raster.items()}))
+    finally:
+        tmp.cleanup()
+
+
+LIMIT_CHIPS = 32  # seg maps the limit cleaning reads (each against every observation)
+
+
+def _cache_child(mode: str) -> None:
+    """What a fresh interpreter of the data_prep phase runs, with
+    ``INSTAGEO_COMPILE_CACHE_DIR`` set: one forward kernel launch at the
+    serving shape of one chip. ``mode`` "no_nvcc": any call for ``nvcc``
+    raises, so the library must come from the cache. Prints one JSON line."""
+    t0 = time.perf_counter()
+    import torch
+
+    from instageo_tpu_torch.ops import _build, attention
+
+    if mode == "no_nvcc":
+        def no_nvcc():
+            raise RuntimeError("nvcc was asked for: the library was not in the cache")
+
+        _build._nvcc = no_nvcc
+    q = torch.randn(1, 12, 589, 64, device="cuda").to(torch.bfloat16)
+    o, _ = attention.flash_attention_fwd(q, q, q)
+    torch.cuda.synchronize()
+    print(json.dumps(dict(lib=str(_build._lib_path("flash_attn_fwd_sm90")),
+                          built=sorted(_build.build_logs), build_s=_build.build_seconds,
+                          launches=attention.launches.count,
+                          finite=bool(torch.isfinite(o.float()).all()),
+                          process_s=time.perf_counter() - t0)), flush=True)
+
+
+def data_prep_phase(device, smi: str, kept: str, limit_chips: int = LIMIT_CHIPS) -> dict:
+    """The data-preparation tools on the host, as a user runs them after the
+    chip creator (``kept``: the chip_creator phase's card output directory
+    ``points`` and its ``observations.csv``):
+
+    1. ``python -m instageo_tpu_torch.data.data_cleaner`` (``main``, in
+       process) over the chip manifest with ``--drop_chips`` (strategy
+       ``all``: a pixel is no-data where every band is 0, as in the tile's
+       nodata block; cloud-masked bands are 0 too) and the ``buffer``
+       cleaning, then the ``limit`` cleaning over the first
+       ``limit_chips`` rows with the observations (their MGRS tile given);
+    2. ``python -m instageo_tpu_torch.data.data_splitter`` over the cleaned
+       CSV with its defaults (KMeans over the tile centres);
+    3. whether ``libopenjp2`` loads here, and the committed JP2 fixture
+       decoded equal to its stored array where it does;
+    4. whether matplotlib is here; where it is, the regression plot
+       written, else the refusal naming it;
+    5. on the card, a fresh interpreter with ``INSTAGEO_COMPILE_CACHE_DIR`` on
+       an empty directory, which builds the forward kernel's library there
+       and launches it, then a second that loads it with ``nvcc`` barred.
+
+    Wall seconds for each."""
+    import csv
+
+    from instageo_tpu_torch.data import data_cleaner, data_splitter, jp2
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.train import plots
+
+    on_card = device.type == "cuda"
+    clock = Clock("data_prep")
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    points = os.path.join(kept, "points")
+    try:
+        # --- 1. the cleaner ---------------------------------------------------
+        with open(os.path.join(points, "hls_dataset.csv"), newline="") as f:
+            manifest = list(csv.DictReader(f))
+        dataset = os.path.join(root, "dataset.csv")
+        with open(dataset, "w", newline="") as f:
+            w = csv.DictWriter(f, ["Input", "Label"])
+            w.writeheader()
+            w.writerows({k: os.path.join(points, r[k]) for k in ("Input", "Label")}
+                        for r in manifest)
+        cleaned = os.path.join(root, "clean.csv")
+        t0 = time.perf_counter()
+        data_cleaner.main([f"--chips_dataset_csv={dataset}",
+                           f"--output_chips_dataset_csv={cleaned}",
+                           "--drop_chips", "--drop_chips_strategy=all", "--no_data_value=0",
+                           "--no_data_threshold=0.5",
+                           "--clean_seg_maps", "--cleaning_method=buffer", "--window_size=1",
+                           f"--seg_map_output_dir={root}/buffered"])
+        buffer_s = time.perf_counter() - t0
+        with open(cleaned, newline="") as f:
+            kept_rows = list(csv.DictReader(f))
+        check(0 < len(kept_rows) <= len(manifest), f"cleaner kept {len(kept_rows)} rows of "
+              f"{len(manifest)}")
+        first = kept_rows[0]["Label"]
+        with GeoTiffReader(first) as r:
+            grown = int((r.read(1) != -1).sum())
+        with GeoTiffReader(os.path.join(points, "seg_maps", os.path.basename(first))) as r:
+            labelled = int((r.read(1) != -1).sum())
+        check(grown >= labelled > 0, f"buffer: {grown} labelled pixels from {labelled}")
+
+        with open(os.path.join(kept, "observations.csv"), newline="") as f:
+            obs = list(csv.DictReader(f))
+        tile = manifest[0]["Input"].split("_T", 1)[1][:5]
+        obs_csv = os.path.join(root, "observations_tiled.csv")
+        with open(obs_csv, "w", newline="") as f:
+            w = csv.DictWriter(f, ["x", "y", "date", "mgrs_tile_id"])
+            w.writeheader()
+            w.writerows({"x": o["x"], "y": o["y"], "date": o["date"], "mgrs_tile_id": tile}
+                        for o in obs)
+        limit_chips = min(limit_chips, len(manifest))
+        subset = os.path.join(root, "subset.csv")
+        with open(dataset) as f, open(subset, "w") as g:
+            g.writelines(f.readlines()[:limit_chips + 1])
+        limited = os.path.join(root, "limited.csv")
+        t0 = time.perf_counter()
+        data_cleaner.main([f"--chips_dataset_csv={subset}",
+                           f"--output_chips_dataset_csv={limited}", "--clean_seg_maps",
+                           "--cleaning_method=limit", f"--observation_points_csv={obs_csv}",
+                           f"--seg_map_output_dir={root}/limited"])
+        limit_s = time.perf_counter() - t0
+        with open(limited, newline="") as f:
+            limited_rows = list(csv.DictReader(f))
+        check(len(limited_rows) == limit_chips, f"limit kept {len(limited_rows)} of {limit_chips}")
+        out["cleaner"] = dict(chips=len(manifest), kept=len(kept_rows), buffer_s=buffer_s,
+                              limit_chips=limit_chips, limit_s=limit_s, points=len(obs))
+        print(f"[data_prep] data_cleaner --drop_chips --cleaning_method=buffer: "
+              f"{len(kept_rows)} of {len(manifest)} chips kept in {buffer_s:.3f} s; "
+              f"--cleaning_method=limit over {limit_chips} seg maps and {len(obs)} points in "
+              f"{limit_s:.3f} s", flush=True)
+        clock.lap("cleaner")
+
+        # --- 2. the splitter --------------------------------------------------
+        t0 = time.perf_counter()
+        data_splitter.main([f"--input_file={cleaned}", f"--output_dir={root}/splits"])
+        split_s = time.perf_counter() - t0
+        counts = {}
+        for name in ("train", "val", "test"):
+            with open(os.path.join(root, "splits", f"{name}.csv"), newline="") as f:
+                counts[name] = len(list(csv.DictReader(f)))
+        check(sum(counts.values()) == len(kept_rows), f"splits {counts} of {len(kept_rows)}")
+        out["splitter"] = dict(counts=counts, split_s=split_s)
+        print(f"[data_prep] data_splitter (KMeans): {counts} in {split_s:.3f} s", flush=True)
+        clock.lap("splitter")
+
+        # --- 3. JPEG 2000 through libopenjp2 ---------------------------------
+        fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                "torch_fixtures")
+        try:
+            jp2.library()
+            reason = ""
+        except OSError as e:
+            reason = str(e)
+        if not reason:
+            got = jp2.read_jp2(os.path.join(fixtures, "s2_band.jp2"))
+            want = np.load(os.path.join(fixtures, "s2_band.npy"))
+            check(got.dtype == want.dtype and np.array_equal(got, want),
+                  "the JP2 fixture decodes to another array")
+        out["libopenjp2"] = dict(loads=not reason, reason=reason)
+        print(f"[data_prep] libopenjp2: " + ("loads; the JP2 fixture decodes equal to its "
+                                             "stored array" if not reason else
+                                             f"does not load here: {reason}"), flush=True)
+
+        # --- 4. matplotlib and the regression plot ----------------------------
+        try:
+            import matplotlib  # noqa: F401
+            present = True
+        except ImportError:
+            present = False
+        plot = os.path.join(root, "regression_test.png")
+        if present:
+            r = np.random.default_rng(5)
+            labels = r.uniform(0, 10, 1000)
+            plots.create_regression_plot(labels + r.normal(0, 1, 1000), labels,
+                                         {"test_RMSE": 1.0}, plot, "test")
+            with open(plot, "rb") as f:
+                check(f.read(8) == b"\x89PNG\r\n\x1a\n", "the regression plot is not a PNG")
+        else:
+            try:
+                plots.require_matplotlib()
+                refused = ""
+            except ImportError as e:
+                refused = str(e)
+            check("matplotlib" in refused, "no matplotlib, and the plot was not refused")
+        out["matplotlib"] = present
+        print(f"[data_prep] matplotlib: " + ("present; the regression plot written"
+                                             if present else "missing; model.plot_reg_results "
+                                             "is refused naming it"), flush=True)
+        clock.lap("jp2 and plot")
+
+        # --- 5. the compile cache, in two fresh interpreters ------------------
+        if on_card:
+            cache = os.path.join(root, "compile_cache")
+            os.makedirs(cache)
+            env = dict(os.environ, INSTAGEO_COMPILE_CACHE_DIR=cache)
+            recs = {}
+            for mode in ("build", "no_nvcc"):
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "chip_smoke._cache_child(sys.argv[1])", mode], env=env,
+                    cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                    text=True, timeout=600)
+                wall = time.perf_counter() - t0
+                check(proc.returncode == 0, f"compile cache child ({mode}): exit "
+                      f"{proc.returncode}\n{proc.stderr[-3000:]}")
+                recs[mode] = dict(json.loads(proc.stdout.strip().splitlines()[-1]), wall_s=wall)
+            lib = recs["build"]["lib"]
+            check(lib.startswith(cache) and os.path.exists(lib)
+                  and recs["build"]["built"] == ["flash_attn_fwd_sm90"]
+                  and recs["no_nvcc"]["built"] == [] and recs["no_nvcc"]["lib"] == lib
+                  and all(r["launches"] == 1 and r["finite"] for r in recs.values()),
+                  f"compile cache: {recs}")
+            out["compile_cache"] = recs
+            print(f"[data_prep] INSTAGEO_COMPILE_CACHE_DIR on an empty directory: a fresh "
+                  f"interpreter built flash_attn_fwd_sm90 there in "
+                  f"{recs['build']['build_s']['flash_attn_fwd_sm90']:.3f} s and launched it "
+                  f"(process {recs['build']['process_s']:.3f} s, wall "
+                  f"{recs['build']['wall_s']:.3f} s); a second loaded it with nvcc barred "
+                  f"(process {recs['no_nvcc']['process_s']:.3f} s, wall "
+                  f"{recs['no_nvcc']['wall_s']:.3f} s)", flush=True)
+            clock.lap("compile cache")
+        return out
     finally:
         tmp.cleanup()
 
@@ -3693,12 +4296,22 @@ def main() -> int:
     print(f"[run] {smi}: " + ", ".join(
         f"mode={m}: {ran['chips_per_s'][m]:.2f} chips/s, {ran['wall_s'][m]:.3f} s wall"
         for m in ran["wall_s"]), flush=True)
+    replicated = replica_phase(device, smi)
+    clock.lap("replica")
+    print(f"[replica] {smi}: " + ", ".join(
+        f"{name} {st['wall_s']:.3f} s" for name, st in replicated["stages"].items())
+        + f"; mode=replica {replicated['wall_s']:.3f} s wall", flush=True)
     models = serve_models_phase(device, smi)
     clock.lap("serve_models")
     print(f"[serve_models] {smi}: batch 64 " + ", ".join(
         f"{head} head {r['ms']:.3f} ms per predict" for head, r in models["heads"]["timing"].items())
         + "; " + ", ".join(f"gelu {g} {r['ms']:.3f} ms" for g, r in models["gelu"].items()),
         flush=True)
+    quantized = quant_phase(device, smi)
+    clock.lap("quant")
+    print(f"[quant] {smi}: batch 64 int8 {quantized['timing']['int8']['ms']:.3f} ms per "
+          f"predict, bf16 {quantized['timing']['bf16']['ms']:.3f}; fc1 GEMM "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in quantized["gemm"]["ms"].items()), flush=True)
     granuled = granule_phase(device, smi)
     clock.lap("granule")
     print(f"[granule] {smi}: " + "; ".join(
@@ -3716,7 +4329,8 @@ def main() -> int:
     print(f"[chip_ops] {smi}: process_tile_chips " + ", ".join(
         f"{s} {m['device']:.1f} ms on the card, {m['cpu']:.1f} on the CPU"
         for s, m in chip_ms.items()), flush=True)
-    created = chip_creator_phase(device, smi)
+    kept = tempfile.TemporaryDirectory()
+    created = chip_creator_phase(device, smi, keep=kept.name)
     clock.lap("chip_creator")
     card, host = created["runs"]["card"], created["runs"]["cpu"]
     print(f"[chip_creator] {smi}: {created['chips']} chips; wall {card['wall_s']:.3f} s on the "
@@ -3727,6 +4341,15 @@ def main() -> int:
           f"{created['chip_inference']['wall_s']:.3f} s; raster "
           f"{created['raster']['chips']} chips in {created['raster']['wall_s']['card']:.3f} s",
           flush=True)
+    prepared = data_prep_phase(device, smi, kept.name)
+    kept.cleanup()
+    clock.lap("data_prep")
+    print(f"[data_prep] {smi}: cleaner {prepared['cleaner']['buffer_s']:.3f} s (drop + buffer, "
+          f"{prepared['cleaner']['chips']} chips) + {prepared['cleaner']['limit_s']:.3f} s "
+          f"(limit, {prepared['cleaner']['limit_chips']}); splitter "
+          f"{prepared['splitter']['split_s']:.3f} s; libopenjp2 "
+          f"{'loads' if prepared['libopenjp2']['loads'] else 'missing'}; matplotlib "
+          f"{'present' if prepared['matplotlib'] else 'missing'}", flush=True)
     web = webapp_phase(device, smi)
     clock.lap("webapp")
     print(f"[webapp] {smi}: {web['chips']} chips, POST to completed {web['wall_s']:.3f} s ("
@@ -3804,6 +4427,10 @@ def main() -> int:
         k["launches_by_path"]["chip_creator"] = 0  # checked: chip creation launches none
         k["launches_by_path"]["chip_creator_chip_inference"] = route(
             created["chip_inference"]["launches"])
+        for stage, st in replicated["stages"].items():
+            k["launches_by_path"][f"replica_{stage}"] = route(st["counts"])
+        k["launches_by_path"]["quant_int8_predict"] = route(quantized["launches"]["int8"])
+        k["launches_by_path"]["quant_f32_predict"] = route(quantized["f32"]["launches"])
         k["launches_by_path"]["webapp"] = route(web["launches"])
         k["launches_by_path"]["webapp_job_process"] = route(web["worker_launches"])
         for variant, row in models["variants"].items():

@@ -15,6 +15,8 @@ records for resume, then run the chip pipeline, whose chip math runs on
 One deliberate difference: the JAX CLI caches its filtered records as
 Parquet (``filtered_obsv_records.parquet``); this one writes JSON
 (``filtered_obsv_records.json``), so it needs neither pandas nor pyarrow.
+It resumes a directory the JAX CLI started from its Parquet cache where
+pyarrow imports (``data/table.py:load_cached_records``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from instageo_tpu_torch.data.stac import create_records_with_items
 from instageo_tpu_torch.data.table import (
     Record,
     group_by,
-    load_records,
+    load_cached_records,
     read_csv,
     save_records,
     to_datetime,
@@ -165,8 +167,10 @@ def process_data_source(
     out_dir = flags.output_directory
     dataset_file = os.path.join(out_dir, f"{data_source.lower()}_dataset.json")
     records_file = os.path.join(out_dir, RECORDS_CACHE)
+    filtered_records = (load_cached_records(records_file) if os.path.exists(dataset_file)
+                        else None)
 
-    if not (os.path.exists(dataset_file) and os.path.exists(records_file)):
+    if filtered_records is None:
         logging.info("Creating %s dataset JSON.", data_source)
         os.makedirs(out_dir, exist_ok=True)
         client = client_func()
@@ -181,7 +185,6 @@ def process_data_source(
         logging.info("%s dataset JSON already created", data_source)
         with open(dataset_file) as f:
             dataset = json.load(f)
-        filtered_records = load_records(records_file)
 
     if flags.processing_method in ("download", "download-only"):
         dataset = localize_granules(dataset, out_dir, data_source)

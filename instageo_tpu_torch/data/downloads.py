@@ -8,8 +8,8 @@ library's ``urllib`` instead of ``requests``:
 * ``open_mf_tiff_dataset``: local band files -> stacked (T·C, H, W) array;
 * the legacy Sentinel-2 CDSE path: OAuth token management
   (``S2AuthState``), zip download + extraction, and ``open_mf_jp2_dataset``,
-  which decodes JP2 band files through OpenJPEG (OpenCV, imported when it is
-  called: a host-only path).
+  which decodes JP2 band files through the system's OpenJPEG library
+  (``data/jp2.py``, bound with ``ctypes``; no OpenCV).
 """
 
 from __future__ import annotations
@@ -195,24 +195,23 @@ def open_mf_jp2_dataset(
     band_files: Dict[str, str],
     scl_file: Optional[str] = None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """Stack JP2 band files (CDSE granules) via OpenJPEG (OpenCV).
+    """Stack JP2 band files (CDSE granules), cropped to the smallest, and
+    the SCL file's classes (None where it does not decode), through
+    ``libopenjp2`` (``data/jp2.py``; an ``OSError`` naming it where it does
+    not load).
 
     Georeferencing for CDSE JP2s comes from the granule metadata upstream.
     """
-    import cv2
+    from instageo_tpu_torch.data.jp2 import read_jp2
 
-    planes = []
-    for name, path in band_files.items():
-        arr = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-        if arr is None:
-            raise IOError(f"Cannot decode JP2 {path}")
-        planes.append(np.asarray(arr))
+    planes = [read_jp2(path) for path in band_files.values()]
     min_h = min(p.shape[0] for p in planes)
     min_w = min(p.shape[1] for p in planes)
     bands = np.stack([p[:min_h, :min_w] for p in planes])
     scl = None
     if scl_file:
-        scl_arr = cv2.imread(scl_file, cv2.IMREAD_UNCHANGED)
-        if scl_arr is not None:
-            scl = np.asarray(scl_arr)
+        try:
+            scl = read_jp2(scl_file)
+        except IOError:
+            scl = None
     return bands, scl

@@ -172,8 +172,8 @@ def parse_flags(argv: Sequence[str], table: Sequence[Flag] = COMMON_FLAGS,
 def window_size_with_default(flags: argparse.Namespace, default: int) -> int:
     """``window_size`` with the caller's default applied unless the flag was
     given on the command line (the JAX data cleaner registers the same name
-    with another default; its CLI is not ported, so this is the chip
-    creators' value)."""
+    with another default in absl's process-wide registry; the port's
+    cleaner has a table of its own, ``data_cleaner.CLEANER_FLAGS``)."""
     if "window_size" in flags.present or default == CHIP_WINDOW_DEFAULT:
         return int(flags.window_size)
     return default

@@ -12,7 +12,9 @@ names a CSV of label rasters, or with ``--is_bbox_feature`` a JSON of
 bounding boxes (the web-backend path); chips are cut on a fixed grid aligned
 to the label rasters / bboxes and QA-masked on ``--device`` (``cuda`` by
 default). S1 is not supported. The filtered records are cached as JSON
-(``filtered_raster_records.json``) where the JAX CLI writes Parquet.
+(``filtered_raster_records.json``) where the JAX CLI writes Parquet; a
+directory the JAX CLI started resumes from its Parquet cache where pyarrow
+imports.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from instageo_tpu_torch.data.stac import create_records_with_items
 from instageo_tpu_torch.data.table import (
     Record,
     explode,
-    load_records,
+    load_cached_records,
     read_csv,
     save_records,
     to_datetime,
@@ -121,8 +123,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     os.makedirs(out_dir, exist_ok=True)
     dataset_file = os.path.join(out_dir, f"{flags.data_source.lower()}_dataset.json")
     records_file = os.path.join(out_dir, RECORDS_CACHE)
+    filtered = load_cached_records(records_file) if os.path.exists(dataset_file) else None
 
-    if not (os.path.exists(dataset_file) and os.path.exists(records_file)):
+    if filtered is None:
         client = config["client_func"]()
         with_items = config["add_stac_items_func"](
             client, grid,
@@ -142,7 +145,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     else:
         with open(dataset_file) as f:
             dataset = json.load(f)
-        filtered = load_records(records_file)
 
     pipeline = config["pipeline_class"](
         output_directory=out_dir,

@@ -16,7 +16,9 @@ an output depends on them:
 * ``group_by`` (keys in sorted order, rows in order), ``drop_duplicates``
   (the first or last row of each key, in row order), ``explode``;
 * ``save_records`` / ``load_records``: the filtered records cached as JSON,
-  with their datetime columns.
+  with their datetime columns; ``load_cached_records`` also reads the
+  Parquet cache a JAX CLI wrote (``load_parquet_records``, through pyarrow
+  where it imports), so either package resumes the other's directory.
 """
 
 from __future__ import annotations
@@ -24,11 +26,12 @@ from __future__ import annotations
 import csv
 import io
 import json
+import logging
 import math
 import os
 import re
 from datetime import datetime, timedelta
-from typing import Any, Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 Record = Dict[str, Any]
 
@@ -180,6 +183,47 @@ def load_records(path: str) -> List[Record]:
             if r.get(c) is not None:
                 r[c] = datetime.fromisoformat(r[c])
     return rows
+
+
+def load_parquet_records(path: str) -> List[Record]:
+    """The records of a DataFrame that ``to_parquet`` wrote, read through
+    pyarrow (imported here), as ``load_records`` gives them: the saved
+    index left out, timestamps as ``datetime``, lists as lists, a missing
+    float as NaN (Parquet keeps pandas' NaN as a null)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = pq.read_table(path)
+    index = [c for c in (table.schema.pandas_metadata or {}).get("index_columns", [])
+             if isinstance(c, str)]
+    table = table.drop_columns(index)
+    floats = {f.name for f in table.schema if pa.types.is_floating(f.type)}
+    rows = table.to_pylist()
+    for r in rows:
+        for k, v in r.items():
+            if v is None and k in floats:
+                r[k] = math.nan
+            elif hasattr(v, "to_pydatetime"):
+                r[k] = v.to_pydatetime()
+    return rows
+
+
+def load_cached_records(json_path: str) -> Optional[List[Record]]:
+    """The filtered records cached at ``json_path`` (``save_records``'s
+    JSON), else in the Parquet file of the same name that a JAX CLI wrote,
+    where pyarrow imports; None where there is neither cache to read."""
+    if os.path.exists(json_path):
+        return load_records(json_path)
+    parquet_path = os.path.splitext(json_path)[0] + ".parquet"
+    if not os.path.exists(parquet_path):
+        return None
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        logging.warning("%s holds the records in Parquet, which is read through pyarrow; "
+                        "it is not installed, so the search runs again", parquet_path)
+        return None
+    return load_parquet_records(parquet_path)
 
 
 def to_datetime(value: Any) -> datetime:

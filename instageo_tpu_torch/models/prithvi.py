@@ -29,8 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from instageo_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
+from instageo_tpu_torch.ops._build import HostCounter
+from instageo_tpu_torch.ops.attention import IMPLS as KERNEL_IMPLS
 from instageo_tpu_torch.ops.attention import flash_attention_blo
+from instageo_tpu_torch.ops.quant import QUANTS, QuantLinear
 
 # ---------------------------------------------------------------------------
 # Sincos positional embeddings (numpy; static per model config)
@@ -129,6 +131,9 @@ def _sincos_from_values(embed_dim: int, values: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 GELUS = ("exact", "tanh", "bf16")
+# "kernel" and "plain" run ``FlashAttention``; "xla" runs ``xla_attention``.
+ATTN_IMPLS = KERNEL_IMPLS + ("xla",)
+xla_attn_calls = HostCounter()  # Attention forwards on the "xla" route
 
 
 _MATMUL_LAYERS = (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)
@@ -148,10 +153,30 @@ def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
     return None if p is None else p.to(dtype)
 
 
-def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+def _linear(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` applied in the compute ``dtype`` (input, weight and bias
-    cast to it)."""
+    cast to it); a ``QuantLinear`` runs its int8 product and returns
+    ``dtype``."""
+    if isinstance(layer, QuantLinear):
+        return layer(x)
     return F.linear(x.to(dtype), layer.weight.to(dtype), _cast(layer.bias, dtype))
+
+
+def _dense(dim_in: int, dim_out: int, quant: str, dtype: torch.dtype) -> nn.Module:
+    if quant not in QUANTS:
+        raise ValueError(f"quant={quant!r}; expected one of {QUANTS}")
+    return QuantLinear(dim_in, dim_out, dtype) if quant == "int8" else nn.Linear(dim_in, dim_out)
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The attention chain the JAX model leaves to XLA
+    (``instageo_tpu/models/prithvi.py:Attention``, ``attn_impl="xla"``), in
+    q's dtype: scores of ``q * scale`` and k, softmax in float32 cast back,
+    then the product with v. q/k/v (B, H, L, Dh) -> (B, L, H·Dh)."""
+    b, h, l, d = q.shape
+    scores = torch.matmul(q * d ** -0.5, k.transpose(-1, -2))
+    attn = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.matmul(attn, v).transpose(1, 2).reshape(b, l, h * d)
 
 
 class PatchEmbed3D(nn.Module):
@@ -200,19 +225,25 @@ class Attention(nn.Module):
     ``attn_impl``: ``"kernel"`` runs ``flash_attention_blo`` through the
     Hopper forward and backward kernels on a CUDA tensor (their plain
     versions on a CPU tensor); ``"plain"`` runs the same autograd Function
-    on the plain versions everywhere.
+    on the plain versions everywhere; ``"xla"`` runs ``xla_attention``, the
+    chain the JAX model runs outside its kernel (the route of a float32
+    model, whose dtype the bf16 kernels do not take).
+
+    ``quant="int8"``: ``qkv`` and ``proj`` are ``QuantLinear``. Quantizing
+    the fused (3D, D) weight per output row is the JAX model's per-slice
+    q/k/v quantization, since the output columns are independent.
     """
 
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "kernel",
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32, quant: str = "none") -> None:
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of {ATTN_IMPLS}")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.dtype = dtype
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = _dense(dim, 3 * dim, quant, dtype)
+        self.proj = _dense(dim, dim, quant, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, d = x.shape
@@ -220,7 +251,11 @@ class Attention(nn.Module):
         qkv = _linear(x, self.qkv, self.dtype).view(b, l, 3, h, d // h)
         # Heads-first views of the projection output; no copies.
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = flash_attention_blo(q, k, v, self.attn_impl)
+        if self.attn_impl == "xla":
+            xla_attn_calls.add()
+            out = xla_attention(q, k, v)
+        else:
+            out = flash_attention_blo(q, k, v, self.attn_impl)
         return _linear(out, self.proj, self.dtype)
 
 
@@ -228,15 +263,17 @@ class Mlp(nn.Module):
     """fc1 -> GELU -> fc2. ``gelu`` is the JAX ``tpu.gelu`` lowering:
     ``exact`` (erf in float32, timm's), ``tanh`` (the tanh approximation in
     float32) or ``bf16`` (erf in the compute dtype, no float32 round trip);
-    the result is in the compute dtype either way."""
+    the result is in the compute dtype either way. ``quant="int8"``: both
+    layers are ``QuantLinear``."""
 
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.float32, gelu: str = "exact") -> None:
+                 dtype: torch.dtype = torch.float32, gelu: str = "exact",
+                 quant: str = "none") -> None:
         super().__init__()
         if gelu not in GELUS:
             raise ValueError(f"gelu={gelu!r}; expected one of {GELUS}")
-        self.fc1 = nn.Linear(dim, hidden_dim)
-        self.fc2 = nn.Linear(hidden_dim, dim)
+        self.fc1 = _dense(dim, hidden_dim, quant, dtype)
+        self.fc2 = _dense(hidden_dim, dim, quant, dtype)
         self.dtype = dtype
         self.gelu = gelu
 
@@ -255,12 +292,12 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  attn_impl: str = "kernel", dtype: torch.dtype = torch.float32,
-                 gelu: str = "exact") -> None:
+                 gelu: str = "exact", quant: str = "none") -> None:
         super().__init__()
         self.norm1 = LayerNormF32(dim)
-        self.attn = Attention(dim, num_heads, attn_impl, dtype)
+        self.attn = Attention(dim, num_heads, attn_impl, dtype, quant)
         self.norm2 = LayerNormF32(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x).to(x.dtype))
@@ -339,6 +376,7 @@ class PrithviViT(nn.Module):
         attn_impl: str = "kernel",
         dtype: torch.dtype = torch.float32,
         gelu: str = "exact",
+        quant: str = "none",
     ) -> None:
         super().__init__()
         self.img_size = img_size
@@ -352,7 +390,7 @@ class PrithviViT(nn.Module):
             self.location_embed_enc = LocationEncoder(embed_dim, coords_scale_learn)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, attn_impl, dtype, gelu)
+            Block(embed_dim, num_heads, mlp_ratio, attn_impl, dtype, gelu, quant)
             for _ in range(depth))
         self.norm = LayerNormF32(embed_dim)
         self._pos_cache: Dict[tuple, torch.Tensor] = {}

@@ -37,6 +37,7 @@ from instageo_tpu_torch.models.prithvi import (
     TemporalEncoder,
     cast_matmul_weights,
 )
+from instageo_tpu_torch.ops.quant import QuantLinear
 from instageo_tpu_torch.models.registry import (
     PRITHVI_ARCHS,
     SEG_HEAD_KERNEL_SIZES,
@@ -207,6 +208,7 @@ class PrithviSeg(nn.Module):
         dropout_impl: str = "kernel",
         head_impl: str = "torch",
         gelu: str = "exact",
+        quant: str = "none",
     ) -> None:
         super().__init__()
         if head_impl not in HEADS:
@@ -231,7 +233,9 @@ class PrithviSeg(nn.Module):
             attn_impl=attn_impl,
             dtype=dtype,
             gelu=gelu,
+            quant=quant,
         )
+        self.quant = quant
         if head_impl == "fast":
             dims = fast_head_dims(arch.embed_dim * temporal_step)
             for i in range(3):
@@ -295,7 +299,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     norms and BatchNorm statistics, N(0, 0.02) cls token, 0.1 for the
     ``_tl`` encoders' learnable scales."""
     for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+        if isinstance(module, (nn.Linear, QuantLinear, nn.Conv2d, nn.Conv3d,
+                               nn.ConvTranspose2d)):
             w = module.weight
             bound = 1.0 / float(w.shape[1] * w[0, 0].numel()) ** 0.5
             w.uniform_(-bound, bound, generator=generator)
@@ -329,6 +334,7 @@ def create_prithvi_seg(
     dropout_impl: str = "kernel",
     head_impl: str = "torch",
     gelu: str = "exact",
+    quant: str = "none",
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
 ) -> PrithviSeg:
@@ -338,7 +344,9 @@ def create_prithvi_seg(
     ``dtype`` is the compute dtype. ``param_dtype`` is the dtype the matmul
     weights are stored in: ``dtype`` by default (serving), float32 for
     training, as the JAX model keeps float32 params; norms, BatchNorm and
-    the cls token are float32 either way. Load trained weights with
+    the cls token are float32 either way, and so are the weights of the
+    int8 layers under ``quant="int8"`` (``ops/quant.py``, the encoder's
+    four dense families; inference only). Load trained weights with
     ``load_state_dict(..., strict=True)``; ``train_mode`` readies the model
     for training."""
     if variant not in PRITHVI_ARCHS:
@@ -349,7 +357,7 @@ def create_prithvi_seg(
                            temporal_step=temporal_step, image_size=image_size,
                            in_chans=num_bands, depth=depth, attn_impl=attn_impl,
                            dtype=dtype, dropout_impl=dropout_impl, head_impl=head_impl,
-                           gelu=gelu)
+                           gelu=gelu, quant=quant)
     model.to_empty(device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return cast_matmul_weights(model, param_dtype or dtype).eval()

@@ -3,8 +3,9 @@
 The port's counterpart of ``instageo_tpu/native``, with the same API:
 ``available``, ``read_info``, ``read_geotiff_native`` and
 ``read_batch_native``. The library is built at first use with ``g++``
-(no ``make``) into ``build/instageo_tpu_torch/native/<hash of the source
-and flags>/libinstageo_native.so`` beside the package, under a temporary
+(no ``make``) into ``<root>/native/<hash of the source and
+flags>/libinstageo_native.so`` (the root of ``utils/compile_cache.py``,
+``build/instageo_tpu_torch`` beside the package by default), under a temporary
 name that is renamed into place, so that concurrent builds (test workers,
 loader threads) never load a half-written library. When it cannot be built
 or loaded, ``available()`` is False, the reason is logged once
@@ -28,7 +29,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from instageo_tpu_torch.ops._build import BUILD_ROOT, HostCounter
+from instageo_tpu_torch.ops._build import HostCounter
+from instageo_tpu_torch.utils.compile_cache import build_root
 
 log = logging.getLogger(__name__)
 
@@ -55,7 +57,7 @@ def lib_path() -> Path:
     """Where the library of this source and these flags is built."""
     h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
     h.update(SOURCE.read_bytes())
-    return BUILD_ROOT / "native" / h.hexdigest()[:16] / "libinstageo_native.so"
+    return build_root() / "native" / h.hexdigest()[:16] / "libinstageo_native.so"
 
 
 def build() -> Path:

@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
-``build/instageo_tpu_torch/<hash of the sources and flags>/lib<name>.so``
-beside the package, then loaded with ``ctypes``. A changed source gets a new
-directory; an unchanged one is loaded from the existing build.
+``<root>/<hash of the sources and flags>/lib<name>.so``, then loaded with
+``ctypes``; the root is ``utils/compile_cache.py:build_root()``
+(``build/instageo_tpu_torch`` beside the package unless
+``INSTAGEO_COMPILE_CACHE_DIR`` or ``INSTAGEO_COMPILE_CACHE=0`` says
+otherwise). A changed source gets a new directory; an unchanged one is
+loaded from the existing build.
 
 ``LaunchCounter`` counts each kernel's launches; ``CapturedGraph`` captures
 a function into a CUDA graph and keeps those counts true through capture
@@ -25,8 +28,9 @@ import weakref
 from pathlib import Path
 from typing import Dict, Iterable
 
+from instageo_tpu_torch.utils.compile_cache import build_root
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "instageo_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -172,7 +176,7 @@ def _lib_path(name: str) -> Path:
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
+    return build_root() / h.hexdigest()[:16] / f"lib{name}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

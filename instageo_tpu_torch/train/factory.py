@@ -36,10 +36,13 @@ log = logging.getLogger(__name__)
 #   ("accepted", allowed values)  - validated, with no meaning on one card;
 #   ("refused", allowed, item)    - any other value raises
 #                                   NotImplementedError naming the ROADMAP item.
-# Every attention and dropout value takes the port's kernel route: the port
-# has no XLA path. ``steps_per_call`` (``steps_per_call()``) groups k
-# optimizer steps into one CUDA graph on the card; ``prefetch_depth`` bounds
-# the thread loader's queue. Keys the JAX package does not read are ignored,
+# Every ``attn_impl`` and ``dropout_impl`` value takes the port's kernel
+# route, except that a float32 model's attention takes the "xla" route
+# (``build_model``), as the JAX default ``attn_impl: xla`` runs it; ``quant:
+# int8`` builds the encoder's dense layers as ``ops/quant.py:QuantLinear``
+# (inference only: the trainer refuses it). ``steps_per_call``
+# (``steps_per_call()``) groups k optimizer steps into one CUDA graph on the
+# card; ``prefetch_depth`` bounds the thread loader's queue. Keys the JAX package does not read are ignored,
 # as there.
 TPU_KEYS = {
     "precision": ("honoured", ("bf16", "f32")),
@@ -59,7 +62,7 @@ TPU_KEYS = {
     "sp": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "fsdp": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "zero1": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
-    "quant": ("refused", ("none",), "ROADMAP item 10 (ops/quant.py)"),
+    "quant": ("honoured", ("none", "int8")),
     "block_layout": ("refused", ("loop", "scan"), "ROADMAP item 11 (parallel/, pp)"),
     "remat": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
     "gelu": ("honoured", ("exact", "tanh", "bf16")),
@@ -154,12 +157,19 @@ def build_model(cfg: Any, device=None, training: bool = False, seed: int = 0) ->
     """The ``PrithviSeg`` a config describes, on ``device`` (``cuda``
     unless the caller asks for the CPU), randomly initialised from
     ``seed``. Compute dtype from ``tpu.precision``; parameters float32 for
-    ``training``, else in the compute dtype."""
+    ``training``, else in the compute dtype. The attention takes the
+    Hopper kernels in bf16 and the "xla" route (``models/prithvi.py:
+    xla_attention``) in float32, whose dtype the kernels do not take; the
+    route is chosen here, from the config, and logged."""
     tpu_cfg = check_tpu_config(cfg)
     head_impl = str(cfg.model.get("head_impl", "torch"))
     if head_impl not in HEADS:
         raise ValueError(f"model.head_impl={head_impl!r} — expected one of {HEADS}")
     dtype = compute_dtype(cfg)
+    attn_impl = "kernel" if dtype == torch.bfloat16 else "xla"
+    quant = str(tpu_cfg.get("quant", "none"))
+    log.info("%s: attention on the %s route (%s compute), quant %s",
+             cfg.model.model_name, attn_impl, str(dtype).replace("torch.", ""), quant)
     return create_prithvi_seg(
         str(cfg.model.model_name),
         num_classes=1 if cfg.get("is_reg_task", False) else int(cfg.model.num_classes),
@@ -169,8 +179,10 @@ def build_model(cfg: Any, device=None, training: bool = False, seed: int = 0) ->
         depth=int(cfg.model.get("depth", -1)),
         dtype=dtype,
         param_dtype=torch.float32 if training else dtype,
+        attn_impl=attn_impl,
         head_impl=head_impl,
         gelu=str(tpu_cfg.get("gelu", "exact")),
+        quant=quant,
         device=resolve_device(device),
         seed=seed,
     )

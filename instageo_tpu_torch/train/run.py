@@ -1,7 +1,7 @@
 """Run CLI: ``python -m instageo_tpu_torch.train.run --config-name=... mode=...``.
 
-Counterpart of ``instageo_tpu/train/run.py`` with its four core modes and
-the same config files, keys, required values and last-line JSON:
+Counterpart of ``instageo_tpu/train/run.py`` with every mode of it and the
+same config files, keys, required values and last-line JSON:
 
 * ``stats``: per-band mean/std and class weights of the training chips;
 * ``train``: ``train.num_epochs`` epochs with validation, the best
@@ -9,7 +9,9 @@ the same config files, keys, required values and last-line JSON:
   ``outputs/<date>/<time>``), the resolved config in ``.hydra/``, the
   metrics log, an energy estimate and the model's FLOPs;
 * ``eval``: the sliding-window test crops of ``test_filepath`` through a
-  checkpoint, with ROC-AUC;
+  checkpoint, with ROC-AUC; with ``model.plot_reg_results`` on a regression
+  task, ``regression_test.png`` in the run directory (``train/plots.py``,
+  matplotlib);
 * ``chip_inference``: one prediction GeoTIFF per chip of ``test_filepath``
   under ``<root_dir>/predictions``;
 * ``sliding_inference``: whole granules from a chip-creator dataset JSON
@@ -19,7 +21,9 @@ the same config files, keys, required values and last-line JSON:
 * ``export``: the serving forward of ``checkpoint_path``'s model as a
   ``torch.export`` artifact (``serve/export.py``) at ``export.path``
   (``<root_dir>/predict.pt2`` by default), with a symbolic batch unless
-  ``export.batch_size`` pins it, class ids or ``export.probabilities``.
+  ``export.batch_size`` pins it, class ids or ``export.probabilities``;
+* ``replica``: stats → train → eval on the val and test splits → a report
+  against the reference's published row (``train/replica.py``).
 
 The run is on ``cuda`` unless the config's top-level ``device`` says
 otherwise (``device=cpu``); no config file sets it. Seed 1042, as the
@@ -58,11 +62,8 @@ from instageo_tpu_torch.device import resolve_device
 log = logging.getLogger("instageo_tpu_torch.run")
 
 SEED = 1042
-
-# Modes of the JAX CLI that wait for a later slice.
-_NOT_PORTED = {
-    "replica": "mode=replica (train/replica.py) is not ported yet: ROADMAP item 1",
-}
+MODES = ("stats", "train", "eval", "chip_inference", "sliding_inference", "export",
+         "replica")
 
 
 def _make_dataset(filepath: str, cfg: Any, preprocess_func, include_filenames=False,
@@ -114,10 +115,7 @@ def main(argv: Optional[List[str]] = None) -> Any:
     log.info("Resolved config:\n%s", cfg.to_yaml())
     start_time = time.time()
     mode = cfg.get("mode", "train")
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[mode])
-    if mode not in ("stats", "train", "eval", "chip_inference", "sliding_inference",
-                    "export"):
+    if mode not in MODES:
         raise ValueError(f"Unknown mode {mode!r}")
     device = resolve_device(cfg.get("device"))
     batch_size = int(cfg.train.get("batch_size", 8))
@@ -139,14 +137,16 @@ def main(argv: Optional[List[str]] = None) -> Any:
         print(json.dumps(out))
         return out
 
+    if mode == "replica":
+        # Each stage re-enters this main through the saved .hydra config.
+        from instageo_tpu_torch.train.replica import run_replica
+
+        return run_replica(cfg)
+
     from instageo_tpu_torch.train.factory import build_teacher, create_model
     from instageo_tpu_torch.train.trainer import Trainer
 
     is_reg = bool(cfg.get("is_reg_task", False))
-    if mode == "eval" and is_reg and bool(cfg.model.get("plot_reg_results", False)):
-        # The JAX CLI reads the key only in eval.
-        raise NotImplementedError(
-            "model.plot_reg_results: train/plots.py is not ported yet: ROADMAP item 12")
 
     if mode == "train":
         check_required_flags(["root_dir", "train_filepath", "valid_filepath"], cfg)
@@ -231,6 +231,15 @@ def main(argv: Optional[List[str]] = None) -> Any:
     model = create_model(cfg, seed=SEED, device=device)
 
     if mode == "eval":
+        # The JAX CLI reads the key only in eval.
+        plot_reg = is_reg and bool(cfg.model.get("plot_reg_results", False))
+        if plot_reg:
+            from instageo_tpu_torch.train.plots import (
+                create_regression_plot,
+                require_matplotlib,
+            )
+
+            require_matplotlib()  # refused before the evaluation, not after it
         img_size = int(cfg.test.get("img_size", 512))
         crop_size = int(cfg.test.get("crop_size", 224))
         stride = int(cfg.test.get("stride", 224))
@@ -246,8 +255,16 @@ def main(argv: Optional[List[str]] = None) -> Any:
         trainer = Trainer(cfg, model, device=device)
         # The eval batch is the loader's batch times each image's crops.
         crops = max(1, (img_size - crop_size) // stride + 1) ** 2
-        metrics = trainer.run_eval_epoch(iter(test_loader), batch_size * crops, "test")
+        metrics = trainer.run_eval_epoch(iter(test_loader), batch_size * crops, "test",
+                                         collect_outputs=plot_reg)
         del test_loader
+        if plot_reg and "_preds" in metrics:
+            out_png = os.path.join(_run_dir(cfg), "regression_test.png")
+            create_regression_plot(metrics.pop("_preds"), metrics.pop("_labels"), metrics,
+                                   out_png, "test")
+            log.info("Regression plot written to %s", out_png)
+        metrics.pop("_preds", None)
+        metrics.pop("_labels", None)
         log.info("Evaluation took %.1fs", time.time() - start_time)
         print(json.dumps(metrics))
         return metrics

@@ -201,6 +201,16 @@ class Trainer:
         self._groups: Dict[tuple, _Group] = {}
         self._group_metrics: Dict[tuple, EpochMetrics] = {}
 
+    def _reject_quant_training(self) -> None:
+        """``tpu.quant`` is a serving setting: rounding has a zero gradient,
+        so a quantized model would train nothing. Checked at the training
+        entry points, not in ``__init__``: ``mode=eval`` and
+        ``ModelServer.evaluate`` build a Trainer too, and evaluating a
+        quantized model is what the setting is for (``ops/quant.py``)."""
+        if str((self.cfg.get("tpu") or {}).get("quant", "none")) != "none":
+            raise ValueError("tpu.quant is inference-only (ops/quant.py) — unset it "
+                             "for mode=train")
+
     # -- one step ------------------------------------------------------------
 
     def _loss(self, logits: torch.Tensor, labels: torch.Tensor,
@@ -296,6 +306,7 @@ class Trainer:
         """One optimizer step on a device batch; returns the loss (on the
         device, not synchronised). Dropout draws its seeds from
         ``generator`` (a CPU generator)."""
+        self._reject_quant_training()
         train_mode(self.model, generator)
         if self.schedule is not None:
             set_learning_rate(self.optimizer, self.schedule(self.step))
@@ -463,6 +474,7 @@ class Trainer:
         ``steps_per_call`` k > 1, full groups of k batches run grouped (see
         the module docstring). ``losses``: a list that gets each step's loss
         (a device tensor), in order."""
+        self._reject_quant_training()
         k = self._k_for(batch_size)
         if k == 1:
             metrics = EpochMetrics(self.num_classes, self.device, self.is_reg)
@@ -593,6 +605,7 @@ class Trainer:
         e), e counting the epochs of a restored run too. Saves through
         ``checkpointer`` when the monitored metric improves (NaN never
         does)."""
+        self._reject_quant_training()
         num_epochs = int(_get(self.cfg, "train", "num_epochs", 1))
         batch_size = int(_get(self.cfg, "train", "batch_size", 8))
         history: Dict = {}

@@ -421,6 +421,63 @@ def test_raster_chip_creator_equals_jax(tmp_path, monkeypatch, variant):
     assert len(labels) == (0 if variant == "bbox_feature" else len(chips))
 
 
+@pytest.mark.parametrize("creator", ["points", "raster"])
+def test_port_resumes_a_directory_the_jax_cli_started(tmp_path, monkeypatch, creator):
+    """The JAX CLI searches and writes its Parquet records cache; the port's
+    CLI, run on that directory with the STAC search raising, reads the
+    cache (pyarrow is installed here) and writes the chips, seg maps and
+    manifest the JAX run wrote, file for file, and no JSON cache."""
+    items = _granules(str(tmp_path), "HLS", ["2022-05-25T10:00:00Z"])
+    _search_returns(monkeypatch, items)
+    if creator == "points":
+        spec = CASES["hls_points_cloud"]
+        obs = _observations(str(tmp_path / "obs.csv"), spec["date"])
+        args = spec["args"] + [f"--dataframe_path={obs}"]
+        modules = (jax_cc, chip_creator)
+    else:
+        args = ["--data_source=HLS", "--chip_size=32", "--num_steps=1", "--mask_types=cloud",
+                "--temporal_tolerance=3", f"--records_file={_label_rasters(str(tmp_path))}",
+                f"--raster_path={tmp_path}"]
+        modules = (jax_rcc, raster_chip_creator)
+    jdir, pdir = str(tmp_path / "out_jax"), str(tmp_path / "out_port")
+    modules[0].FLAGS.unparse_flags()
+    modules[0].FLAGS(["prog"] + args + [f"--output_directory={jdir}"])
+    modules[0].main(None)
+    shutil.copytree(jdir, pdir)
+    for name in os.listdir(pdir):  # the search's results stay; the chips go
+        if not (name.endswith("_dataset.json") or name.endswith(".parquet")):
+            path = os.path.join(pdir, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+
+    def no_search(self, **kw):
+        raise AssertionError("the STAC search ran on resume")
+
+    monkeypatch.setattr(stac.StacClient, "search", no_search)
+    modules[1].main(args + [f"--output_directory={pdir}", "--device=cpu"])
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    assert files(jdir) == files(pdir)
+    chips = [f for f in files(jdir) if f.startswith("chips/")]
+    assert chips and not any(f.startswith("filtered_") and f.endswith(".json")
+                             for f in files(pdir))
+    for rel in files(jdir):
+        a, b = os.path.join(jdir, rel), os.path.join(pdir, rel)
+        if rel.endswith(".tif"):
+            with JaxGeoTiffReader(a) as ra, JaxGeoTiffReader(b) as rb:
+                assert np.array_equal(ra.read(), rb.read(), equal_nan=True), rel
+                assert ra.read().dtype == rb.read().dtype, rel
+                assert ra.transform.to_gdal() == rb.transform.to_gdal(), rel
+                assert (ra.crs, ra.nodata) == (rb.crs, rb.nodata), rel
+        elif rel.endswith(".csv"):
+            assert _csv_rows(a, jdir) == _csv_rows(b, pdir), rel
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read(), rel
+
+
 def test_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
     """``--device`` is ``cuda`` by default: without a card both CLIs raise
     before any work; nothing falls back to the CPU."""

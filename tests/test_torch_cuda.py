@@ -24,8 +24,11 @@ one. The chip ops on the card equal the CPU's bit for bit; the granule
 path launches the kernel once per block and chip batch and stitches the
 fused predict's output bit for bit. A web task on the card equals the
 CPU's (chips and manifest byte for byte, argmax on at least 0.99 of decided
-pixels); a float32 model's task fails at stage 2 naming the dtype, with no
-plain attention run in the kernel's place.
+pixels), in bf16 through the kernel and in float32 through the "xla"
+attention route with no kernel launched. The int8 (W8A8) model on the card
+against the CPU (``int8_matmul`` bit for bit; logits within 0.05 x max
+|logit|, argmax on at least 0.99 of decided pixels), and ``mode=replica``
+on the card.
 """
 
 import json
@@ -702,17 +705,20 @@ def test_chip_creator_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
         assert (outs["cuda"] / f).read_bytes() == (outs["cpu"] / f).read_bytes(), f
 
 
-def test_web_task_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
-    """A web task (the tiny model in bf16, as the port serves on the card; one
-    96 px HLS granule, 32 px chips) through the three stages drained in process
-    with ``INSTAGEO_DEVICE=cuda`` and with ``cpu``: the chips and the manifest
-    byte for byte; the predictions' argmax agrees on at least 0.99 of decided
-    pixels (the CPU logits' top-2 gap at least 0.01 x their max |logit|, as
-    ``chip_smoke.py`` decides serving pixels)."""
+def _web_tasks(tmp_path, monkeypatch, precision):
+    """A web task of the toy model in ``precision`` (one 96 px HLS granule,
+    32 px chips) through the three stages drained in process, with
+    ``INSTAGEO_DEVICE=cuda`` and then ``cpu``: the chips and the manifest
+    equal byte for byte; returns (forward launches of the card's task, its
+    "xla" attention calls, the CPU model's decided pixels, those on which the
+    two tasks' predictions agree). A pixel is decided where the CPU logits'
+    top-2 gap is at least 0.01 x their max |logit|, as ``chip_smoke.py``
+    decides serving pixels."""
     from instageo_tpu_torch.configs.config import load_config, merge
     from instageo_tpu_torch.data import stac
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
     from instageo_tpu_torch.data.sources import hls
+    from instageo_tpu_torch.models import prithvi
     from instageo_tpu_torch.ops.preprocess import preprocess_chips, raw_to_device
     from instageo_tpu_torch.serve.server import ModelServer
     from instageo_tpu_torch.train.checkpointing import BestCheckpointer
@@ -723,7 +729,7 @@ def test_web_task_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
 
     item, bbox = helpers.granule_world(str(tmp_path))
     cfg = load_config("config", overrides={**helpers.model_overrides(),
-                                           "tpu.precision": "bf16"})
+                                           "tpu.precision": precision})
     ckpt = BestCheckpointer(str(tmp_path / "run")).save(
         {"model": create_model(cfg, seed=0, device="cpu").state_dict()})
     registry, models = helpers.write_model(str(tmp_path), cfg.to_yaml(), ckpt)
@@ -743,8 +749,13 @@ def test_web_task_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
                     model_key="toy_model", model_size="base", db_path=dbp)
         task.save()
         task.start_data_processing()
+        launches0, xla0 = tattn.launches.count, prithvi.xla_attn_calls.count
         assert queue.drain(db_path=dbp) == 3
-        assert Task.load(task.task_id, dbp).status == "completed", Task.load(task.task_id, dbp).stages
+        rec = Task.load(task.task_id, dbp)
+        assert rec.status == "completed", rec.stages
+        if dev == "cuda":
+            launches = tattn.launches.count - launches0
+            xla_calls = prithvi.xla_attn_calls.count - xla0
         dirs[dev] = task.data_dir
     chips = sorted(os.listdir(os.path.join(dirs["cpu"], "chips")))
     assert chips and chips == sorted(os.listdir(os.path.join(dirs["cuda"], "chips")))
@@ -770,39 +781,28 @@ def test_web_task_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
                 preds.append(r.read(1))
         same += int((preds[0] == preds[1])[ok].sum())
         decided += int(ok.sum())
+    return launches, xla_calls, decided, same
+
+
+def test_web_task_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """A web task of the tiny model in bf16, as the port serves on the card,
+    on the card and on the CPU (``_web_tasks``): the predictions' argmax
+    agrees on at least 0.99 of decided pixels; the card's task ran the
+    attention kernel."""
+    launches, xla_calls, decided, same = _web_tasks(tmp_path, monkeypatch, "bf16")
+    assert launches > 0 and xla_calls == 0
     assert decided > 0 and same >= 0.99 * decided
 
 
 def test_web_task_f32_model_fails_on_card_naming_dtype(cuda, tmp_path, monkeypatch):
-    """An f32 model config on ``INSTAGEO_DEVICE=cuda`` is not served (the
-    Hopper attention kernels take bf16 only): stage 2 fails the task with the
-    wrapper's message naming the dtype, writes no predictions, launches no
-    kernel and never runs the plain attention or SDPA in its place."""
+    """A float32 model config on ``INSTAGEO_DEVICE=cuda`` (ROADMAP fault 7,
+    which this test pinned while the task failed naming the dtype): the
+    factory puts its attention on the "xla" route, so the task completes on
+    the card and equals the CPU's (``_web_tasks``; argmax on at least 0.99 of
+    decided pixels), launches no kernel, and runs neither the kernel's plain
+    version nor SDPA in the route's place."""
     import torch.nn.functional as F
 
-    from instageo_tpu_torch.configs.config import load_config
-    from instageo_tpu_torch.data import stac
-    from instageo_tpu_torch.data.sources import hls
-    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
-    from instageo_tpu_torch.train.factory import create_model
-    from instageo_tpu_torch.webapp import queue, settings
-    from instageo_tpu_torch.webapp.tasks import Task
-    import torch_webapp_helpers as helpers  # tests/ is on sys.path (no __init__.py)
-
-    item, bbox = helpers.granule_world(str(tmp_path))
-    cfg = load_config("config", overrides=helpers.model_overrides())
-    assert cfg.tpu.precision == "f32"
-    ckpt = BestCheckpointer(str(tmp_path / "run")).save(
-        {"model": create_model(cfg, seed=0, device="cpu").state_dict()})
-    registry, models = helpers.write_model(str(tmp_path), cfg.to_yaml(), ckpt)
-    monkeypatch.setenv("MODELS_REGISTRY_PATH", registry)
-    monkeypatch.setenv("MODELS_PATH", models)
-    monkeypatch.setattr(stac.StacClient, "search",
-                        lambda self, **kw: [stac.StacItem.from_dict(helpers.copy_item(item))])
-    monkeypatch.setattr(hls, "retrieve_stac_metadata", hls.retrieve_stac_metadata.__wrapped__)
-    monkeypatch.setattr(stac, "_load_asset", stac._load_asset.__wrapped__)
-    monkeypatch.setattr(settings.settings, "TASKS_DATA_DIR", str(tmp_path / "tasks"))
-    monkeypatch.setattr(settings.settings, "DEVICE", "cuda")
     plain_calls = []
 
     def recording(fn):
@@ -815,21 +815,87 @@ def test_web_task_f32_model_fails_on_card_naming_dtype(cuda, tmp_path, monkeypat
                         recording(tattn.flash_attention_fwd_plain))
     monkeypatch.setattr(F, "scaled_dot_product_attention",
                         recording(F.scaled_dot_product_attention))
-    dbp = str(tmp_path / "web.sqlite")
-    task = Task(bboxes=[bbox], parameters={"date": "2024-06-01", "chip_size": 32,
-                                           "num_steps": 1, "data_source": "HLS"},
-                model_key="toy_model", model_size="base", db_path=dbp)
-    task.save()
-    task.start_data_processing()
-    launches0 = tattn.launches.count
-    assert queue.drain(db_path=dbp) == 2
-    rec = Task.load(task.task_id, dbp)
-    assert rec.status == "failed", rec.stages
-    assert rec.stages["data_processing"]["status"] == "completed", rec.stages
-    assert rec.stages["model_prediction"]["status"] == "failed", rec.stages
-    assert ("the attention kernels take bfloat16; q is torch.float32"
-            in rec.stages["model_prediction"]["error"]), rec.stages
-    pred_dir = os.path.join(rec.data_dir, "predictions")
-    assert not os.path.isdir(pred_dir) or os.listdir(pred_dir) == []
-    assert tattn.launches.count == launches0
+    launches, xla_calls, decided, same = _web_tasks(tmp_path, monkeypatch, "f32")
+    assert launches == 0 and xla_calls > 0
     assert plain_calls == []
+    assert decided > 0 and same >= 0.99 * decided
+
+
+def test_int8_on_card_equals_cpu(cuda):
+    """``tpu.quant: int8`` on the card: ``int8_matmul`` equals the CPU's bit
+    for bit (the same int8 values and scales, an exact int32 product, the
+    same float32 rescale); a shape ``torch._int_mm`` does not take raises;
+    the tiny quantized model launches the forward kernel once per block and
+    its logits are within 0.05 x max |logit| of the CPU's, argmax on at least
+    0.99 of decided pixels."""
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    from instageo_tpu_torch.ops.quant import int8_matmul
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 37, 256, generator=g)
+    w = torch.randn(96, 256, generator=g) * 0.05
+    b = torch.randn(96, generator=g)
+    got = int8_matmul(x.to(cuda), w.to(cuda), b.to(cuda)).cpu()
+    assert torch.equal(got, int8_matmul(x, w, b))
+    with pytest.raises(ValueError, match="M > 16"):
+        int8_matmul(x[0, :16].to(cuda), w.to(cuda))
+
+    kw = dict(depth=2, image_size=32, num_bands=6, num_classes=3, quant="int8",
+              dtype=torch.bfloat16)
+    cpu_model = create_prithvi_seg("prithvi_eo_tiny", device="cpu", **kw)
+    card_model = create_prithvi_seg("prithvi_eo_tiny", device="cuda", **kw)
+    card_model.load_state_dict(cpu_model.state_dict())
+    chips = torch.randn(8, 6, 1, 32, 32, generator=g)
+    before = tattn.launches.count
+    with torch.inference_mode():
+        card = card_model(chips.to(cuda), channels_last=True).float().cpu()
+        ref = cpu_model(chips, channels_last=True).float()
+    assert tattn.launches.count - before == 2
+    scale = ref.abs().max()
+    assert (card - ref).abs().max() <= 0.05 * scale
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) >= 0.01 * scale
+    agree = (card.argmax(-1) == ref.argmax(-1))[decided].float().mean().item()
+    assert decided.any() and agree >= 0.99
+
+
+def test_replica_on_card(cuda, tmp_path):
+    """``mode=replica`` on the card (the tiny model in bf16 over 8 synthetic
+    chips): the report names the card, the kernels ran in training, and the
+    test split's metrics are a direct ``mode=eval`` of the best checkpoint."""
+    from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
+    from instageo_tpu_torch.train import replica
+    from instageo_tpu_torch.train.run import main as run_main
+
+    rng = np.random.default_rng(3)
+    lines = ["Input,Label"]
+    for i in range(8):
+        arr = rng.integers(1, 10000, size=(6, 32, 32)).astype(np.uint16)
+        lab = np.repeat(np.repeat(rng.choice([0, 1], size=(2, 2)), 16, 0), 16, 1)
+        tr = Affine.from_origin(499980 + i * 960, 4100040, 30, 30)
+        write_geotiff(str(tmp_path / f"chip_{i}.tif"), arr, transform=tr, crs=32633, nodata=0)
+        write_geotiff(str(tmp_path / f"seg_{i}.tif"), lab[None].astype(np.int16),
+                      transform=tr, crs=32633, nodata=-1)
+        lines.append(f"chip_{i}.tif,seg_{i}.tif")
+    (tmp_path / "chips.csv").write_text("\n".join(lines) + "\n")
+    csv_path, run_dir = tmp_path / "chips.csv", tmp_path / "replica"
+    overrides = [f"root_dir={tmp_path}", f"train_filepath={csv_path}",
+                 f"valid_filepath={csv_path}", f"test_filepath={csv_path}",
+                 f"run_dir={run_dir}", "model.model_name=prithvi_eo_tiny", "model.depth=2",
+                 "model.load_pretrained_weights=False", "dataloader.img_size=32",
+                 "dataloader.bands=[0,1,2,3,4,5]", "dataloader.no_data_value=0",
+                 "dataloader.num_workers=0", "dataloader.mean=[5000,5000,5000,5000,5000,5000]",
+                 "dataloader.std=[3000,3000,3000,3000,3000,3000]", "train.ignore_index=-1",
+                 "train.batch_size=4", "train.num_epochs=1", "test.img_size=32",
+                 "test.crop_size=32", "test.stride=32", "tpu.precision=bf16",
+                 "replica.task=sen1floods11", "replica.require_pretrained=False"]
+    fwd0, bwd0 = tattn.launches.count, tattn.bwd_launches.count
+    report = run_main(["mode=replica"] + overrides)
+    assert torch.cuda.get_device_name(0) in report["hardware"]
+    assert tattn.launches.count > fwd0 and tattn.bwd_launches.count > bwd0
+    assert (run_dir / "REPORT.md").exists() and (run_dir / "report.json").exists()
+    direct = run_main(["--config-path", str(run_dir / ".hydra"), "--config-name", "config",
+                       "mode=eval", f"checkpoint_path={report['checkpoint']}",
+                       f"run_dir={tmp_path / 'direct'}"])
+    for col, key in replica._EVAL_KEYS.items():
+        assert abs(report["metrics"]["test"][col] / 100.0 - direct[key]) <= 1e-3, col

@@ -258,16 +258,15 @@ def test_native_batch_and_a_corrupt_file(built, tmp_path):
 
 def test_native_build_is_under_build_and_concurrent_builds_agree(built, tmp_path):
     """The library sits under build/instageo_tpu_torch/native/<hash>/; two
-    fresh interpreters building into an empty build root at once both load
+    fresh interpreters building into an empty ``INSTAGEO_COMPILE_CACHE_DIR`` at once both load
     a whole library, with the same bytes at the same path."""
     build_root = os.path.join(ROOT, "build", "instageo_tpu_torch", "native")
     assert str(built).startswith(build_root) and built.is_file()
-    code = ("import sys; from pathlib import Path\n"
-            "from instageo_tpu_torch import native\n"
-            "native.BUILD_ROOT = Path(sys.argv[1])\n"
+    code = ("from instageo_tpu_torch import native\n"
             "assert native.available(), native.unavailable_reason\n"
             "print(native.lib_path())\n")
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+    env = dict(os.environ, INSTAGEO_COMPILE_CACHE_DIR=str(tmp_path))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for _ in range(2)]
     outs = [p.communicate(timeout=300) for p in procs]

@@ -40,11 +40,11 @@ def jax_models():
     return out
 
 
-def _port_model(variables, temporal_step):
+def _port_model(variables, temporal_step, attn_impl="kernel"):
     arch = get_arch("prithvi_eo_tiny", in_chans=6, num_frames=temporal_step,
                     img_size=32, depth=2)
     model = create_prithvi_seg("prithvi_eo_tiny", temporal_step=temporal_step,
-                               device="cpu", **KW)
+                               attn_impl=attn_impl, device="cpu", **KW)
     model.load_state_dict(seg_state_dict_from_jax(variables, arch), strict=True)
     return model
 
@@ -71,6 +71,40 @@ def test_seg_forward_matches_jax(jax_models, temporal_step, size, jax_attn):
                                atol=TOKENS_ATOL)
     np.testing.assert_allclose(logits.numpy(), np.asarray(logits_ref), rtol=0,
                                atol=LOGITS_ATOL)
+
+
+def test_f32_model_takes_the_xla_route(jax_models):
+    """A ``tpu.precision: f32`` model's attention takes the "xla" route, the
+    JAX default's chain, chosen by the factory from the config (the bf16
+    kernels do not take float32); bf16 keeps the kernel route. The route
+    holds the JAX f32 model to the same bounds as the kernel's plain
+    version, and counts its calls."""
+    from instageo_tpu_torch.configs.config import load_config
+    from instageo_tpu_torch.models import prithvi
+    from instageo_tpu_torch.train.factory import build_model
+
+    model, variables = jax_models[1]
+    x = np.random.default_rng(7).standard_normal((2, 6, 1, 32, 32)).astype(np.float32)
+    logits_ref, feats_ref = model.apply(variables, jnp.asarray(x), return_features=True)
+    port = _port_model(variables, 1, attn_impl="xla")
+    prithvi.xla_attn_calls.reset()
+    with torch.no_grad():
+        logits, feats = port(torch.from_numpy(x), return_features=True)
+    assert prithvi.xla_attn_calls.count == 2  # one per block
+    np.testing.assert_allclose(feats.numpy(), np.asarray(feats_ref), rtol=0,
+                               atol=TOKENS_ATOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(logits_ref), rtol=0,
+                               atol=LOGITS_ATOL)
+
+    overrides = {"model.model_name": "prithvi_eo_tiny", "model.depth": 2,
+                 "dataloader.img_size": 32, "dataloader.bands": [0, 1, 2, 3, 4, 5],
+                 "model.num_classes": 3}
+    impls = {}
+    for precision in ("f32", "bf16"):
+        cfg = load_config("config", overrides={**overrides, "tpu.precision": precision})
+        built = build_model(cfg, device="cpu")
+        impls[precision] = {b.attn.attn_impl for b in built.prithvi_encoder.blocks}
+    assert impls == {"f32": {"xla"}, "bf16": {"kernel"}}
 
 
 @pytest.mark.parametrize("temporal_step", [1, 2])

@@ -153,7 +153,8 @@ def test_eval_matches_jax_run_eval_epoch(chip_dir, tmp_path):
 def test_regression_plot_key_is_read_in_eval_only(chip_dir, tmp_path):
     """``model.plot_reg_results`` on a regression config: ``train`` and
     ``chip_inference`` run, as in the JAX CLI, which reads the key only in
-    ``eval``; ``eval`` raises until the plots are ported."""
+    ``eval``; ``eval`` writes ``regression_test.png`` into its run
+    directory (``train/plots.py``)."""
     reg = ["device=cpu", "is_reg_task=True", "model.plot_reg_results=True"]
     run_dir = tmp_path / "run"
     hist = run.main(["mode=train"] + reg + _overrides(chip_dir, run_dir))
@@ -161,14 +162,18 @@ def test_regression_plot_key_is_read_in_eval_only(chip_dir, tmp_path):
     ckpt = run_dir / "instageo_best_checkpoint"
     assert run.main(["mode=chip_inference", f"checkpoint_path={ckpt}"] + reg
                     + _overrides(chip_dir, tmp_path / "infer")) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        run.main(["mode=eval", f"checkpoint_path={ckpt}"] + reg + _overrides(chip_dir, tmp_path))
+    eval_dir = tmp_path / "eval"
+    metrics = run.main(["mode=eval", f"checkpoint_path={ckpt}"] + reg
+                       + _overrides(chip_dir, eval_dir))
+    assert np.isfinite(metrics["test_RMSE"]) and "_preds" not in metrics
+    with open(eval_dir / "regression_test.png", "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
 
 
 def test_cli_refusals():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["mode=train", "root_dir=/r", "train_filepath=a", "valid_filepath=b"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
+    with pytest.raises(ValueError, match="root_dir"):
         run.main(["mode=replica", "device=cpu"])
     with pytest.raises(ValueError, match="checkpoint_path"):
         run.main(["mode=sliding_inference", "device=cpu", "root_dir=/r", "test_filepath=a"])

@@ -160,6 +160,13 @@ def test_grouped_steps_match_the_jax_scan():
 
     cfg = load_config("config", overrides=SCAN_OVERRIDES)
     model = factory.build_model(cfg, device="cpu", training=True)
+    # The loss bound below (1e-5 after 6 AdamW steps) is tighter than the
+    # spread between equivalent float32 attention chains after 6 steps: the
+    # factory's "xla" route lands outside it, the kernel's plain version
+    # inside. The grouping is what this test holds, so it keeps the route it
+    # was set against; test_torch_models.py holds the "xla" route to JAX.
+    for blk in model.prithvi_encoder.blocks:
+        blk.attn.attn_impl = "plain"
     arch = get_arch("prithvi_eo_tiny", in_chans=6, num_frames=1, img_size=32,
                     depth=len(model.prithvi_encoder.blocks))
     model.load_state_dict(seg_state_dict_from_jax(host_variables, arch))

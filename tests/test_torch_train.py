@@ -340,19 +340,22 @@ def test_fit_learns_the_toy_task():
 
 def test_trainer_refuses_what_is_not_ported():
     """What the port does not run raises; grad_accum, distillation, the
-    regression task, steps_per_call, checkpointing, the GELU lowerings and
-    the scan block layout are ported and build."""
+    regression task, steps_per_call, checkpointing, the GELU lowerings, the
+    scan block layout and ``tpu.quant`` (inference only: its training
+    entry points refuse it) are ported and build."""
     model = create_prithvi_seg("prithvi_eo_tiny", depth=1, image_size=32,
                                param_dtype=torch.float32, device="cpu")
-    for cfg in ({"tpu": {"tp": 2}}, {"tpu": {"quant": "int8"}},
-                {"tpu": {"block_layout": "pipeline"}}):
+    for cfg in ({"tpu": {"tp": 2}}, {"tpu": {"block_layout": "pipeline"}}):
         with pytest.raises(NotImplementedError):
             Trainer(cfg, model, device="cpu")
     for cfg in ({"train": {"grad_accum": 2}}, {"train": {"distillation": True}},
                 {"tpu": {"steps_per_call": "auto"}}, {"tpu": {"steps_per_call": 4}},
                 {"is_reg_task": True}, {"tpu": {"gelu": "tanh"}},
-                {"tpu": {"block_layout": "scan"}}):
+                {"tpu": {"block_layout": "scan"}}, {"tpu": {"quant": "int8"}}):
         Trainer(cfg, model, device="cpu")
+    with pytest.raises(ValueError, match="inference-only"):
+        Trainer({"tpu": {"quant": "int8"}}, model, device="cpu").run_train_epoch(
+            iter([]), torch.Generator(), 8)
     for value in (0, "fast", 2.5):
         with pytest.raises(ValueError, match="steps_per_call"):
             Trainer({"tpu": {"steps_per_call": value}}, model, device="cpu")
