@@ -105,7 +105,7 @@ Phases, one line each (any failure raises and exits non-zero):
     ms on each;
 12. chip_creator: observations to chips to predictions, as a user runs the
     data CLIs (in-process, the STAC search answered with items of the
-    granule tile: no network): 20,000 labelled points in EPSG:4326 over the
+    granule tile: no network): 5,000 labelled points in EPSG:4326 over the
     tile through ``instageo_tpu_torch.data.chip_creator`` (HLS, 224 px,
     cloud masking, three steps 5 days apart that pick the three granules)
     with ``--device=cuda`` and ``--device=cpu``: every file equal byte for
@@ -134,8 +134,28 @@ Phases, one line each (any failure raises and exits non-zero):
     (launches 24 per chip batch; the COG = the worker-run one bit for bit)
     and with the plain attention (argmax on decided pixels); ``python -m
     instageo_tpu_torch.webapp.main`` in a fresh interpreter;
-14. one JSON line ``{"kernels": [...]}``;
-15. last line: ``{"ok": true, "device": {...}}``.
+14. parallel: ``parallel/`` as a user runs it (``parallel_phase``): the
+    600M recipe (``configs/prithvi600_v5e8.yaml``: Prithvi-EO-V2-600M at
+    full width and depth, FSDP, ZeRO-1, grad_accum 2, steps_per_call 4,
+    head dropout on, random weights from the run's seed) under
+    ``python -m torch.distributed.run --nproc-per-node <visible cards> -m
+    instageo_tpu_torch.train.run`` over synthetic 13-band 224 px chips, 8
+    optimizer steps at the global batch 128; its plain twin (the same CLI
+    in one process, ``tpu.fsdp=False tpu.zero1=False``, captured groups):
+    each step's loss within 1e-3 relative, ms per step, each rank's
+    parameter and moment bytes and peak memory, launches per step counted
+    around the train epoch alone (``metrics.jsonl``'s ``train_launches``:
+    #1 and #3 once per block per micro-batch on the sm90 route, #6 once
+    per head dropout per micro-batch); with two cards or more, the crop
+    yaml as DP, tp=2, pp=2 and tp=2 sp, each within 1e-3 of one process;
+    then ``tpu.remat`` at the crop model's full width (V1-100M, L 589,
+    batch 8): 2 forward launches per block per step against 1; with the
+    backward on its atomic-free kernel, losses and parameters bit for bit
+    against a run without; on the default backward, each step's loss
+    within 1e-3 (the first bit for bit); peak memory of each; with one
+    card visible, one line says what needs two;
+15. one JSON line ``{"kernels": [...]}``;
+16. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
 ``configs/multitemporal_crop_classification.yaml``.
@@ -187,6 +207,7 @@ KERNEL_SHAPES = [
     (16, 16, 785, 64, "merged", "contiguous"),
     (4, 16, 1025, 80, "merged", "contiguous"),
     (8, 16, 589, 64, "merged", "contiguous"),  # the web stage 2's 300M at batch 8
+    (64, 16, 257, 80, "merged", "qkv"),  # the 600M recipe's micro-batch of 64
 ]
 # The forward kernels' symbols, by route, as the profiler names them.
 FWD_KERNEL_SYMBOL = {"wgmma": "flash_attn_fwd_sm90_kernel", "mma_sync": "flash_attn_fwd_kernel"}
@@ -203,6 +224,7 @@ BWD_SHAPES = [
     (8, 16, 513, 80, "heads_first"),
     (2, 16, 1025, 80, "heads_first"),
     (8, 16, 513, 80, "bloq"),
+    (64, 16, 257, 80, "merged"),  # the 600M recipe's micro-batch of 64
 ]
 # The five dropout inputs of one batch-8 training step of the crop model: the
 # four upscaling blocks' ConvTranspose outputs and the head's last dropout.
@@ -674,6 +696,19 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         check(torch.equal(held_mask, mask) and torch.equal(held_out, out),
               f"the seed from device memory gives another mask than by value at {shape}")
         del held_out, held_mask
+        # An element offset (a data-parallel rank's first row): the mask is
+        # the stream from that element, by value and from device memory,
+        # on whole 8-element units and element by element.
+        for offset in (n // shape[0] * (shape[0] // 2), 12345, (1 << 40) + 3):
+            ref = tdrop.philox_bits(n, i, device, start=offset).reshape(shape) >= \
+                tdrop.threshold(p)
+            for seed in (i, (seeds, 1)):
+                off_out, off_mask = tdrop.fused_dropout_fwd(x, p, seed, offset)
+                check(torch.equal(off_mask, ref) and torch.equal(
+                    off_out, tdrop.dropout_apply(x, ref, p)),
+                    f"dropout at element offset {offset} is not philox_bits(start={offset}) "
+                    f"at {shape}: {(off_mask != ref).sum().item()} of {n} differ")
+            del ref, off_out, off_mask
         out0, mask0 = tdrop.fused_dropout_fwd(x, 0.0, seed=i)
         check(bool(mask0.all()) and torch.equal(out0, x), "p = 0 keeps everything")
         xr = x.detach().requires_grad_()
@@ -1577,7 +1612,7 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
     ``chip_inference_from_paths`` at batch 64 with each decoder, in turns;
     a loader epoch without the decoded-chip cache, with it cold and warm;
     the time to a loader's first batch with a worker thread and a worker
-    process, in turns. ``extra``: config overrides (a CPU rehearsal's
+    process, one each. ``extra``: config overrides (a CPU rehearsal's
     image size)."""
     import torch
 
@@ -1701,7 +1736,7 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
         ds = run._make_dataset(f"{data_root}/first.csv", cfg,
                                run._train_preprocess(cfg, augment=False), seed=SEED)
         first = {"thread": [], "process": []}
-        for mode in ("thread", "process", "process", "thread"):
+        for mode in ("thread", "process"):
             t0 = time.perf_counter()
             loader = create_dataloader(ds, 8, num_workers=1, worker_mode=mode, device=device)
             batches = iter(loader)
@@ -2457,7 +2492,8 @@ def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: in
     2. the int8 model on the card against the same config on the CPU, on
        ``cpu_chips`` chips: max |logit diff| within LOGIT_TOL of max |logit|,
        argmax agreement at least ARGMAX_AGREEMENT on decided pixels;
-    3. its export artifact in a fresh interpreter against the server;
+    3. its export artifact in a fresh interpreter against the server, at
+       ``batch``;
     4. the Trainer refusing it in training;
     5. ``int8_matmul`` (quantize, ``torch._int_mm``, rescale; the weight
        quantized once, as a served layer holds it) against ``F.linear`` in
@@ -2557,8 +2593,8 @@ def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: in
         del cpu_server, xc, q_logits
         clock.lap("int8 card vs CPU")
 
-        # --- 3. the export artifact in a fresh interpreter ------------------
-        art = _artifact_check(servers["int8"], x, tmp.name, depth, on_card)
+        # --- 3. the export artifact in a fresh interpreter, at one batch ----
+        art = _artifact_check(servers["int8"], x, tmp.name, depth, on_card, batches=(batch,))
         print(f"[quant] int8 export artifact: {art['bytes']} bytes (< {4 * art['params']}), "
               f"exported in {art['export_s']:.3f} s; a fresh interpreter in "
               f"{art['fresh_interpreter_s']:.3f} s: launches {art['child']['launches']}, "
@@ -3108,7 +3144,7 @@ def chip_ops_phase(device, bands: np.ndarray, fmask: np.ndarray, chip: int = 256
 
 # The chip creator phase: observations over the granule tile, dated so that
 # the three temporal steps (5 days apart, ±2 days) pick the three granules.
-OBS_POINTS = 20_000
+OBS_POINTS = 5_000
 OBS_DATE = "2023-06-16"
 CHIP_CREATOR_FLAGS = ["--data_source=HLS", "--chip_size=224", "--mask_types=cloud",
                       "--min_count=1", "--temporal_step=5", "--num_steps=3",
@@ -4172,28 +4208,287 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
               f"/api/health answered {first_answer_s:.3f} s after the start "
               f"({fresh['workers']['count']} workers), /api/models "
               f"{len(fresh_models)} models; stopped on SIGTERM, exit 0", flush=True)
-        # What a bare interpreter pays for the imports each stage's process pays.
-        bare = json.loads(subprocess.run(
-            [sys.executable, "-c", "import json, time; t = time.perf_counter(); import torch; "
-             "a = time.perf_counter(); import torch._dynamo; "
-             "print(json.dumps([a - t, time.perf_counter() - a]))"],
-            capture_output=True, text=True, check=True, timeout=300).stdout)
-        print(f"[webapp] a bare interpreter: import torch {bare[0]:.3f} s, import "
-              f"torch._dynamo {bare[1]:.3f} s", flush=True)
         clock.lap("fresh interpreter")
         return dict(chips=n, wall_s=wall, stages_s=stages, jobs=parts, server_s=server_s,
                     layers=layers, tiles=tile_runs, launches=inproc["kernel"]["launches"],
                     worker_launches=stage2.get("launches"),
                     inproc_s={k: v["seconds"] for k, v in inproc.items()},
                     inproc_peak_device_bytes=inproc["kernel"]["peak_device_bytes"],
-                    agreement=agreement, decided=decided, fresh_s=first_answer_s,
-                    bare_import_s=dict(torch=bare[0], dynamo=bare[1]))
+                    agreement=agreement, decided=decided, fresh_s=first_answer_s)
     finally:
         if server is not None:
             server.close()
         os.environ.clear()
         os.environ.update(saved_env)
         tmp.cleanup()
+
+
+PARALLEL_CONFIG = "prithvi600_v5e8"
+PARALLEL_STEPS = 8          # two groups of the recipe's steps_per_call: 4
+PARALLEL_LOSS_RTOL = 1e-3   # recipe vs plain twin, each step's loss
+PARALLEL_RUN_TIMEOUT_S = 480
+
+
+def _metrics_log(run_dir: str) -> dict:
+    """The run CLI's metrics.jsonl: the epoch record, the complexity record
+    and the ranks record, merged."""
+    out = {}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        for line in f:
+            out.update(json.loads(line))
+    return out
+
+
+def _recipe_run(argv: list, nproc: int, run_dir: str) -> dict:
+    """The run CLI as a user starts it: under ``torch.distributed.run``
+    with ``nproc`` processes, or as ``python -m`` when ``nproc`` is 0.
+    Returns its wall seconds and its metrics log."""
+    cmd = [sys.executable, "-m"]
+    if nproc:
+        cmd += ["torch.distributed.run", "--standalone", f"--nproc-per-node={nproc}", "-m"]
+    cmd += ["instageo_tpu_torch.train.run", *argv, f"run_dir={run_dir}"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.getcwd()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=PARALLEL_RUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd[:8])} ... exited {proc.returncode}: "
+          f"{proc.stdout[-1500:]} {proc.stderr[-6000:]}")
+    lines = [line for line in proc.stderr.splitlines() if "steps_per_call" in line
+             or "placement" in line]
+    return dict(wall_s=wall, log=_metrics_log(run_dir), notes=lines[-4:],
+                last=json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
+def _remat_check(device, model_kw: dict, cfg: dict, data: dict, batch: int, steps: int):
+    """``tpu.remat`` at the crop model's full width, from the same weights,
+    inputs and seeds (``steps`` optimizer steps each). With the backward on
+    its atomic-free kernel (``flash_attn_bwd.cu``, the route deterministic
+    mode takes: the wgmma backward adds dQ's partial sums in an order that
+    changes from run to run), remat against no remat bit for bit, losses
+    and parameters; then remat on the default (wgmma) backward: its
+    launches, its first loss bit for bit and each step's within
+    GRAPH_LOSS_REL_TOL. Launches per step and peak memory of each run."""
+    import torch
+
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    from instageo_tpu_torch.ops import attention as tattn
+    from instageo_tpu_torch.train.trainer import Trainer
+
+    on_card = device.type == "cuda"
+    t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
+    x, y = _crop_batch(batch, t, size, classes, seed=11, data=data)
+    runs = {}
+    for name, remat, atomic_free in (("plain", False, True), ("remat", True, True),
+                                     ("remat_default", True, False)):
+        model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                                   remat=remat, device=device, seed=0)
+        trainer = Trainer(cfg, model, device=device)
+        xb, yb = trainer.prepare_batch(x, y, batch)
+        gen = torch.Generator().manual_seed(0)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        route = (mock.patch.object(tattn, "bwd_route", lambda d: "mma_sync") if atomic_free
+                 else contextlib.nullcontext())
+        with route:
+            # --- this run's training path: counts from 0, read right after --
+            reset_counts()
+            losses = [trainer.train_step(xb, yb, gen) for _ in range(steps)]
+            counts = read_counts()
+            # ------------------------------------------------------------------
+        runs[name] = dict(
+            losses=[float(v) for v in losses], counts=counts,
+            params={n: p.detach().clone() for n, p in model.named_parameters()},
+            peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+        del model, trainer
+        gc.collect()
+    plain, remat, default = runs["plain"], runs["remat"], runs["remat_default"]
+    depth = len([k for k in plain["params"] if k.endswith("attn.qkv.weight")])
+    if on_card:
+        for name, fwd, mma in (("plain", 1, 1), ("remat", 2, 1), ("remat_default", 2, 0)):
+            want = {"flash_attn_fwd": fwd * depth * steps, "flash_attn_fwd_mma": 0,
+                    "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": mma * depth * steps}
+            got = {k: runs[name]["counts"][k] for k in want}
+            check(got == want, f"{name}: launches {got} over {steps} steps, expected {want}")
+    difference = _first_difference(remat, plain)
+    check(difference is None, f"remat vs no remat on the atomic-free backward: {difference}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(default["losses"], plain["losses"]))
+    check(default["losses"][0] == plain["losses"][0],
+          f"remat's first loss {default['losses'][0]} is not the plain {plain['losses'][0]}")
+    check(loss_rel <= GRAPH_LOSS_REL_TOL,
+          f"remat on the default backward vs no remat: loss rel {loss_rel}")
+    return dict(loss_rel=loss_rel, launches={k: r["counts"] for k, r in runs.items()},
+                launches_per_step={k: {n: v / steps for n, v in r["counts"].items()}
+                                   for k, r in runs.items()},
+                peak_bytes={k: r["peak_bytes"] for k, r in runs.items()},
+                losses={k: r["losses"] for k, r in runs.items()})
+
+
+def _multi_card_runs(device, smi: str, nproc: int, extra=(), steps: int = 4) -> dict:
+    """With ``nproc`` >= 2 cards: the crop yaml at full width under
+    ``torch.distributed.run`` as DP over every card, ``tpu.tp=2``,
+    ``tpu.pp=2`` and ``tpu.tp=2 tpu.sp=true`` (8 chips per card per step,
+    ``steps`` steps), against the same CLI in one process: ms per step,
+    the port's collectives per step (rank 0's train epoch), each step's
+    loss (each mode within PARALLEL_LOSS_RTOL of one process)."""
+    from instageo_tpu_torch.configs.config import load_config_from_argv
+
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    batch = 8 * nproc
+    base = [f"--config-name={CROP_CONFIG}", "mode=train", f"root_dir={root}",
+            f"train_filepath={root}/train.csv", f"valid_filepath={root}/val.csv",
+            "model.load_pretrained_weights=False", "train.num_epochs=1",
+            f"train.batch_size={batch}", *extra]
+    if device.type != "cuda":
+        base.append("device=cpu")
+    cfg = load_config_from_argv(base)
+    dl = cfg.dataloader
+    runs = {}
+    try:
+        _write_dataset(root, batch * steps, batch, len(dl.bands), int(dl.img_size),
+                       int(cfg.model.num_classes))
+        for name, n, more in (("one_process", 0, []), ("dp", nproc, []),
+                              ("tp2", nproc, ["tpu.tp=2"]),
+                              ("pp2", nproc, ["tpu.pp=2"]),
+                              ("tp2_sp", nproc, ["tpu.tp=2", "tpu.sp=true"])):
+            run = _recipe_run(base + more, n, os.path.join(root, name))
+            log = run["log"]
+            r0 = log["ranks"][0]
+            runs[name] = dict(
+                placement=log["placement"], losses=log["train_step_losses"],
+                ms_per_step=log["train_time_s"] * 1e3 / steps,
+                collectives_per_step={k: v / steps for k, v in r0["train_collectives"].items()})
+    finally:
+        tmp.cleanup()
+    ref = runs["one_process"]["losses"]
+    for name, r in runs.items():
+        r["loss_rel_max"] = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+        print(f"[parallel] {smi}: crop yaml, {name} ({r['placement']}, "
+              f"{nproc if name != 'one_process' else 1} process(es), global batch {batch}): "
+              f"{r['ms_per_step']:.3f} ms per step, collectives per step (rank 0) "
+              f"{json.dumps(r['collectives_per_step'])}, losses within "
+              f"{r['loss_rel_max']:.3g} of one process", flush=True)
+    for name, r in runs.items():
+        check(r["loss_rel_max"] <= PARALLEL_LOSS_RTOL,
+              f"{name} over {nproc} cards vs one process: {r['loss_rel_max']}")
+    return runs
+
+
+def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict,
+                   batch: int = 128, n_chips: int = 64, n_val: int = 16, extra=(),
+                   nproc: int = 0, remat_batch: int = 8, remat_steps: int = 2) -> dict:
+    """``parallel/`` on the card (see the module docstring, phase 14):
+    the 600M recipe under ``torch.distributed.run`` with one process per
+    visible card against its plain twin, then remat in process. ``extra``:
+    more overrides (a tiny model for a CPU rehearsal); ``nproc``: the
+    processes (the visible cards by default)."""
+    import torch
+
+    from instageo_tpu_torch.configs.config import load_config_from_argv
+    from instageo_tpu_torch.models.registry import get_arch
+
+    on_card = device.type == "cuda"
+    nproc = nproc or torch.cuda.device_count()
+    if on_card:  # the recipe's processes need the card's memory
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    base = [f"--config-name={PARALLEL_CONFIG}", "mode=train", f"root_dir={root}",
+            f"train_filepath={root}/train.csv", f"valid_filepath={root}/val.csv",
+            "model.load_pretrained_weights=False", "train.num_epochs=1",
+            f"train.batch_size={batch}", f"dataloader.cache_dir={root}/cache", *extra]
+    if not on_card:
+        base.append("device=cpu")
+    cfg = load_config_from_argv(base)
+    dl = cfg.dataloader
+    size, classes = int(dl.img_size), int(cfg.model.num_classes)
+    depth = get_arch(str(cfg.model.model_name), depth=int(cfg.model.depth)).depth
+    k = int(cfg.tpu.steps_per_call)
+    try:
+        t0 = time.perf_counter()
+        bands = max(dl.bands) + 1  # the recipe picks 6 of the HLS file's 13
+        _write_dataset(root, n_chips, n_val, bands, size, classes - 1)
+        # PARALLEL_STEPS global batches: the chips listed again and again.
+        with open(os.path.join(root, "train.csv")) as f:
+            header, *rows = f.read().splitlines()
+        rows = (rows * (-(-PARALLEL_STEPS * batch // len(rows))))[:PARALLEL_STEPS * batch]
+        with open(os.path.join(root, "train.csv"), "w") as f:
+            f.write("\n".join([header, *rows]) + "\n")
+        print(f"[parallel] {n_chips} + {n_val} chips of {bands} bands, {size} px, "
+              f"{PARALLEL_STEPS} global batches of {batch} in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        recipe = _recipe_run(base, nproc, os.path.join(root, "recipe"))
+        twin = _recipe_run(base + ["tpu.fsdp=False", "tpu.zero1=False"], 0,
+                           os.path.join(root, "twin"))
+    finally:
+        tmp.cleanup()
+    out = {"nproc": nproc, "batch": batch, "steps_per_call": k}
+    for name, run in (("recipe", recipe), ("twin", twin)):
+        log = run["log"]
+        out[name] = dict(
+            placement=log["placement"], losses=log["train_step_losses"], wall_s=run["wall_s"],
+            ms_per_step=log["train_time_s"] * 1e3 / PARALLEL_STEPS,
+            ranks=[{key: r[key] for key in ("param_bytes", "moment_bytes", "peak_device_bytes")}
+                   for r in log["ranks"]],
+            train_launches=[r["train_launches"] for r in log["ranks"]],
+            launches_per_step=[{k: v / PARALLEL_STEPS for k, v in r["train_launches"].items()}
+                               for r in log["ranks"]],
+            notes=run["notes"])
+        r = out[name]
+        print(f"[parallel] {smi}: {name} ({r['placement']}, "
+              f"{nproc if name == 'recipe' else 1} process(es)): {batch} global batch, "
+              f"{r['ms_per_step']:.3f} ms per step (train epoch wall / {PARALLEL_STEPS}), "
+              f"{r['wall_s']:.3f} s run wall; per rank "
+              + "; ".join(f"params {q['param_bytes'] / 2**30:.3f} GiB, moments "
+                          f"{q['moment_bytes'] / 2**30:.3f} GiB, peak "
+                          f"{(q['peak_device_bytes'] or 0) / 2**30:.3f} GiB"
+                          for q in r["ranks"])
+              + f"; launches per step {json.dumps(r['launches_per_step'][0])}; "
+              f"losses {json.dumps(r['losses'])}; {r['notes']}", flush=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["recipe"]["losses"], out["twin"]["losses"])]
+    out["loss_rel_max"] = max(rel)
+    print(f"[parallel] recipe vs twin: each step's loss within {max(rel):.3g} relative "
+          f"(<= {PARALLEL_LOSS_RTOL})", flush=True)
+    for name in ("recipe", "twin"):
+        losses = out[name]["losses"]
+        check(len(losses) == PARALLEL_STEPS and all(math.isfinite(v) for v in losses),
+              f"{name}: step losses {losses}")
+        if on_card:
+            accum = int(cfg.train.grad_accum)
+            drops = 5 if str(cfg.model.head_impl) == "torch" else 4  # the head's Dropouts
+            for r, c in enumerate(out[name]["launches_per_step"]):
+                check(c["flash_attn_fwd_sm90"] == c["flash_attn_bwd_sm90"] == depth * accum
+                      and c["flash_attn_fwd"] == c["flash_attn_bwd"] == 0,
+                      f"{name} rank {r}: launches per step {c}, expected {depth * accum} "
+                      "forward and backward on the sm90 route")
+                check(c["fused_dropout"] == drops * accum,
+                      f"{name} rank {r}: {c['fused_dropout']} dropout launches per step")
+    check(out["recipe"]["placement"] == ("fsdp" if nproc else "single")
+          and out["twin"]["placement"] == "single",
+          f"placements {out['recipe']['placement']}, {out['twin']['placement']}")
+    check(max(rel) <= PARALLEL_LOSS_RTOL,
+          f"recipe vs plain twin step losses differ by {rel} (rtol {PARALLEL_LOSS_RTOL})")
+    if nproc < 2:
+        print(f"[parallel] {nproc} card(s) visible: tensor, pipeline and sequence "
+              "parallelism and a data axis of more than one rank need 2 cards; they are "
+              "held on the CPU with gloo (tests/test_torch_parallel.py)", flush=True)
+    else:
+        out["multi"] = _multi_card_runs(device, smi, nproc, extra)
+    remat = _remat_check(device, model_kw, train_cfg, data, remat_batch, remat_steps)
+    out["remat"] = remat
+    print(f"[parallel] {smi}: remat at batch {remat_batch} over {remat_steps} steps: "
+          f"bit-equal to no remat on the atomic-free backward; on the default backward each "
+          f"step's loss within {remat['loss_rel']:.3g} (first bit-equal); "
+          f"launches per step {json.dumps(remat['launches_per_step'])}; peak "
+          + ", ".join(f"{k_} {(v or 0) / 2**30:.3f} GiB" for k_, v in remat["peak_bytes"].items()),
+          flush=True)
+    return out
 
 
 def _build_native() -> None:
@@ -4359,6 +4654,9 @@ def main() -> int:
                       "tiles/s" for k in ("cold", "warm"))
           + f"; in-process stage 2 + 3 {web['inproc_s']['kernel']:.3f} s", flush=True)
 
+    para = parallel_phase(device, smi, crop_model, crop_train_cfg, crop_data)
+    clock.lap("parallel")
+
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
     csrc = "instageo_tpu_torch/ops/csrc/"
@@ -4433,6 +4731,11 @@ def main() -> int:
         k["launches_by_path"]["quant_f32_predict"] = route(quantized["f32"]["launches"])
         k["launches_by_path"]["webapp"] = route(web["launches"])
         k["launches_by_path"]["webapp_job_process"] = route(web["worker_launches"])
+        for name in ("recipe", "twin"):  # rank 0's train epoch
+            k["launches_by_path"][f"parallel_{name}"] = para[name]["train_launches"][0][k["name"]]
+        for name in ("plain", "remat", "remat_default"):
+            k["launches_by_path"][f"parallel_{name}_crop"] = route(
+                para["remat"]["launches"][name])
         for variant, row in models["variants"].items():
             k["launches_by_path"][f"serve_{variant}"] = (
                 row["fwd_launches_per_predict"] - row["mma_sync_launches"]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from instageo_tpu_torch.ops._build import HostCounter
 from instageo_tpu_torch.ops.attention import IMPLS as KERNEL_IMPLS
@@ -239,24 +240,41 @@ class Attention(nn.Module):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of {ATTN_IMPLS}")
-        self.num_heads = num_heads
+        self.num_heads = self.num_heads_local = num_heads
+        self.head_dim = dim // num_heads
         self.attn_impl = attn_impl
         self.dtype = dtype
         self.qkv = _dense(dim, 3 * dim, quant, dtype)
         self.proj = _dense(dim, dim, quant, dtype)
+        self.tp_group = None  # the ``model`` group under tensor parallelism
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, l, d = x.shape
-        h = self.num_heads
-        qkv = _linear(x, self.qkv, self.dtype).view(b, l, 3, h, d // h)
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        """``qkv`` and the attention of this rank's heads (all of them
+        without tensor parallelism): (B, L, heads·Dh)."""
+        b, l, _ = x.shape
+        qkv = _linear(x, self.qkv, self.dtype).view(b, l, 3, self.num_heads_local,
+                                                    self.head_dim)
         # Heads-first views of the projection output; no copies.
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         if self.attn_impl == "xla":
             xla_attn_calls.add()
-            out = xla_attention(q, k, v)
-        else:
-            out = flash_attention_blo(q, k, v, self.attn_impl)
-        return _linear(out, self.proj, self.dtype)
+            return xla_attention(q, k, v)
+        return flash_attention_blo(q, k, v, self.attn_impl)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The tensor-parallel product of this rank's heads: its columns of
+        ``proj`` without the bias; the sum over the ``model`` group is the
+        output."""
+        return F.linear(self._heads(x), self.proj.weight.to(self.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            from instageo_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
+
+            out = reduce_from_model(self.partial(copy_to_model(x, self.tp_group)),
+                                    self.tp_group)
+            return out + self.proj.bias.to(self.dtype)
+        return _linear(self._heads(x), self.proj, self.dtype)
 
 
 class Mlp(nn.Module):
@@ -276,32 +294,79 @@ class Mlp(nn.Module):
         self.fc2 = _dense(hidden_dim, dim, quant, dtype)
         self.dtype = dtype
         self.gelu = gelu
+        self.tp_group = None  # the ``model`` group under tensor parallelism
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _hidden(self, x: torch.Tensor) -> torch.Tensor:
         y = _linear(x, self.fc1, self.dtype)
         if self.gelu == "bf16":
-            y = F.gelu(y)
-        else:
-            approximate = "tanh" if self.gelu == "tanh" else "none"
-            y = F.gelu(y.float(), approximate=approximate).to(y.dtype)
-        return _linear(y, self.fc2, self.dtype)
+            return F.gelu(y)
+        approximate = "tanh" if self.gelu == "tanh" else "none"
+        return F.gelu(y.float(), approximate=approximate).to(y.dtype)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The tensor-parallel product of this rank's ``fc1`` rows and ``fc2``
+        columns, without ``fc2``'s bias; the sum over the group is the
+        output."""
+        return F.linear(self._hidden(x), self.fc2.weight.to(self.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            from instageo_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
+
+            out = reduce_from_model(self.partial(copy_to_model(x, self.tp_group)),
+                                    self.tp_group)
+            return out + self.fc2.bias.to(self.dtype)
+        return _linear(self._hidden(x), self.fc2, self.dtype)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: x + Attn(LN(x)); x + MLP(LN(x))."""
+    """Pre-LN transformer block: x + Attn(LN(x)); x + MLP(LN(x)).
+
+    ``remat``: in training, the block's activations are recomputed in the
+    backward (``torch.utils.checkpoint``, one checkpoint per block, the
+    JAX package's ``nn.remat(Block)``), so the attention forward runs twice
+    per step. ``set_tensor_parallel`` makes the attention and the MLP
+    tensor-parallel over a ``model`` group (``parallel/tp.py``) and, with
+    ``sp``, takes and returns this rank's token shard of the residual
+    stream (padded to the group) instead of the whole stream.
+    """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  attn_impl: str = "kernel", dtype: torch.dtype = torch.float32,
-                 gelu: str = "exact", quant: str = "none") -> None:
+                 gelu: str = "exact", quant: str = "none", remat: bool = False) -> None:
         super().__init__()
         self.norm1 = LayerNormF32(dim)
         self.attn = Attention(dim, num_heads, attn_impl, dtype, quant)
         self.norm2 = LayerNormF32(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, gelu, quant)
+        self.remat = remat
+        self.sp_group = None
+        self.length = 0  # tokens of the unpadded stream under ``sp``
+
+    def set_tensor_parallel(self, group, heads_local: int, sp: bool = False) -> None:
+        self.attn.tp_group = self.mlp.tp_group = None if sp else group
+        self.attn.num_heads_local = heads_local
+        self.sp_group = group if sp else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, use_reentrant=False)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.sp_group is not None:
+            return self._forward_sp(x)
         x = x + self.attn(self.norm1(x).to(x.dtype))
         return x + self.mlp(self.norm2(x).to(x.dtype))
+
+    def _forward_sp(self, x: torch.Tensor) -> torch.Tensor:
+        from instageo_tpu_torch.parallel.tp import gather_tokens, scatter_tokens
+
+        g, dt = self.sp_group, x.dtype
+        y = gather_tokens(self.norm1(x).to(dt), g, self.length)
+        x = x + scatter_tokens(self.attn.partial(y), g) + self.attn.proj.bias.to(dt)
+        y = gather_tokens(self.norm2(x).to(dt), g, self.length)
+        return x + scatter_tokens(self.mlp.partial(y), g) + self.mlp.fc2.bias.to(dt)
 
 
 class TemporalEncoder(nn.Module):
@@ -377,6 +442,7 @@ class PrithviViT(nn.Module):
         dtype: torch.dtype = torch.float32,
         gelu: str = "exact",
         quant: str = "none",
+        remat: bool = False,
     ) -> None:
         super().__init__()
         self.img_size = img_size
@@ -390,9 +456,11 @@ class PrithviViT(nn.Module):
             self.location_embed_enc = LocationEncoder(embed_dim, coords_scale_learn)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, attn_impl, dtype, gelu, quant)
+            Block(embed_dim, num_heads, mlp_ratio, attn_impl, dtype, gelu, quant, remat)
             for _ in range(depth))
         self.norm = LayerNormF32(embed_dim)
+        self.pipeline = None  # ``parallel/pp.py:Pipeline`` under pipeline parallelism
+        self.sp_group = None  # the ``model`` group under sequence parallelism
         self._pos_cache: Dict[tuple, torch.Tensor] = {}
 
     @property
@@ -430,6 +498,22 @@ class PrithviViT(nn.Module):
                 location_coords.to(tokens.device)).to(tokens.dtype)
         cls = (self.cls_token + pos[:, :1]).to(tokens.dtype)
         tokens = torch.cat([cls.expand(tokens.shape[0], -1, -1), tokens], dim=1)
+        return self.norm(self._blocks(tokens))
+
+    def _blocks(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.pipeline is not None:
+            from instageo_tpu_torch.parallel.pp import pipeline_blocks
+
+            return pipeline_blocks(self.blocks, tokens, self.pipeline)
+        if self.sp_group is not None:
+            from instageo_tpu_torch.parallel.tp import chunk_tokens, gather_tokens
+
+            length = tokens.shape[1]
+            tokens = chunk_tokens(tokens, self.sp_group)
+            for block in self.blocks:
+                block.length = length
+                tokens = block(tokens)
+            return gather_tokens(tokens, self.sp_group, length, reduce_grad=False)
         for block in self.blocks:
             tokens = block(tokens)
-        return self.norm(tokens)
+        return tokens

@@ -82,7 +82,10 @@ class Dropout(nn.Module):
     ``seeds``, a ``SeedSlots`` that ``set_dropout_seeds`` hands out (the
     kernel then reads the seed from device memory); train mode with
     ``p > 0`` and neither raises. Eval mode and ``p == 0`` return the
-    input; ``p >= 1`` returns zeros.
+    input; ``p >= 1`` returns zeros. ``first_row`` (set by the trainer) is
+    the row of the whole batch that this rank's first row is: the stream
+    starts at that row's first element, so a rank draws the mask its rows
+    get in the whole batch (``ops/dropout.py``, the element offset).
     """
 
     def __init__(self, p: float = 0.1, impl: str = "kernel") -> None:
@@ -93,18 +96,20 @@ class Dropout(nn.Module):
         self.impl = impl
         self.generator: Optional[torch.Generator] = None
         self.seeds: Optional[SeedSlots] = None
+        self.first_row = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         if self.p >= 1.0:
             return torch.zeros_like(x)
+        offset = self.first_row * (x[0].numel() if x.dim() else 1)
         if self.seeds is not None:
-            return fused_dropout(x, self.p, self.seeds.take(), self.impl)
+            return fused_dropout(x, self.p, self.seeds.take(), self.impl, offset)
         if self.generator is None:
             raise RuntimeError("Dropout in train mode needs a torch.Generator: "
                                "call set_dropout_generator(model, generator)")
-        return fused_dropout(x, self.p, draw_seed(self.generator), self.impl)
+        return fused_dropout(x, self.p, draw_seed(self.generator), self.impl, offset)
 
     def extra_repr(self) -> str:
         return f"p={self.p}, impl={self.impl!r}"
@@ -118,22 +123,50 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``var ← 0.9·var + 0.1·biased var``), where torch would take the unbiased
     variance. Eval mode normalises with the running statistics. Returns
     float32.
+
+    ``group`` (the ``data`` group of a run of several ranks, set by the
+    trainer): the statistics are those of the whole batch, as GSPMD reduces
+    the JAX model's over its sharded batch axis: the per-channel sums and
+    sums of squares are summed over the group in float64 (an all-reduce
+    whose gradient is an all-reduce), var = E[x²] − E[x]² as flax computes
+    it, and ``running_*`` take those. ``torch.nn.SyncBatchNorm`` would take
+    the unbiased variance into ``running_var``.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5) -> None:
         super().__init__(num_features, eps=eps, momentum=0.1)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if self.group is not None:
+            return self._forward_global(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        from instageo_tpu_torch.parallel.mesh import all_reduce_sum
+
+        sums = torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]).double()
+        sums = all_reduce_sum(sums, self.group)
+        count = x.numel() // x.shape[1] * torch.distributed.get_world_size(self.group)
+        mean = sums[0] / count
+        var = (sums[1] / count - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.float(), self.momentum)
+            self.running_var.lerp_(var.float(), self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var.float() + self.eps)
+        shift = self.bias - mean.float() * scale
+        return x * scale[None, :, None, None] + shift[None, :, None, None]
 
 
 class UpscalingBlock(nn.Sequential):
@@ -209,6 +242,7 @@ class PrithviSeg(nn.Module):
         head_impl: str = "torch",
         gelu: str = "exact",
         quant: str = "none",
+        remat: bool = False,
     ) -> None:
         super().__init__()
         if head_impl not in HEADS:
@@ -234,6 +268,7 @@ class PrithviSeg(nn.Module):
             dtype=dtype,
             gelu=gelu,
             quant=quant,
+            remat=remat,
         )
         self.quant = quant
         if head_impl == "fast":
@@ -335,6 +370,7 @@ def create_prithvi_seg(
     head_impl: str = "torch",
     gelu: str = "exact",
     quant: str = "none",
+    remat: bool = False,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
 ) -> PrithviSeg:
@@ -346,7 +382,8 @@ def create_prithvi_seg(
     training, as the JAX model keeps float32 params; norms, BatchNorm and
     the cls token are float32 either way, and so are the weights of the
     int8 layers under ``quant="int8"`` (``ops/quant.py``, the encoder's
-    four dense families; inference only). Load trained weights with
+    four dense families; inference only). ``remat`` recomputes each block
+    in the backward (``models/prithvi.py:Block``). Load trained weights with
     ``load_state_dict(..., strict=True)``; ``train_mode`` readies the model
     for training."""
     if variant not in PRITHVI_ARCHS:
@@ -357,7 +394,7 @@ def create_prithvi_seg(
                            temporal_step=temporal_step, image_size=image_size,
                            in_chans=num_bands, depth=depth, attn_impl=attn_impl,
                            dtype=dtype, dropout_impl=dropout_impl, head_impl=head_impl,
-                           gelu=gelu, quant=quant)
+                           gelu=gelu, quant=quant, remat=remat)
     model.to_empty(device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return cast_matmul_weights(model, param_dtype or dtype).eval()

@@ -31,6 +31,11 @@
 // it starts: each replay of the graph then takes the seed the host wrote
 // there before it, so the graph does not replay one mask. The word holds
 // the same 64 bits as the by-value seed and gives the same stream.
+// An element offset (fused_dropout's `offset`) shifts the stream: element i of
+// x takes element offset + i's bits, so a rank that holds rows r.. of a batch
+// draws the mask those rows get in the whole batch. Offsets that are
+// multiples of 8 keep the 8-element units on whole Philox calls; any other
+// offset runs element by element (one Philox call per element).
 // The kernels allocate nothing; the caller allocates out and mask.
 
 #include <cuda_bf16.h>
@@ -83,8 +88,10 @@ __device__ __forceinline__ T dropped(T x, uint32_t bits, uint32_t threshold, flo
 
 template <typename T>
 __device__ __forceinline__ void drop8(const Vec<T, 8>& xv, T* out, uint8_t* mask, long long u,
-                                      uint32_t threshold, float scale, uint2 key) {
-  const uint4 r0 = bits_of_group(2ull * u, key), r1 = bits_of_group(2ull * u + 1, key);
+                                      unsigned long long g0, uint32_t threshold, float scale,
+                                      uint2 key) {
+  const unsigned long long g = 2ull * (u + g0);
+  const uint4 r0 = bits_of_group(g, key), r1 = bits_of_group(g + 1, key);
   const uint32_t bits[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
   Vec<T, 8> ov;
   uint2 mv;
@@ -98,27 +105,49 @@ __device__ __forceinline__ void drop8(const Vec<T, 8>& xv, T* out, uint8_t* mask
   *reinterpret_cast<uint2*>(mask + 8 * u) = mv;
 }
 
+__device__ __forceinline__ uint32_t bits_of_element(unsigned long long e, uint2 key) {
+  const uint4 r = bits_of_group(e >> 2, key);
+  const uint32_t w = (uint32_t)(e & 3);
+  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+}
+
 // 8 elements (a unit) per thread and step; `vec` promises x and out 16-byte
-// aligned and mask 8-byte aligned. Whole units go through vectors; the last
-// partial unit, or every unit without `vec`, element by element.
+// aligned and mask 8-byte aligned. Whole units go through vectors (where the
+// offset is a multiple of 8); the last partial unit, or every unit without
+// `vec`, element by element.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_dropout_kernel(const T* __restrict__ x, T* __restrict__ out, uint8_t* __restrict__ mask,
                      long long n, uint32_t threshold, float scale, uint2 key,
-                     const unsigned long long* __restrict__ seed_ptr, bool vec) {
+                     const unsigned long long* __restrict__ seed_ptr,
+                     unsigned long long offset, bool vec) {
   if (seed_ptr != nullptr) {  // the seed from device memory
     const unsigned long long seed = __ldg(seed_ptr);
     key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
   }
+  const bool whole = (offset & 7) == 0;
+  const unsigned long long g0 = offset >> 3;
   const long long units = (n + 7) / 8;
   for (long long u = (long long)blockIdx.x * kThreads + threadIdx.x; u < units;
        u += (long long)gridDim.x * kThreads) {
-    if (vec && 8 * u + 8 <= n) {
+    if (vec && whole && 8 * u + 8 <= n) {
       const Vec<T, 8> xv = reinterpret_cast<const Vec<T, 8>*>(x)[u];  // load before the bits
-      drop8(xv, out, mask, u, threshold, scale, key);
+      drop8(xv, out, mask, u, g0, threshold, scale, key);
       continue;
     }
-    const uint4 r0 = bits_of_group(2ull * u, key), r1 = bits_of_group(2ull * u + 1, key);
+    if (!whole) {
+      for (int e = 0; e < 8; ++e) {
+        const long long i = 8 * u + e;
+        if (i < n) {
+          const uint32_t b = bits_of_element(offset + i, key);
+          out[i] = dropped(x[i], b, threshold, scale);
+          mask[i] = b >= threshold;
+        }
+      }
+      continue;
+    }
+    const unsigned long long g = 2ull * (u + g0);
+    const uint4 r0 = bits_of_group(g, key), r1 = bits_of_group(g + 1, key);
     const uint32_t bits[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -167,7 +196,8 @@ fused_dropout_x4_kernel(const T* __restrict__ x, T* __restrict__ out,
 template <typename T>
 cudaError_t launch(bool x4, const void* x, void* out, void* mask, long long n,
                    uint32_t threshold, float scale, unsigned long long seed,
-                   const unsigned long long* seed_ptr, bool vec, cudaStream_t stream) {
+                   const unsigned long long* seed_ptr, unsigned long long offset, bool vec,
+                   cudaStream_t stream) {
   const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
   const T* xp = static_cast<const T*>(x);
   T* op = static_cast<T*>(out);
@@ -180,22 +210,24 @@ cudaError_t launch(bool x4, const void* x, void* out, void* mask, long long n,
                                                                key, vec);
   } else {
     fused_dropout_kernel<T><<<grid, kThreads, 0, stream>>>(xp, op, mp, n, threshold, scale, key,
-                                                           seed_ptr, vec);
+                                                           seed_ptr, offset, vec);
   }
   return cudaGetLastError();
 }
 
 int dispatch(bool x4, int dtype, const void* x, void* out, void* mask, long long n,
              unsigned int threshold, float scale, unsigned long long seed,
-             const unsigned long long* seed_ptr, int vec, void* stream) {
+             const unsigned long long* seed_ptr, unsigned long long offset, int vec,
+             void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(x4, x, out, mask, n, threshold, scale, seed, seed_ptr, vec != 0, s);
+      return launch<float>(x4, x, out, mask, n, threshold, scale, seed, seed_ptr, offset,
+                           vec != 0, s);
     case 1:
       return launch<__nv_bfloat16>(x4, x, out, mask, n, threshold, scale, seed, seed_ptr,
-                                   vec != 0, s);
+                                   offset, vec != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -207,22 +239,25 @@ extern "C" {
 // x, out: n contiguous elements of type `dtype` (0: float32, 1: bfloat16);
 // mask: n bytes (0 or 1). seeds: null, and the stream's key is `seed`; or
 // device memory holding 64-bit seeds, and the kernel reads seeds[slot] when
-// it runs (`seed` unused). vec != 0 promises that x and out are 16-byte
+// it runs (`seed` unused). Element i takes the stream's element offset + i.
+// vec != 0 promises that x and out are 16-byte
 // aligned and mask 8-byte aligned (fused_dropout_x4: aligned for 4-element
 // vectors; it takes its seed by value only). Returns the launch's CUDA error
 // code (0 on success); n == 0 launches nothing; another dtype returns
 // cudaErrorInvalidValue.
 int fused_dropout(int dtype, const void* x, void* out, void* mask, long long n,
                   unsigned int threshold, float scale, unsigned long long seed,
-                  const unsigned long long* seeds, int slot, int vec, void* stream) {
+                  const unsigned long long* seeds, int slot, unsigned long long offset, int vec,
+                  void* stream) {
   const unsigned long long* seed_ptr = seeds == nullptr ? nullptr : seeds + slot;
-  return dispatch(false, dtype, x, out, mask, n, threshold, scale, seed, seed_ptr, vec, stream);
+  return dispatch(false, dtype, x, out, mask, n, threshold, scale, seed, seed_ptr, offset, vec,
+                  stream);
 }
 
 int fused_dropout_x4(int dtype, const void* x, void* out, void* mask, long long n,
                      unsigned int threshold, float scale, unsigned long long seed, int vec,
                      void* stream) {
-  return dispatch(true, dtype, x, out, mask, n, threshold, scale, seed, nullptr, vec, stream);
+  return dispatch(true, dtype, x, out, mask, n, threshold, scale, seed, nullptr, 0, vec, stream);
 }
 
 const char* fused_dropout_error_string(int err) {

@@ -28,6 +28,11 @@ from device memory when it runs, so a launch recorded into a CUDA graph
 takes whatever seed the host wrote there before each replay; the plain
 version reads the same slot. The 64 bits are the seed's either way, and
 so is the mask.
+
+An element offset (``offset``, 0 by default) shifts the stream: element i
+of x takes the bits of element offset + i. A rank that holds rows r.. of a
+batch passes r × (elements per row), and draws the mask those rows get
+when the whole batch is one tensor.
 """
 
 from __future__ import annotations
@@ -128,16 +133,17 @@ def _seed_slot(seed: Seed, device: torch.device):
     return buf, int(slot)
 
 
-def fused_dropout_seeded_plain(x: torch.Tensor, p: float, seed: Seed
+def fused_dropout_seeded_plain(x: torch.Tensor, p: float, seed: Seed, offset: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel in plain PyTorch: its Philox stream for ``seed``
-    (``philox_bits``; a ``(buffer, slot)`` seed is read from the buffer) ->
-    (out, mask), bit for bit what the kernel gives."""
+    """The kernel in plain PyTorch: its Philox stream for ``seed`` from
+    element ``offset`` (``philox_bits``; a ``(buffer, slot)`` seed is read
+    from the buffer) -> (out, mask), bit for bit what the kernel gives."""
     _check_rate(p)
     held = _seed_slot(seed, x.device)
     if held is not None:
         seed = int(held[0][held[1]])
-    mask = philox_bits(x.numel(), seed, x.device).reshape(x.shape) >= threshold(p)
+    bits = philox_bits(x.numel(), seed, x.device, start=int(offset))
+    mask = bits.reshape(x.shape) >= threshold(p)
     return dropout_apply(x, mask, p), mask
 
 
@@ -148,7 +154,8 @@ def _entry(design: str):
 
     lib = _build.load("dropout")
     fn = lib.fused_dropout if design == "x8" else lib.fused_dropout_x4
-    seed_args = [ctypes.c_uint64] + ([ctypes.c_void_p, ctypes.c_int] if design == "x8" else [])
+    seed_args = [ctypes.c_uint64] + ([ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64]
+                                     if design == "x8" else [])
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float, *seed_args,
@@ -160,16 +167,20 @@ def _entry(design: str):
     return fn, err
 
 
-def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8"):
+def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8",
+                        offset: int = 0):
     """Launch the kernel of ``design`` ("x8", the wrapper's; "x4", the
-    earlier design, for measurements, which takes an int seed only)."""
+    earlier design, for measurements, which takes an int seed and no
+    offset)."""
     code = _DTYPE_CODES.get(x.dtype)
     if code is None:
         raise TypeError(f"the dropout kernel takes float32 or bfloat16; x is {x.dtype}")
     bits_threshold, scale = _rate_args(p)
     held = _seed_slot(seed, x.device)
-    if held is not None and design != "x8":
-        raise ValueError("the x4 design takes its seed by value")
+    if (held is not None or offset) and design != "x8":
+        raise ValueError("the x4 design takes its seed by value and no offset")
+    if not 0 <= offset < 1 << 64:
+        raise ValueError(f"dropout element offset {offset} out of range")
     x = x.contiguous()
     out = torch.empty_like(x)
     mask = torch.empty_like(x, dtype=torch.bool)
@@ -177,8 +188,8 @@ def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8
     vec = x.data_ptr() % 16 == 0
     fn, error_string = _entry(design)
     if design == "x8":
-        seed_args = ((0, held[0].data_ptr(), held[1]) if held is not None
-                     else (seed % (1 << 64), None, 0))
+        seed_args = ((0, held[0].data_ptr(), held[1], offset) if held is not None
+                     else (seed % (1 << 64), None, 0, offset))
     else:
         seed_args = (seed % (1 << 64),)
     err = call_on_device(x.device, fn, code, x.data_ptr(), out.data_ptr(), mask.data_ptr(),
@@ -190,32 +201,32 @@ def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8
     return out, mask
 
 
-def fused_dropout_fwd(x: torch.Tensor, p: float, seed: Seed
+def fused_dropout_fwd(x: torch.Tensor, p: float, seed: Seed, offset: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, mask) of dropout at rate ``p`` with the stream of ``seed`` (an
-    int or a ``(buffer, slot)`` pair). CPU
+    int or a ``(buffer, slot)`` pair) from element ``offset``. CPU
     tensors take the plain version (the same Philox stream); CUDA tensors
     launch the Hopper kernel or raise."""
     kind = x.device.type
     if kind == "cuda":
-        return _fused_dropout_cuda(x, p, seed)
+        return _fused_dropout_cuda(x, p, seed, offset=offset)
     if kind == "cpu":
-        return fused_dropout_seeded_plain(x, p, seed)
+        return fused_dropout_seeded_plain(x, p, seed, offset)
     raise ValueError(f"fused_dropout runs on cuda or cpu, not {x.device}")
 
 
 class FusedDropout(torch.autograd.Function):
-    """(x, p, seed, impl) -> (out, mask), ``seed`` an int or a ``(buffer,
-    slot)`` pair; the mask is saved for the backward
+    """(x, p, seed, impl, offset) -> (out, mask), ``seed`` an int or a
+    ``(buffer, slot)`` pair; the mask is saved for the backward
     and is not differentiable. ``impl="plain"`` always runs the plain
     version (the kernel's Philox stream in plain PyTorch)."""
 
     @staticmethod
-    def forward(ctx, x, p, seed, impl):
+    def forward(ctx, x, p, seed, impl, offset=0):
         if impl not in IMPLS:
             raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
         fwd = fused_dropout_fwd if impl == "kernel" else fused_dropout_seeded_plain
-        out, mask = fwd(x, p, seed)
+        out, mask = fwd(x, p, seed, offset)
         ctx.save_for_backward(mask)
         ctx.mark_non_differentiable(mask)
         ctx.p = p
@@ -224,10 +235,11 @@ class FusedDropout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _dmask):
         (mask,) = ctx.saved_tensors
-        return dropout_apply(g, mask, ctx.p), None, None, None
+        return dropout_apply(g, mask, ctx.p), None, None, None, None
 
 
-def fused_dropout(x: torch.Tensor, p: float, seed: Seed, impl: str = "kernel"
-                  ) -> torch.Tensor:
-    """Differentiable dropout of ``x`` at rate ``p`` with the stream of ``seed``."""
-    return FusedDropout.apply(x, p, seed, impl)[0]
+def fused_dropout(x: torch.Tensor, p: float, seed: Seed, impl: str = "kernel",
+                  offset: int = 0) -> torch.Tensor:
+    """Differentiable dropout of ``x`` at rate ``p`` with the stream of
+    ``seed`` from element ``offset``."""
+    return FusedDropout.apply(x, p, seed, impl, offset)[0]

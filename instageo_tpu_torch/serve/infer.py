@@ -185,10 +185,18 @@ def chip_inference(
     model: nn.Module,
     is_reg_task: bool = False,
     num_write_threads: int = 4,
+    shard: Tuple[int, int] = (0, 1),
+    write: bool = True,
 ) -> Tuple[int, float]:
     """Predict every chip of an ``infer_collate`` loader (normalised
     (B, C, T, H, W) chips, their filenames, nodata masks) and write one
     prediction per chip. Returns (chips, seconds).
+
+    ``shard`` = (i, n): this process predicts share i of n of each batch's
+    rows (a rank of the data axis under ``torchrun``; every rank walks the
+    same batches), so that the ranks together write each file once;
+    ``write=False`` predicts without writing (a tensor-parallel rank other
+    than the first of its group, which computes the same rows).
 
     Batch N's predictions are copied to the host while the device runs
     batch N+1, and written on a thread pool. The nodata masks are not
@@ -207,11 +215,17 @@ def chip_inference(
             for p, f in zip(copy.numpy(), files):
                 futures.append(pool.submit(save_prediction, p, f, out_dir, is_reg_task))
 
+        index, count = shard
         for x, files, _ in dataloader:
+            per = -(-len(files) // count)
+            rows = slice(index * per, (index + 1) * per)
+            x, files = x[rows], list(files)[rows]
+            if not len(files):
+                continue
             copy = _HostCopy(predict(x))
             if pending is not None:
                 flush(*pending)
-            pending = (copy, files)
+            pending = (copy, files) if write else None
             n += len(files)
         if pending is not None:
             flush(*pending)

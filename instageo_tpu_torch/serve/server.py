@@ -16,7 +16,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -31,17 +31,54 @@ from instageo_tpu_torch.serve.infer import (
 log = logging.getLogger(__name__)
 
 
+def place_for_serving(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """The JAX server's placement on a mesh: tensor-parallel shards when
+    ``tpu.tp`` > 1, else replicated (rank 0's weights on every rank)."""
+    from instageo_tpu_torch.parallel.mesh import replicate_tree
+    from instageo_tpu_torch.parallel.tp import has_model_axis, tp_place
+
+    if mesh is None:
+        return model
+    replicate_tree(model, mesh)
+    if has_model_axis(mesh):
+        tp_place(model, mesh)
+        model.placement = "tp"
+    else:
+        model.placement = "dp"
+    return model
+
+
+def serving_shard(mesh) -> Tuple[Tuple[int, int], bool]:
+    """((share, of shares) of each batch's rows, whether this rank writes):
+    a share per rank of a replicated model, a share per data index under
+    tensor parallelism, written by the first rank of its ``model`` group."""
+    from instageo_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_rank, axis_size
+
+    if mesh is None:
+        return (0, 1), True
+    if axis_size(mesh, MODEL_AXIS) > 1:
+        return ((axis_rank(mesh, DATA_AXIS), axis_size(mesh, DATA_AXIS)),
+                axis_rank(mesh, MODEL_AXIS) == 0)
+    return (mesh.get_rank(), mesh.size()), True
+
+
 class ModelServer:
     """Loads the model of ``cfg`` and serves it on one device: ``cuda``
     unless ``device`` (or the config's top-level ``device``) asks for the
-    CPU. Reference surface: model_server.py:48-154."""
+    CPU. Under ``torchrun`` (a process group) it serves on the run's mesh
+    (``parallel/mesh.py:mesh_from_config``): ``place_for_serving``, and each
+    rank predicts its share of each batch (``serving_shard``). Reference
+    surface: model_server.py:48-154."""
 
     def __init__(self, cfg: Any, device=None) -> None:
+        from instageo_tpu_torch.parallel.mesh import mesh_from_config
         from instageo_tpu_torch.train.factory import create_model
 
         self.cfg = cfg
         self.device = resolve_device(device if device is not None else cfg.get("device"))
-        self.model = create_model(cfg, device=self.device).eval()
+        self.mesh = mesh_from_config(cfg.get("tpu"))
+        self.model = place_for_serving(create_model(cfg, device=self.device).eval(), self.mesh)
+        self.shard, self.writes = serving_shard(self.mesh)
         dl = cfg.dataloader
         self.is_reg_task = bool(cfg.get("is_reg_task", False))
         self.preprocess = dict(
@@ -68,7 +105,7 @@ class ModelServer:
         from instageo_tpu_torch.train.trainer import Trainer
 
         if self._trainer is None:
-            self._trainer = Trainer(self.cfg, self.model, device=self.device)
+            self._trainer = Trainer(self.cfg, self.model, device=self.device, mesh=self.mesh)
         t0 = time.time()
         metrics = self._trainer.test(dataloader_factory, batch_size)
         metrics["inference_time"] = time.time() - t0
@@ -78,7 +115,8 @@ class ModelServer:
     def chip_inference(self, dataloader: Iterable, out_dir: str) -> Dict[str, Any]:
         """Prediction GeoTIFFs for an ``infer_collate`` loader's chips, with
         threaded writes (reference :91-127)."""
-        n, dt = chip_inference(dataloader, out_dir, self.model, is_reg_task=self.is_reg_task)
+        n, dt = chip_inference(dataloader, out_dir, self.model, is_reg_task=self.is_reg_task,
+                               shard=self.shard, write=self.writes)
         self._served()
         return {"num_chips": n, "inference_time": dt, "chips_per_sec": n / dt if dt else 0.0}
 

@@ -8,8 +8,7 @@ order: ``checkpoint_path``, else a local pretrained encoder
 surgery, else a fresh init from the seed.
 
 The ``tpu:`` section of a config is read through ``TPU_KEYS``, which says
-for each key what the port does with it on one card.
-"""
+for each key what the port does with it."""
 
 from __future__ import annotations
 
@@ -33,57 +32,73 @@ log = logging.getLogger(__name__)
 
 # What the port does with each ``tpu.*`` key of the JAX config:
 #   ("honoured", allowed values)  - read and acted on;
-#   ("accepted", allowed values)  - validated, with no meaning on one card;
-#   ("refused", allowed, item)    - any other value raises
-#                                   NotImplementedError naming the ROADMAP item.
+#   ("accepted", allowed values)  - validated, with no meaning in the port.
 # Every ``attn_impl`` and ``dropout_impl`` value takes the port's kernel
 # route, except that a float32 model's attention takes the "xla" route
 # (``build_model``), as the JAX default ``attn_impl: xla`` runs it; ``quant:
 # int8`` builds the encoder's dense layers as ``ops/quant.py:QuantLinear``
 # (inference only: the trainer refuses it). ``steps_per_call``
-# (``steps_per_call()``) groups k optimizer steps into one CUDA graph on the
-# card; ``prefetch_depth`` bounds the thread loader's queue. Keys the JAX package does not read are ignored,
-# as there.
+# (``steps_per_call()``) groups k optimizer steps, one CUDA graph on one
+# card; ``prefetch_depth`` bounds the thread loader's queue. ``mesh``,
+# ``tp``, ``sp``, ``pp``, ``pp_microbatches``, ``fsdp`` and ``zero1`` place
+# the run over its processes (``parallel/``, ``train/trainer.py``; ``mesh``
+# is ``auto`` or the world's size); ``remat`` recomputes each block in the
+# backward; ``block_layout: pipeline`` is what ``pp`` > 1 runs, and
+# otherwise, as ``scan``, the same blocks as ``loop``. Keys the JAX package
+# does not read are ignored, as there.
 TPU_KEYS = {
     "precision": ("honoured", ("bf16", "f32")),
     "profile": ("honoured", (False, True)),
     "steps_per_call": ("honoured", None),
     "prefetch_depth": ("honoured", None),
-    "mesh": ("accepted", ("auto", 1)),
+    "mesh": ("honoured", None),
     "donate_state": ("accepted", (True, False)),
     "rng_impl": ("accepted", ("auto", "rbg", "threefry")),
     "attn_impl": ("accepted", ("xla", "pallas", "auto")),
     "attn_interpret": ("accepted", (False, True)),
     "dropout_impl": ("accepted", ("xla", "bits16", "bits8", "pallas")),
     "bf16_transfer": ("accepted", (True, False)),
-    "pp_microbatches": ("accepted", None),
-    "tp": ("refused", (1,), "ROADMAP item 11 (parallel/)"),
-    "pp": ("refused", (1,), "ROADMAP item 11 (parallel/)"),
-    "sp": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
-    "fsdp": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
-    "zero1": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
+    "pp_microbatches": ("honoured", None),
+    "tp": ("honoured", None),
+    "pp": ("honoured", None),
+    "sp": ("honoured", (False, True)),
+    "fsdp": ("honoured", (False, True)),
+    "zero1": ("honoured", (False, True)),
     "quant": ("honoured", ("none", "int8")),
-    "block_layout": ("refused", ("loop", "scan"), "ROADMAP item 11 (parallel/, pp)"),
-    "remat": ("refused", (False,), "ROADMAP item 11 (parallel/)"),
+    "block_layout": ("honoured", ("loop", "scan", "pipeline")),
+    "remat": ("honoured", (False, True)),
     "gelu": ("honoured", ("exact", "tanh", "bf16")),
 }
-# ``block_layout: scan`` builds the same modules as ``loop`` (the weight
-# bridge reads a stacked JAX tree); ``pipeline`` waits for ROADMAP item 11.
+
+
+def _positive_int(key: str, value) -> int:
+    if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+        raise ValueError(f"tpu.{key}={value!r} — expected an integer >= 1")
+    return value
 
 
 def check_tpu_config(cfg: Any) -> dict:
-    """Validate the ``tpu:`` section against ``TPU_KEYS``; returns it."""
+    """Validate the ``tpu:`` section against ``TPU_KEYS`` and the JAX
+    factory's rules (``sp`` needs ``tp``; ``tp`` and ``pp`` exclude each
+    other); returns it."""
     tpu_cfg = cfg.get("tpu") or {}
     for key, value in tpu_cfg.items():
         rule = TPU_KEYS.get(key)
-        if rule is None:
-            continue
-        if rule[0] == "refused":
-            if value not in rule[1]:
-                raise NotImplementedError(
-                    f"tpu.{key}={value!r} is not ported yet: {rule[2]}")
-        elif rule[1] is not None and value not in rule[1]:
+        if rule is not None and rule[1] is not None and value not in rule[1]:
             raise ValueError(f"tpu.{key}={value!r} — expected one of {rule[1]}")
+    mesh = tpu_cfg.get("mesh", "auto")
+    if mesh not in (None, "auto"):
+        _positive_int("mesh", mesh)
+    tp = _positive_int("tp", tpu_cfg.get("tp", 1))
+    pp = _positive_int("pp", tpu_cfg.get("pp", 1))
+    _positive_int("pp_microbatches", tpu_cfg.get("pp_microbatches", 4))
+    if tp > 1 and pp > 1:
+        raise ValueError("tpu.pp and tpu.tp are mutually exclusive (parallel/pp.py)")
+    if bool(tpu_cfg.get("sp", False)) and tp <= 1:
+        raise ValueError("tpu.sp (sequence parallelism) shards tokens over the model "
+                         "axis — it requires tpu.tp > 1")
+    if tp > 1 and str(tpu_cfg.get("quant", "none")) != "none":
+        raise ValueError("tpu.quant: int8 runs on one rank's whole layers; unset tpu.tp")
     return tpu_cfg
 
 
@@ -183,6 +198,7 @@ def build_model(cfg: Any, device=None, training: bool = False, seed: int = 0) ->
         head_impl=head_impl,
         gelu=str(tpu_cfg.get("gelu", "exact")),
         quant=quant,
+        remat=bool(tpu_cfg.get("remat", False)),
         device=resolve_device(device),
         seed=seed,
     )

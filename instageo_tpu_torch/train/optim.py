@@ -53,21 +53,33 @@ def clip_params(model: nn.Module, clip_range: Optional[Sequence[float]]) -> None
         p.clamp_(lo, hi)
 
 
-def make_optimizer(model: nn.Module, learning_rate: float, weight_decay: float = 1e-2,
-                   freeze_backbone: bool = False,
-                   frozen_prefix: str = "prithvi_encoder") -> torch.optim.AdamW:
-    """AdamW over the trainable parameters (all but ``frozen_prefix.*``
-    when the backbone is frozen); ``capturable``, with the rate a float32
-    device tensor, when the parameters lie on a CUDA device."""
-    params = [p for name, p in model.named_parameters()
-              if not (freeze_backbone and name.split(".")[0] == frozen_prefix)]
-    device = params[0].device if params else torch.device("cpu")
+def adamw_kwargs(learning_rate: float, weight_decay: float, device: torch.device) -> dict:
+    """``torch.optim.AdamW``'s settings: ``optax.adamw``'s, ``capturable``
+    with the rate a float32 device tensor on a CUDA device."""
+    kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
     if device.type == "cuda":
         lr = torch.tensor(learning_rate, dtype=torch.float32, device=device)
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=weight_decay, capturable=True)
-    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+        return dict(kw, lr=lr, capturable=True)
+    return dict(kw, lr=learning_rate)
+
+
+def make_optimizer(model: nn.Module, learning_rate: float, weight_decay: float = 1e-2,
+                   freeze_backbone: bool = False, frozen_prefix: str = "prithvi_encoder",
+                   place: Optional[Callable] = None) -> torch.optim.Optimizer:
+    """AdamW over the trainable parameters (all that take gradients, but
+    ``frozen_prefix.*`` when the backbone is frozen); ``capturable``, with
+    the rate a float32 device tensor, when the parameters lie on a CUDA
+    device. ``place(params, **adamw_kwargs)`` builds it instead where the
+    moments are placed across ranks (``parallel/mesh.py:zero1_place``,
+    ``parallel/tp.py:place_state_like_params``)."""
+    params = [p for name, p in model.named_parameters()
+              if p.requires_grad and not (freeze_backbone
+                                          and name.split(".")[0] == frozen_prefix)]
+    device = params[0].device if params else torch.device("cpu")
+    kw = adamw_kwargs(learning_rate, weight_decay, device)
+    if place is not None:
+        return place(params, **kw)
+    return torch.optim.AdamW(params, **kw)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
@@ -90,8 +102,20 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, state: dict) -> None:
     they were saved (read back to the CPU, or saved from a CPU run), so the
     groups get their device rate tensor back, with the saved value, and the
     step counts go to the parameters' device."""
-    kept = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
+    kept = capturable_rates(optimizer)
     optimizer.load_state_dict(state)
+    restore_capturable(optimizer, kept)
+
+
+def capturable_rates(optimizer: torch.optim.Optimizer) -> list:
+    """Each group's rate and whether it is capturable, before a load."""
+    return [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
+
+
+def restore_capturable(optimizer: torch.optim.Optimizer, kept: list) -> None:
+    """After a load: the capturable groups get their device rate tensor
+    back, with the loaded rate, and their step counts on the parameters'
+    device."""
     for group, (lr, capturable) in zip(optimizer.param_groups, kept):
         if not capturable:
             continue

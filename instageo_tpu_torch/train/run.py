@@ -28,6 +28,15 @@ same config files, keys, required values and last-line JSON:
 The run is on ``cuda`` unless the config's top-level ``device`` says
 otherwise (``device=cpu``); no config file sets it. Seed 1042, as the
 reference.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc-per-node N -m
+instageo_tpu_torch.train.run ...``) each of the N processes takes a card
+and joins the run's process group first (``parallel/multihost.py``), the
+mesh comes from ``tpu.*`` (``parallel/mesh.py:mesh_from_config``), and
+``train``, ``eval``, ``stats`` and ``chip_inference`` run on it; rank 0
+alone writes the run directory, the checkpoints, the logs and the last
+line. ``sliding_inference`` and ``export`` write one artifact and run on
+rank 0; ``replica`` runs in one process.
 """
 
 from __future__ import annotations
@@ -58,6 +67,11 @@ from instageo_tpu_torch.data.dataloader import (
     process_test,
 )
 from instageo_tpu_torch.device import resolve_device
+from instageo_tpu_torch.parallel.multihost import (
+    initialize_multihost,
+    is_main_process,
+    world_size,
+)
 
 log = logging.getLogger("instageo_tpu_torch.run")
 
@@ -112,12 +126,39 @@ def main(argv: Optional[List[str]] = None) -> Any:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     cfg = load_config_from_argv(argv if argv is not None else sys.argv[1:])
-    log.info("Resolved config:\n%s", cfg.to_yaml())
-    start_time = time.time()
     mode = cfg.get("mode", "train")
     if mode not in MODES:
         raise ValueError(f"Unknown mode {mode!r}")
     device = resolve_device(cfg.get("device"))
+    started = not torch.distributed.is_initialized() and initialize_multihost(device.type)
+    try:
+        if not is_main_process():
+            logging.getLogger().setLevel(logging.WARNING)
+        log.info("Resolved config:\n%s", cfg.to_yaml())
+        if world_size() > 1 and mode in ("sliding_inference", "export", "replica"):
+            if mode == "replica":
+                raise ValueError("mode=replica runs in one process, not under torchrun")
+            if not is_main_process():
+                return None
+        return _main(cfg, mode, device)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _emit(out: Any) -> None:
+    """The last line of the run's output, from rank 0."""
+    if is_main_process():
+        print(json.dumps(out))
+
+
+def _main(cfg: Any, mode: str, device: torch.device) -> Any:
+    from instageo_tpu_torch.parallel.mesh import mesh_from_config
+
+    start_time = time.time()
+    # Building a mesh is collective: only the modes that run on one.
+    mesh = (mesh_from_config(cfg.get("tpu")) if mode in ("train", "eval", "chip_inference")
+            else None)
     batch_size = int(cfg.train.get("batch_size", 8))
     loader = partial(create_dataloader, num_workers=int(cfg.dataloader.get("num_workers", 1)),
                      worker_mode=str(cfg.dataloader.get("worker_mode", "thread")),
@@ -134,7 +175,7 @@ def main(argv: Optional[List[str]] = None) -> Any:
             loader(ds, batch_size, shuffle=True), cfg.get("is_reg_task", False),
             ignore_index=int(cfg.train.get("ignore_index", -1)))
         out = {"mean": mean, "std": std, "class_weights": class_weights}
-        print(json.dumps(out))
+        _emit(out)
         return out
 
     if mode == "replica":
@@ -157,11 +198,14 @@ def main(argv: Optional[List[str]] = None) -> Any:
             count_params,
             get_model_complexity,
             profile_trace,
+            rank_footprint,
         )
 
         model = create_model(cfg, seed=SEED, device=device, training=True)
-        run_dir = _run_dir(cfg)
-        save_config(cfg, run_dir)
+        main_process = is_main_process()
+        run_dir = _run_dir(cfg) if main_process else None
+        if main_process:
+            save_config(cfg, run_dir)
         train_ds = _make_dataset(cfg.train_filepath, cfg, _train_preprocess(cfg), seed=SEED)
         val_ds = _make_dataset(cfg.valid_filepath, cfg, _train_preprocess(cfg, augment=False),
                                seed=SEED)
@@ -171,7 +215,7 @@ def main(argv: Optional[List[str]] = None) -> Any:
         if cfg.train.get("distillation") and cfg.train.get("teacher_ckpt_path"):
             teacher = build_teacher(cfg, str(cfg.train.teacher_ckpt_path), device)
         trainer = Trainer(cfg, model, device=device, teacher=teacher,
-                          steps_per_epoch=max(1, len(train_loader)))
+                          steps_per_epoch=max(1, len(train_loader)), mesh=mesh)
         resume_from = cfg.get("resume_from")
         if resume_from:
             # Step, epoch, optimizer moments and best_metric go on, unlike
@@ -179,33 +223,44 @@ def main(argv: Optional[List[str]] = None) -> Any:
             trainer.restore(str(resume_from))
             train_loader.sampler.epoch = val_loader.sampler.epoch = trainer.epoch
             log.info("Resumed training state from %s (step %d)", resume_from, trainer.step)
-        ckpt = BestCheckpointer(run_dir)
-        exp_logger = init_experiment_logger(cfg, run_dir)
-        exp_logger.log_config(cfg)
+        # Rank 0 writes; every rank trains (and gathers the checkpoints).
+        ckpt = BestCheckpointer(run_dir) if main_process else None
+        exp_logger = init_experiment_logger(cfg, run_dir) if main_process else None
+        if exp_logger is not None:
+            exp_logger.log_config(cfg)
         tracker = EmissionsTracker(name="train", output_dir=run_dir)
         tracker.start()
-        profile = bool((cfg.get("tpu") or {}).get("profile", False))
-        with profile_trace(os.path.join(run_dir, "profile"), enabled=profile):
+        profile = bool((cfg.get("tpu") or {}).get("profile", False)) and main_process
+        with profile_trace(os.path.join(run_dir or ".", "profile"), enabled=profile):
             history = trainer.fit(
                 lambda: iter(train_loader), lambda: iter(val_loader),
                 checkpointer=ckpt, seed=SEED,
-                log_fn=lambda m: exp_logger.log_metrics(m, step=m.get("epoch")))
+                log_fn=exp_logger and (lambda m: exp_logger.log_metrics(m, step=m.get("epoch"))))
         carbon = tracker.stop()
         duration = time.time() - start_time
+        footprints = [rank_footprint(model, trainer.optimizer, history)]
+        if world_size() > 1:
+            footprints = [None] * world_size()
+            torch.distributed.all_gather_object(
+                footprints, rank_footprint(model, trainer.optimizer, history))
         c = int(model.arch.in_chans)
         t = int(cfg.dataloader.get("temporal_dim", 1))
         s = int(cfg.dataloader.get("img_size", 224))
         x = torch.zeros((1, c, t, s, s), device=device)
-        complexity = get_model_complexity(model, x)
-        complexity["params"] = count_params(model)
-        exp_logger.log_metrics({**complexity, "train_duration_s": duration, **carbon})
-        exp_logger.stop()
-        log.info("Model complexity: %.2f GFLOPs/forward, %d params",
-                 complexity["gflops"], complexity["params"])
-        log.info("Training completed in %.1fs; best %s; checkpoint: %s",
-                 duration, trainer.best_metric, ckpt.path)
+        # A tensor- or pipeline-parallel rank holds part of the model.
+        whole = trainer.mode in ("single", "dp", "fsdp")
+        complexity = get_model_complexity(model, x) if whole else {"flops": None, "gflops": None}
+        complexity["params"] = count_params(model) if whole else None
+        if exp_logger is not None:
+            exp_logger.log_metrics({**complexity, "train_duration_s": duration, **carbon,
+                                    "ranks": footprints, "placement": trainer.mode})
+            exp_logger.stop()
+            log.info("Model complexity: %s GFLOPs/forward, %s params",
+                     complexity["gflops"], complexity["params"])
+            log.info("Training completed in %.1fs; best %s; checkpoint: %s",
+                     duration, trainer.best_metric, ckpt.path)
         del train_loader, val_loader  # stops their worker processes
-        print(json.dumps({k: v for k, v in history.items() if isinstance(v, (int, float))}))
+        _emit({k: v for k, v in history.items() if isinstance(v, (int, float))})
         return history
 
     if mode == "export":
@@ -223,8 +278,8 @@ def main(argv: Optional[List[str]] = None) -> Any:
             temporal_dim=int(cfg.dataloader.get("temporal_dim", 1)), is_reg_task=is_reg,
             probabilities=bool(exp.get("probabilities", False)),
             batch_size=None if bs in (None, "null") else int(bs))
-        print(json.dumps({"artifact": out_path, "bytes": os.path.getsize(out_path),
-                          "seconds": time.time() - start_time}))
+        _emit({"artifact": out_path, "bytes": os.path.getsize(out_path),
+               "seconds": time.time() - start_time})
         return out_path
 
     check_required_flags(["root_dir", "test_filepath", "checkpoint_path"], cfg)
@@ -252,13 +307,13 @@ def main(argv: Optional[List[str]] = None) -> Any:
         )
         test_loader = loader(_make_dataset(cfg.test_filepath, cfg, test_pre), batch_size,
                              collate_fn=eval_collate)
-        trainer = Trainer(cfg, model, device=device)
+        trainer = Trainer(cfg, model, device=device, mesh=mesh)
         # The eval batch is the loader's batch times each image's crops.
         crops = max(1, (img_size - crop_size) // stride + 1) ** 2
         metrics = trainer.run_eval_epoch(iter(test_loader), batch_size * crops, "test",
                                          collect_outputs=plot_reg)
         del test_loader
-        if plot_reg and "_preds" in metrics:
+        if plot_reg and "_preds" in metrics and is_main_process():
             out_png = os.path.join(_run_dir(cfg), "regression_test.png")
             create_regression_plot(metrics.pop("_preds"), metrics.pop("_labels"), metrics,
                                    out_png, "test")
@@ -266,14 +321,17 @@ def main(argv: Optional[List[str]] = None) -> Any:
         metrics.pop("_preds", None)
         metrics.pop("_labels", None)
         log.info("Evaluation took %.1fs", time.time() - start_time)
-        print(json.dumps(metrics))
+        _emit(metrics)
         return metrics
 
     if mode == "sliding_inference":
         return _sliding_inference(cfg, model, batch_size)
 
     from instageo_tpu_torch.serve.infer import chip_inference
+    from instageo_tpu_torch.serve.server import place_for_serving, serving_shard
 
+    place_for_serving(model, mesh)
+    shard, writes = serving_shard(mesh)
     out_dir = os.path.join(cfg.root_dir, "predictions")
     # The centre crop: save_prediction anchors the raster at the chip's
     # centre window.
@@ -281,9 +339,14 @@ def main(argv: Optional[List[str]] = None) -> Any:
     infer_loader = loader(_make_dataset(cfg.test_filepath, cfg, infer_pre,
                                         include_filenames=True),
                           batch_size, collate_fn=infer_collate)
-    n, dt = chip_inference(infer_loader, out_dir, model, is_reg_task=is_reg)
+    n, dt = chip_inference(infer_loader, out_dir, model, is_reg_task=is_reg, shard=shard,
+                           write=writes)
     del infer_loader
-    print(json.dumps({"chips": n, "seconds": dt, "chips_per_sec": n / dt if dt else 0.0}))
+    if world_size() > 1:  # the chips the ranks wrote, the slowest rank's seconds
+        shares = [None] * world_size()
+        torch.distributed.all_gather_object(shares, (n if writes else 0, dt))
+        n, dt = sum(c for c, _ in shares), max(t for _, t in shares)
+    _emit({"chips": n, "seconds": dt, "chips_per_sec": n / dt if dt else 0.0})
     return n
 
 
@@ -330,7 +393,7 @@ def _sliding_inference(cfg: Any, model, batch_size: int) -> int:
                  stats["first_batch_s"], time.perf_counter() - t0)
         n += 1
     dt = time.time() - start_time
-    print(json.dumps({"granules": n, "seconds": dt, "out_dir": out_dir}))
+    _emit({"granules": n, "seconds": dt, "out_dir": out_dir})
     return n
 
 

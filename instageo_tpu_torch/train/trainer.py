@@ -28,13 +28,37 @@ rates in the same order.
 
 The configuration is a nested mapping with the JAX config's keys
 (``train.*``, ``model.*``, ``is_reg_task``, ``tpu.steps_per_call``).
+
+Under a ``mesh`` (``parallel/mesh.py``; one process per card under
+``torchrun``) the trainer places the model as the JAX trainer does, in its
+order: ``tpu.pp`` (``parallel/pp.py``), else ``tpu.tp`` (``parallel/
+tp.py``, with ``tpu.sp``), else ``tpu.fsdp`` (``parallel/fsdp.py``), else
+replicated; ``tpu.zero1`` shards the moments of the modes that do not
+already (``mesh.zero1_place``); the teacher is placed as the student. Every
+rank walks the same global batches (the loaders share the seed) and takes
+its rows (``mesh.shard_batch``: its share of each micro-batch, padded as
+JAX pads to a multiple of the world × ``grad_accum``). Every loss is a mean
+over the valid pixels of the global batch, so each rank weights its
+micro-batch i by v_i·N/V (v_i its valid pixels, V those of the whole batch,
+one all-reduce; N the data axis), and the gradient average over the data
+axis (one bucketed all-reduce after the last micro-batch; FSDP2's own
+reduce-scatter under ``tpu.fsdp``) is the JAX gradient. BatchNorm takes the
+whole batch's statistics (``models/seg.py:BatchNorm2d.group``), the head's
+dropout draws the whole batch's masks (each rank from its first row), and
+the epoch's accumulators are summed over the data axis
+(``multihost.aggregate_metrics``) before ``_finalize``. Under a mesh, and
+under ``tpu.remat``, the k steps of a group run eagerly (the same math):
+FSDP2 and NCCL inside one CUDA graph are not something to count on. The
+choice is made here from the configuration and logged; the graph counters
+(``ops/_build.py:graph_replays``) show it. A checkpoint holds the
+single-card run's keys and files (the full state gathered; rank 0 writes).
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +67,7 @@ from torch import nn
 from instageo_tpu_torch.data.dataloader import epoch_seed
 from instageo_tpu_torch.device import resolve_device
 from instageo_tpu_torch.models.seg import (
+    BatchNorm2d,
     Dropout,
     SeedSlots,
     draw_seed,
@@ -51,6 +76,9 @@ from instageo_tpu_torch.models.seg import (
     train_mode,
 )
 from instageo_tpu_torch.ops._build import CapturedGraph
+from instageo_tpu_torch.parallel import mesh as pmesh
+from instageo_tpu_torch.parallel.mesh import DATA_AXIS, pad_batch
+from instageo_tpu_torch.parallel.multihost import aggregate_metrics, host_local_to_global
 from instageo_tpu_torch.train.checkpointing import load_best_metric, load_checkpoint
 from instageo_tpu_torch.train.factory import check_tpu_config, steps_per_call
 from instageo_tpu_torch.train.losses import (
@@ -61,35 +89,19 @@ from instageo_tpu_torch.train.losses import (
 )
 from instageo_tpu_torch.train.metrics import AucHistogram, ConfusionMatrix, RegressionStats
 from instageo_tpu_torch.train.optim import (
+    capturable_rates,
     clip_params,
     cosine_warm_restarts,
     load_optimizer_state,
     make_optimizer,
+    restore_capturable,
     set_learning_rate,
 )
+from instageo_tpu_torch.utils.telemetry import kernel_launches
 
 log = logging.getLogger(__name__)
 
-
-def pad_batch(arrays: Sequence[np.ndarray], batch_size: int,
-              label_fill: float = -100, repeat_inputs: bool = False) -> tuple:
-    """Pad (inputs, labels) along the leading dim to ``batch_size``; labels
-    get ``label_fill``. ``repeat_inputs`` pads the inputs by cycling the
-    real samples instead of with zeros, so that train-mode BatchNorm
-    statistics stay on-distribution. Returns (inputs, labels, n_real)."""
-    x, y = arrays
-    n = x.shape[0]
-    if n == batch_size:
-        return x, y, n
-    pad_n = batch_size - n
-    if repeat_inputs and n > 0:
-        x_fill = x[np.arange(pad_n) % n]
-    else:
-        x_fill = np.zeros((pad_n,) + x.shape[1:], x.dtype)
-    x_pad = np.concatenate([x, x_fill], axis=0)
-    y_pad = np.concatenate([y, np.full((pad_n,) + y.shape[1:], label_fill, y.dtype)],
-                           axis=0)
-    return x_pad, y_pad, n
+_BLOCKS = "prithvi_encoder.blocks."
 
 
 def _get(cfg: Mapping, section: Optional[str], key: str, default=None):
@@ -136,7 +148,8 @@ class _Group:
     Everything a graph reads or writes is allocated before its capture."""
 
     def __init__(self, k: int, x: torch.Tensor, y: torch.Tensor, device: torch.device,
-                 seeds_per_step: int, x_dtype: torch.dtype, y_dtype: torch.dtype) -> None:
+                 seeds_per_step: int, x_dtype: torch.dtype, y_dtype: torch.dtype,
+                 capture: bool) -> None:
         self.k = k
         self.xs = torch.empty((k,) + tuple(x.shape), dtype=x_dtype, device=device)
         self.ys = torch.empty((k,) + tuple(y.shape), dtype=y_dtype, device=device)
@@ -151,7 +164,7 @@ class _Group:
         self.lrs = torch.zeros(k, dtype=torch.float32, device=device)
         self.lr_values: list = [None] * k
         self.losses = torch.zeros(k, dtype=torch.float32, device=device)
-        self.warm = not pin  # a card runs the first group as plain steps
+        self.warm = not capture  # a captured group's first run is plain steps
         self.graph: Optional[CapturedGraph] = None
 
 
@@ -159,13 +172,21 @@ class Trainer:
     """Trains ``model`` (a ``PrithviSeg`` with float32 parameters) on
     ``device`` (``cuda`` unless the caller asks for the CPU). ``teacher``:
     the frozen distillation teacher (``factory.build_teacher``), used when
-    ``train.distillation`` is set."""
+    ``train.distillation`` is set. ``mesh``: the run's ``DeviceMesh``
+    (``parallel/mesh.py:mesh_from_config``), None for one process; the
+    model, equal on every rank, is placed on it here."""
 
     def __init__(self, cfg: Mapping, model: nn.Module, device=None,
-                 steps_per_epoch: int = 1, teacher: Optional[nn.Module] = None) -> None:
-        check_tpu_config(cfg)
+                 steps_per_epoch: int = 1, teacher: Optional[nn.Module] = None,
+                 mesh=None) -> None:
+        tpu_cfg = check_tpu_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_group = pmesh.axis_group(mesh, DATA_AXIS)
+        self.n_data = pmesh.axis_size(mesh, DATA_AXIS)
+        self.data_rank = pmesh.axis_rank(mesh, DATA_AXIS)
+        self.mode = self._place(model, teacher, tpu_cfg)
         self.model = model
         self.is_reg = bool(_get(cfg, None, "is_reg_task", False))
         self.num_classes = int(_get(cfg, "model", "num_classes", 2))
@@ -187,7 +208,8 @@ class Trainer:
         lr = float(_get(cfg, "train", "learning_rate", 1e-4))
         self.optimizer = make_optimizer(
             model, lr, float(_get(cfg, "train", "weight_decay", 1e-2)),
-            freeze_backbone=bool(_get(cfg, "model", "freeze_backbone", False)))
+            freeze_backbone=bool(_get(cfg, "model", "freeze_backbone", False)),
+            place=self._place_moments(tpu_cfg))
         self.schedule = (cosine_warm_restarts(lr, steps_per_epoch)
                          if _get(cfg, "train", "scheduler", False) else None)
         self.step = 0
@@ -196,10 +218,118 @@ class Trainer:
         self._auto_spc = str((cfg.get("tpu") or {}).get("steps_per_call", 1)) == "auto"
         self.steps_per_call = steps_per_call(cfg, self.device.type, in_chans)
         self._spc_args = (cfg, self.device.type, in_chans)
+        # Grouped steps are captured into a CUDA graph on one card without
+        # remat; under a mesh or remat they run as k eager steps.
+        self.capture = (self.device.type == "cuda" and mesh is None
+                        and not bool(tpu_cfg.get("remat", False)))
+        if self.steps_per_call > 1:
+            log.info("steps_per_call=%d: %s", self.steps_per_call,
+                     "captured into a CUDA graph" if self.capture else "eager steps per group")
+        self._dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+        self._sp_partial = []
+        if self.mode in ("tp", "tp+sp"):
+            from instageo_tpu_torch.parallel.tp import sp_partial_params
+
+            self._sp_partial = sp_partial_params(model)
         # Grouped steps: static buffers and graphs per (kind, shapes), and
         # the epoch accumulators that the graphs add into, per kind.
         self._groups: Dict[tuple, _Group] = {}
         self._group_metrics: Dict[tuple, EpochMetrics] = {}
+
+    # -- placement on the mesh ------------------------------------------------
+
+    def _place(self, model: nn.Module, teacher: Optional[nn.Module], tpu_cfg: Mapping) -> str:
+        """Place the student and the teacher on the mesh (the JAX trainer's
+        order: pp, tp, fsdp, replicated); returns the mode's name."""
+        mesh = self.mesh
+        if getattr(model, "placement", None):  # placed already (serve/server.py)
+            return model.placement
+        if mesh is None:
+            if int(tpu_cfg.get("tp", 1)) > 1 or int(tpu_cfg.get("pp", 1)) > 1:
+                raise ValueError("tpu.tp / tpu.pp place the model on a mesh of processes: "
+                                 "pass parallel/mesh.py:mesh_from_config's mesh")
+            return "single"
+        from instageo_tpu_torch.parallel.pp import has_pipe_axis, pp_place
+        from instageo_tpu_torch.parallel.tp import has_model_axis, tp_place
+
+        if has_pipe_axis(mesh):
+            mode = "pp"
+        elif has_model_axis(mesh):
+            mode = "tp+sp" if bool(tpu_cfg.get("sp", False)) else "tp"
+        elif bool(tpu_cfg.get("fsdp", False)):
+            mode = "fsdp"
+        else:
+            mode = "dp"
+        for m in (model, teacher):
+            if m is None:
+                continue
+            pmesh.replicate_tree(m, mesh)
+            if mode == "pp":
+                pp_place(m, mesh, int(tpu_cfg.get("pp_microbatches", 4)))
+            elif mode.startswith("tp"):
+                tp_place(m, mesh, sp=mode == "tp+sp")
+            elif mode == "fsdp":
+                from instageo_tpu_torch.parallel.fsdp import fsdp_place
+
+                fsdp_place(m, mesh)
+            if self.n_data > 1:
+                for bn in m.modules():
+                    if isinstance(bn, BatchNorm2d):
+                        bn.group = self.data_group
+        if teacher is not None:  # placement makes new (trainable) parameters
+            teacher.requires_grad_(False)
+        model.placement = mode
+        log.info("mesh %s: %s placement, data axis %d, zero1 %s", dict(zip(
+            mesh.mesh_dim_names, mesh.shape)), mode, self.n_data,
+            bool(tpu_cfg.get("zero1", False)))
+        return mode
+
+    def _place_moments(self, tpu_cfg: Mapping):
+        """How AdamW is built: ZeRO-1 over the data axis (``tpu.zero1``) but
+        under FSDP, whose moments are sharded with their parameters."""
+        zero1 = bool(tpu_cfg.get("zero1", False)) and self.mesh is not None
+        if self.mode.startswith("tp"):
+            from instageo_tpu_torch.parallel.tp import place_state_like_params
+
+            return lambda params, **kw: place_state_like_params(params, self.mesh, zero1, **kw)
+        if zero1 and self.mode != "fsdp":
+            return lambda params, **kw: pmesh.zero1_place(params, self.mesh, **kw)
+        return None
+
+    def _sync_grads(self) -> None:
+        """Gradients of the whole batch on every rank: the partial sums of
+        sequence parallelism over the ``model`` group, then the average over
+        the data axis (FSDP2 reduce-scatters its own), each one bucketed
+        all-reduce."""
+        from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+        if self._sp_partial:
+            from instageo_tpu_torch.parallel.mesh import MODEL_AXIS
+
+            grads = [p.grad for p in self._sp_partial if p.grad is not None]
+            flat = _flatten_dense_tensors(grads)
+            torch.distributed.all_reduce(flat, group=pmesh.axis_group(self.mesh, MODEL_AXIS))
+            pmesh.collectives["all_reduce"].add()
+            for g, synced in zip(grads, _unflatten_dense_tensors(flat, grads)):
+                g.copy_(synced)
+        if self.n_data == 1 or self.mode == "fsdp":
+            return
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        for dtype in sorted({g.dtype for g in grads}, key=str):  # one order on every rank
+            part = [g for g in grads if g.dtype == dtype]
+            flat = _flatten_dense_tensors(part)
+            torch.distributed.all_reduce(flat, group=self.data_group)
+            pmesh.collectives["all_reduce"].add()
+            flat /= self.n_data
+            for g, synced in zip(part, _unflatten_dense_tensors(flat, part)):
+                g.copy_(synced)
+
+    def _global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axis (itself on one rank)."""
+        if self.n_data > 1:
+            torch.distributed.all_reduce(t, group=self.data_group)
+            pmesh.collectives["all_reduce"].add()
+        return t
 
     def _reject_quant_training(self) -> None:
         """``tpu.quant`` is a serving setting: rounding has a zero gradient,
@@ -254,14 +384,18 @@ class Trainer:
 
     def _micro_backward(self, x: torch.Tensor, labels: torch.Tensor,
                         metrics: Optional[EpochMetrics]) -> torch.Tensor:
-        """``train.grad_accum`` = a > 1: the batch splits into a sequential
-        micro-batches, one forward and backward each, gradients added into
-        ``.grad``. Each micro-batch's gradient is weighted by its share of
-        the batch's valid pixels (every loss is a mean over valid pixels,
-        so this is the whole batch's gradient even when padding gathers in
-        the last micro-batches). BatchNorm updates per micro-batch; each
-        micro-batch counts as one metrics batch, its loss scaled by
-        w_i·a/Σw. Returns the valid-weighted mean loss."""
+        """``train.grad_accum`` = a > 1, or a mesh: the batch splits into a
+        sequential micro-batches, one forward and backward each, gradients
+        added into ``.grad``. Each micro-batch's gradient is weighted by its
+        share of the whole batch's valid pixels (every loss is a mean over
+        valid pixels, so this is the whole batch's gradient even when
+        padding gathers in the last micro-batches or on some ranks; under a
+        mesh the whole batch's count is an all-reduce over the data axis and
+        the weight is times N, which the gradient average divides again).
+        BatchNorm updates per micro-batch; each micro-batch counts as one
+        metrics batch, its loss scaled by w_i·a/Σw (the ranks' shares add
+        up in ``_finalize``). Returns the valid-weighted mean loss of the
+        whole batch."""
         a = self.grad_accum
         if x.shape[0] % a:
             raise ValueError(f"batch of {x.shape[0]} does not split into "
@@ -269,27 +403,32 @@ class Trainer:
         m = x.shape[0] // a
         ign = float(self.ignore_index) if self.is_reg else self.ignore_index
         w = (labels != ign).reshape(a, -1).sum(dim=1).float()
-        w_total = w.sum().clamp_min(1.0)
+        w_total = self._global_sum(w.sum()).clamp_min(1.0)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(a):
             xb, yb = x[i * m:(i + 1) * m], labels[i * m:(i + 1) * m]
             logits = self.model(xb)
             loss = self._loss(logits, yb, self._teacher_logits(xb))
-            (loss * (w[i] / w_total)).backward()
+            (loss * (w[i] * self.n_data / w_total)).backward()
             total += loss.detach() * (w[i] / w_total)
             if metrics is not None:
                 self._update_metrics(metrics, logits, yb, loss.detach() * w[i] * a / w_total)
-        return total
+        return self._global_sum(total)
 
     def _step_body(self, x: torch.Tensor, labels: torch.Tensor,
                    metrics: Optional[EpochMetrics]) -> torch.Tensor:
         """One optimizer step's device work, with the rate already set:
-        forward, loss, backward, AdamW, clipping, the metrics. Nothing in it
-        reads back to the host, so a CUDA graph can hold it."""
+        forward, loss, backward, the gradients' sync under a mesh, AdamW,
+        clipping, the metrics. Nothing in it reads back to the host, so a
+        CUDA graph can hold it."""
         model = self.model
         model.zero_grad(set_to_none=True)
-        if self.grad_accum > 1:
+        for drop in self._dropouts:  # this rank's first row of each micro-batch
+            drop.first_row = self.data_rank * (x.shape[0] // self.grad_accum)
+        if self.grad_accum > 1 or self.mesh is not None:
             loss = self._micro_backward(x, labels, metrics)
+            if self.mesh is not None:
+                self._sync_grads()
         else:
             logits = model(x)
             loss = self._loss(logits, labels, self._teacher_logits(x))
@@ -342,22 +481,28 @@ class Trainer:
 
     def _host_batch(self, x, y, batch_size: int, accum: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """A host batch (arrays or CPU tensors) as CPU tensors, float32
-        inputs and the labels' dtype: padded to ``batch_size`` rounded up to
-        a multiple of ``accum`` micro-batches (``train.grad_accum`` by
-        default; eval passes 1) by repeating real inputs and filling labels
-        with ``ignore_index``. A float32 tensor stays as it is (pinned
-        memory stays pinned)."""
+        """This rank's rows of a host batch (arrays or CPU tensors) as CPU
+        tensors, float32 inputs and the labels' dtype: padded to
+        ``batch_size`` rounded up to a multiple of ``accum`` micro-batches
+        (``train.grad_accum`` by default; eval passes 1) times the mesh's
+        ranks, by repeating real inputs and filling labels with
+        ``ignore_index``, then cut to the rank's share of each micro-batch
+        (``parallel/multihost.py:host_local_to_global``). A float32 tensor of one process
+        stays as it is (pinned memory stays pinned)."""
         accum = self.grad_accum if accum is None else max(1, int(accum))
+        unit = accum * pmesh.mesh_size(self.mesh)
         n = x.shape[0]
-        target = -(-max(batch_size, n) // accum) * accum
+        target = -(-max(batch_size, n) // unit) * unit
         if n != target:
             fill = float(self.ignore_index) if self.is_reg else self.ignore_index
             x, y, _ = pad_batch((np.asarray(x), np.asarray(y)), target, fill,
                                 repeat_inputs=True)
         if isinstance(x, np.ndarray):
             x = np.ascontiguousarray(x, dtype=np.float32)
-        return torch.as_tensor(x, dtype=torch.float32), torch.as_tensor(y)
+        x, y = torch.as_tensor(x, dtype=torch.float32), torch.as_tensor(y)
+        if self.mesh is not None:
+            x, y = (t.contiguous() for t in host_local_to_global((x, y), self.mesh, accum))
+        return x, y
 
     def _group_for(self, kind: str, k: int, x: torch.Tensor, y: torch.Tensor,
                    seeds_per_step: int) -> _Group:
@@ -367,7 +512,7 @@ class Trainer:
             group = self._groups[key] = _Group(
                 k, x, y, self.device, seeds_per_step,
                 getattr(self.model, "dtype", torch.float32),
-                torch.float32 if self.is_reg else torch.int64)
+                torch.float32 if self.is_reg else torch.int64, self.capture)
         return group
 
     def _epoch_metrics(self, kind: str, with_auc: bool = False) -> EpochMetrics:
@@ -493,7 +638,12 @@ class Trainer:
     def _eval_step(self, x: torch.Tensor, y: torch.Tensor, metrics: EpochMetrics
                    ) -> torch.Tensor:
         logits = self.model(x)
-        self._update_metrics(metrics, logits, y, self._loss(logits, y))
+        loss = self._loss(logits, y)
+        if self.mesh is not None:  # this rank's share of the batch's mean
+            ign = float(self.ignore_index) if self.is_reg else self.ignore_index
+            valid = (y != ign).sum().float()
+            loss = loss * valid / self._global_sum(valid.clone()).clamp_min(1.0)
+        self._update_metrics(metrics, logits, y, loss)
         return logits
 
     def _eval_group_body(self, group: _Group, metrics: EpochMetrics) -> None:
@@ -553,21 +703,35 @@ class Trainer:
             logits = self._eval_step(x, y, metrics)
             metrics.batches += 1
             if collect:
-                preds = logits[:n_real, 0].float()
+                # Under a mesh the padding rows are the ignore-labelled ones.
+                rows = slice(None) if self.mesh is not None else slice(n_real)
+                preds = logits[rows, 0].float()
                 if self.use_log_scale:
                     preds = torch.expm1(preds)
-                labels = y[:n_real]
+                labels = y[rows]
                 valid = labels != float(self.ignore_index)
                 collected_p.append(preds[valid].cpu().numpy())
                 collected_y.append(labels[valid].cpu().numpy())
         out = self._finalize(metrics, step_type)
+        if collect and self.n_data > 1:  # every rank's rows
+            parts = [None] * self.n_data
+            torch.distributed.all_gather_object(parts, (collected_p, collected_y),
+                                                group=self.data_group)
+            collected_p = [a for p, _ in parts for a in p]
+            collected_y = [a for _, ys in parts for a in ys]
         if collect_outputs and collected_p:
             out["_preds"] = np.concatenate(collected_p)
             out["_labels"] = np.concatenate(collected_y)
         return out
 
     def _finalize(self, metrics: EpochMetrics, step_type: str) -> Dict:
-        """One host transfer per epoch; the JAX trainer's metric names."""
+        """One host transfer per epoch, after the accumulators are summed
+        over the data axis; the JAX trainer's metric names."""
+        if self.n_data > 1:
+            aggregate_metrics([metrics.loss_sum] + [
+                t for acc in (metrics.reg, metrics.cm, metrics.auc) if acc is not None
+                for t in vars(acc).values() if isinstance(t, torch.Tensor)],
+                group=self.data_group)
         out: Dict = {f"{step_type}_loss": metrics.loss_sum.item() / (metrics.batches or 1)}
         if self.is_reg:
             m = metrics.reg.compute(include_ee=self.include_ee)
@@ -601,8 +765,13 @@ class Trainer:
     def fit(self, train_loader: Callable, val_loader: Callable, checkpointer=None,
             seed: int = 1042, log_fn: Optional[Callable] = None) -> Dict:
         """``train.num_epochs`` epochs of training and validation; returns
-        the last epoch's metrics. Epoch e's dropout stream comes from (seed,
-        e), e counting the epochs of a restored run too. Saves through
+        the last epoch's metrics, with each step's loss
+        (``train_step_losses``, read once at the epoch's end) and the
+        kernel launches and the parallel layer's collectives of its train
+        epoch alone (``train_launches``, ``train_collectives``: this
+        process's counters read before its first step and after its last).
+        Epoch e's dropout stream comes from (seed, e), e counting the
+        epochs of a restored run too. Saves through
         ``checkpointer`` when the monitored metric improves (NaN never
         does)."""
         self._reject_quant_training()
@@ -611,12 +780,22 @@ class Trainer:
         history: Dict = {}
         for epoch in range(num_epochs):
             t0 = time.time()
+            losses: list = []
+            launched, talked = kernel_launches(), pmesh.read_collectives()
             train_m = self.run_train_epoch(train_loader(), epoch_generator(seed, self.epoch),
-                                           batch_size)
+                                           batch_size, losses)
+            step_losses = torch.stack(losses).tolist() if losses else []  # waits for the card
+            train_s = time.time() - t0
+            # Counted around the train epoch alone: the eval epoch's
+            # forwards and collectives stay out.
+            train_launches = _since(kernel_launches(), launched)
+            train_collectives = _since(pmesh.read_collectives(), talked)
             val_m = self.run_eval_epoch(val_loader(), batch_size, "val")
             self.epoch += 1
             history = {**train_m, **val_m, "epoch": epoch,
-                       "epoch_time_s": time.time() - t0}
+                       "epoch_time_s": time.time() - t0, "train_time_s": train_s,
+                       "train_step_losses": step_losses, "train_launches": train_launches,
+                       "train_collectives": train_collectives}
             if log_fn:
                 log_fn(history)
             log.info("epoch %d: %s", epoch, history)
@@ -626,8 +805,12 @@ class Trainer:
                              else (score < self.best_metric)))
             if improved:
                 self.best_metric = score
+                # Gathering the state is collective; the caller gives rank
+                # 0 alone a checkpointer.
+                state = self.state_dict() if (checkpointer is not None
+                                              or self.mesh is not None) else None
                 if checkpointer is not None:
-                    checkpointer.save(self.state_dict(), metrics=history)
+                    checkpointer.save(state, metrics=history)
         return history
 
     def test(self, test_loader: Callable, batch_size: Optional[int] = None) -> Dict:
@@ -635,9 +818,144 @@ class Trainer:
         return self.run_eval_epoch(test_loader(), batch_size, "test")
 
     def state_dict(self) -> Dict[str, Any]:
-        """What a checkpoint holds: model, optimizer, step and epoch."""
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "epoch": self.epoch}
+        """What a checkpoint holds: model, optimizer, step and epoch, with
+        the keys of a single-card run. Under a mesh this is collective: the
+        model's full state (FSDP2's shards and the tensor-parallel shards
+        gathered, each block from its pipeline stage) and the optimizer's
+        (``_full_optimizer_state``; FSDP2 gathers its own), on the CPU."""
+        state = {"step": self.step, "epoch": self.epoch}
+        if self.mode == "single":
+            return {"model": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(), **state}
+        if self.mode == "fsdp":
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions,
+                get_model_state_dict,
+                get_optimizer_state_dict,
+            )
+
+            opts = StateDictOptions(full_state_dict=True, cpu_offload=True)
+            state["model"] = get_model_state_dict(self.model, options=opts)
+            osd = get_optimizer_state_dict(self.model, self.optimizer, options=opts)
+            if osd:  # rank 0's; the others get empty dicts
+                state["optimizer"] = _indexed_optimizer_state(self.optimizer, self.model, osd)
+            return state
+        local = self.model.state_dict()
+        if self.mode.startswith("tp"):
+            from instageo_tpu_torch.parallel.mesh import MODEL_AXIS
+            from instageo_tpu_torch.parallel.tp import tp_full_state
+
+            local = tp_full_state(self.model, local,
+                                  pmesh.axis_group(self.mesh, MODEL_AXIS))
+        elif self.mode == "pp":
+            from instageo_tpu_torch.parallel.pp import sync_stages
+
+            sync_stages(self.model)
+            local = self.model.state_dict()
+        state["model"] = {k: v.detach().cpu() for k, v in local.items()}
+        state["optimizer"] = self._full_optimizer_state()
+        return state
+
+    def _single_card_names(self) -> list:
+        """The parameter names of the single-card run's AdamW, in its order
+        (the indices of its ``state_dict``): this rank's, and under
+        ``tpu.pp`` the blocks of the other stages, frozen here."""
+        names = set(_param_names(self.optimizer, self.model))
+        if self.mode == "pp" and not _get(self.cfg, "model", "freeze_backbone", False):
+            names |= {n for n, _ in self.model.named_parameters() if n.startswith(_BLOCKS)}
+        return [n for n, _ in self.model.named_parameters() if n in names]
+
+    def _full_optimizer_state(self) -> Dict[str, Any]:
+        """The single-card ``optimizer.state_dict()`` of a dp, ``tpu.zero1``,
+        ``tpu.tp`` or ``tpu.pp`` run, on the CPU; collective. Each
+        parameter's step and moments come from the rank that holds them
+        (one broadcast from its ZeRO-1 owner on the data axis, one from its
+        pipeline stage), then the tensor-parallel shards are gathered
+        (``tp.tp_full``)."""
+        inner = getattr(self.optimizer, "optim", self.optimizer)  # ZeRO-1's local AdamW
+        owners = getattr(self.optimizer, "_param_to_rank", {})
+        pipe = self.model.prithvi_encoder.pipeline if self.mode == "pp" else None
+        tp_group = None
+        if self.mode.startswith("tp"):
+            from instageo_tpu_torch.parallel.mesh import MODEL_AXIS
+
+            tp_group = pmesh.axis_group(self.mesh, MODEL_AXIS)
+        params = dict(self.model.named_parameters())
+        state = {}
+        names = self._single_card_names()
+        for i, name in enumerate(names):
+            p = params[name]
+            n = p.numel()
+            # (step, exp_avg, exp_avg_sq) in one buffer; step -1: no state
+            buf = torch.full((1 + 2 * n,), -1.0, dtype=torch.float32, device=p.device)
+            st = inner.state.get(p)
+            if st:
+                buf[0] = float(st["step"])
+                buf[1:1 + n] = st["exp_avg"].reshape(-1)
+                buf[1 + n:] = st["exp_avg_sq"].reshape(-1)
+            if p in owners:
+                torch.distributed.broadcast(buf, group=self.data_group, src=torch.distributed
+                                            .get_global_rank(self.data_group, owners[p]))
+            if pipe is not None and name.startswith(_BLOCKS):
+                stage = pipe.owner[int(name.split(".")[2])]
+                torch.distributed.broadcast(buf, src=pipe.ranks[stage], group=pipe.group)
+            if float(buf[0]) < 0:
+                continue
+            moments = [buf[1:1 + n].view_as(p), buf[1 + n:].view_as(p)]
+            if tp_group is not None:
+                from instageo_tpu_torch.parallel.tp import tp_full_state
+
+                moments = [tp_full_state(self.model, {name: m}, tp_group)[name]
+                           for m in moments]
+            state[i] = {"step": torch.tensor(float(buf[0])),
+                        "exp_avg": moments[0].to("cpu", copy=True),
+                        "exp_avg_sq": moments[1].to("cpu", copy=True)}
+        group = {k: v for k, v in inner.param_groups[0].items() if k != "params"}
+        group["lr"] = float(group["lr"])
+        return {"state": state, "param_groups": [dict(group, params=list(range(len(names))))]}
+
+    def _load_full_optimizer_state(self, full: Dict[str, Any]) -> None:
+        """This rank's part of a single-card optimizer state: the moments of
+        the parameters its AdamW holds (its ZeRO-1 share, its stage's
+        blocks), as its tensor-parallel shards; the saved rate."""
+        inner = getattr(self.optimizer, "optim", self.optimizer)
+        mine = {id(p) for g in inner.param_groups for p in g["params"]}
+        params = dict(self.model.named_parameters())
+        for i, name in enumerate(self._single_card_names()):
+            p, st = params[name], full["state"].get(i)
+            if st is None or id(p) not in mine:
+                continue
+            moments = [st["exp_avg"], st["exp_avg_sq"]]
+            if self.mode.startswith("tp"):
+                from instageo_tpu_torch.parallel.tp import tp_local_state
+
+                moments = [tp_local_state(self.model, {name: m}, self.mesh)[name]
+                           for m in moments]
+            capturable = inner.param_groups[0].get("capturable", False)
+            inner.state[p] = {
+                "step": st["step"].to(torch.float32).to(p.device if capturable else "cpu"),
+                "exp_avg": moments[0].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": moments[1].to(p.device, p.dtype).clone()}
+        rate = float(full["param_groups"][0]["lr"])
+        set_learning_rate(self.optimizer, rate)
+        set_learning_rate(inner, rate)
+
+    def load_model_state(self, full: Dict[str, torch.Tensor]) -> None:
+        """Load a single-card run's model state (every rank reads it whole)
+        into the placed model."""
+        if self.mode == "fsdp":
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions,
+                set_model_state_dict,
+            )
+
+            set_model_state_dict(self.model, full, options=StateDictOptions(full_state_dict=True))
+            return
+        if self.mode.startswith("tp"):
+            from instageo_tpu_torch.parallel.tp import tp_local_state
+
+            full = tp_local_state(self.model, full, self.mesh)
+        self.model.load_state_dict(full, strict=True)
 
     def restore(self, ckpt_path: str) -> None:
         """Resume from a checkpoint directory written by ``BestCheckpointer``:
@@ -646,12 +964,54 @@ class Trainer:
         resume does not overwrite the better checkpoint. The schedule goes
         on from the restored step."""
         state = load_checkpoint(ckpt_path)
-        self.model.load_state_dict(state["model"], strict=True)
-        if "optimizer" in state:
+        self.load_model_state(state["model"])
+        if "optimizer" not in state:
+            log.warning("%s holds no optimizer state: AdamW starts afresh", ckpt_path)
+        elif self.mode == "fsdp":
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions,
+                set_optimizer_state_dict,
+            )
+
+            kept = capturable_rates(self.optimizer)
+            set_optimizer_state_dict(
+                self.model, self.optimizer,
+                _named_optimizer_state(self.optimizer, self.model, state["optimizer"]),
+                options=StateDictOptions(full_state_dict=True))
+            restore_capturable(self.optimizer, kept)
+        elif self.mode == "single":
             load_optimizer_state(self.optimizer, state["optimizer"])
-            self._groups.clear()  # graphs hold the replaced optimizer state
+        else:
+            self._load_full_optimizer_state(state["optimizer"])
+        self._groups.clear()  # graphs hold the replaced optimizer state
         self.step = int(state.get("step", 0))
         self.epoch = int(state.get("epoch", 0))
         best = load_best_metric(ckpt_path, self.monitor)
         if best is not None:
             self.best_metric = best
+
+
+def _since(now: Dict[str, int], then: Dict[str, int]) -> Dict[str, int]:
+    return {k: now[k] - then[k] for k in now}
+
+
+def _param_names(optimizer: torch.optim.Optimizer, model: nn.Module) -> list:
+    """The names of the optimizer's parameters, in its order (the indices
+    of a single-card ``state_dict``)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def _indexed_optimizer_state(optimizer, model, osd: dict) -> dict:
+    """A state dict keyed by parameter name (``torch.distributed.checkpoint``)
+    as ``optimizer.state_dict()`` keys it, by index."""
+    index = {n: i for i, n in enumerate(_param_names(optimizer, model))}
+    groups = [dict(g, params=[index[n] for n in g["params"]]) for g in osd["param_groups"]]
+    return {"state": {index[n]: st for n, st in osd["state"].items()}, "param_groups": groups}
+
+
+def _named_optimizer_state(optimizer, model, sd: dict) -> dict:
+    names = _param_names(optimizer, model)
+    groups = [dict(g, params=[names[i] for i in g["params"]]) for g in sd["param_groups"]]
+    return {"state": {names[i]: st for i, st in sd["state"].items()}, "param_groups": groups}
+

@@ -66,7 +66,7 @@ class ExperimentLogger:
     def log_metrics(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
         record = {"_ts": time.time(), "_step": step,
                   **{k: v for k, v in metrics.items()
-                     if isinstance(v, (int, float, str))}}
+                     if isinstance(v, (int, float, str, list, dict))}}
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
         if self._neptune is not None:

@@ -7,7 +7,11 @@ Counterpart of ``instageo_tpu/utils/telemetry.py``:
 * ``EmissionsTracker``: energy from wall time × the card's power draw,
   read with ``nvidia-smi --query-gpu=power.draw`` at start and stop;
 * ``profile_trace``: a ``torch.profiler`` trace written to a directory;
-* ``count_params`` and ``StepTimer``.
+* ``count_params`` and ``StepTimer``;
+* ``rank_footprint``: what one rank of a run holds and launched: its
+  parameter and AdamW-moment bytes (its shards under FSDP, ZeRO-1 or
+  tensor parallelism), the card's peak memory, and its train epoch's
+  kernel launches and collectives.
 """
 
 from __future__ import annotations
@@ -162,3 +166,42 @@ class StepTimer:
             "p95_s": float(np.percentile(arr, 95)),
             "total_s": float(arr.sum()),
         }
+
+
+def _local_bytes(t: torch.Tensor) -> int:
+    t = t.to_local() if hasattr(t, "to_local") else t
+    return int(t.numel()) * t.element_size()
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of each Hopper kernel in this process (direct and through
+    CUDA graph replays), by route."""
+    from instageo_tpu_torch.ops import attention, dropout
+
+    fwd, bwd = attention.launches.total(), attention.bwd_launches.total()
+    fwd_mma, bwd_mma = attention.fwd_mma_launches.total(), attention.bwd_mma_launches.total()
+    return {"flash_attn_fwd_sm90": fwd - fwd_mma, "flash_attn_fwd": fwd_mma,
+            "flash_attn_bwd_sm90": bwd - bwd_mma, "flash_attn_bwd": bwd_mma,
+            "fused_dropout": dropout.launches.total()}
+
+
+def rank_footprint(model: nn.Module, optimizer: Optional[torch.optim.Optimizer],
+                   history: Dict) -> Dict:
+    """This rank's parameter and moment bytes, peak device memory (on a
+    card), and the kernel launches and the parallel layer's own collectives
+    (``parallel/mesh.py:collectives``) of its last train epoch (``history``:
+    ``Trainer.fit``'s)."""
+    moments = 0
+    if optimizer is not None:
+        local = getattr(optimizer, "optim", optimizer)  # ZeroRedundancyOptimizer's share
+        moments = sum(_local_bytes(v) for st in local.state.values() for v in st.values()
+                      if isinstance(v, torch.Tensor) and v.dim() > 0)
+    device = next(model.parameters()).device
+    return {
+        "param_bytes": sum(_local_bytes(p) for p in model.parameters()),
+        "moment_bytes": moments,
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None),
+        "train_launches": history.get("train_launches"),
+        "train_collectives": history.get("train_collectives"),
+    }

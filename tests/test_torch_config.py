@@ -18,7 +18,7 @@ from instageo_tpu_torch.configs import config as cfgmod
 from instageo_tpu_torch.train.factory import TPU_KEYS, check_tpu_config
 
 PORT_CONFIGS = ("config", "sen1floods11", "multitemporal_crop_classification",
-                "multitemporal_crop_t4", "locust")
+                "multitemporal_crop_t4", "locust", "prithvi600_v5e8")
 JAX_DIR = os.path.dirname(os.path.abspath(jax_config.__file__))
 
 
@@ -90,10 +90,15 @@ def test_augmentations_and_required_flags_match_jax():
 
 
 def test_tpu_table_refuses_what_is_not_ported():
-    for key, rule in TPU_KEYS.items():
-        if rule[0] == "refused":
-            with pytest.raises(NotImplementedError, match="ROADMAP item"):
-                check_tpu_config({"tpu": {key: "not-a-default"}})
+    # Every key of the JAX table is ported; values outside a key's range,
+    # and the JAX factory's rejected combinations, raise.
+    assert {rule[0] for rule in TPU_KEYS.values()} == {"honoured", "accepted"}
+    for bad in ({"tp": 0}, {"pp": "two"}, {"mesh": 0}, {"pp_microbatches": 0},
+                {"sp": True}, {"tp": 2, "pp": 2}, {"block_layout": "ring"},
+                {"tp": 2, "quant": "int8"}):
+        with pytest.raises(ValueError):
+            check_tpu_config({"tpu": bad})
+    check_tpu_config({"tpu": {"tp": 2, "sp": True, "zero1": True, "mesh": 4, "remat": True}})
     with pytest.raises(ValueError):
         check_tpu_config({"tpu": {"precision": "fp8"}})
     check_tpu_config({"tpu": {"steps_per_call": "auto", "attn_impl": "pallas",

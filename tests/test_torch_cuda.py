@@ -338,6 +338,20 @@ def test_dropout_mask_is_the_plain_stream(cuda, design, dtype, n):
         assert torch.equal(out, tdrop.dropout_apply(view, mask, 0.3))
 
 
+@pytest.mark.parametrize("offset", [0, 8, 3, (1 << 33) + 5])
+@pytest.mark.parametrize("n", [1, 9, 4099])
+def test_dropout_offset_is_the_plain_stream_from_there(cuda, offset, n):
+    """With an element offset, the mask is ``philox_bits(start=offset)``, by
+    value and with the seed from device memory."""
+    x = torch.randn(n, device=cuda).to(torch.bfloat16)
+    ref = tdrop.philox_bits(n, 99, cuda, start=offset) >= tdrop.threshold(0.3)
+    seeds = torch.tensor([1, 99], dtype=torch.int64, device=cuda)
+    for seed in (99, (seeds, 1)):
+        out, mask = tdrop.fused_dropout_fwd(x, 0.3, seed, offset)
+        assert torch.equal(mask, ref)
+        assert torch.equal(out, tdrop.dropout_apply(x, ref, 0.3))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(3, 5, 7), (2, 16, 64, 64), (1,)])
 def test_dropout_kernel_is_exact_given_its_mask(cuda, dtype, shape):

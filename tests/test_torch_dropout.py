@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from instageo_tpu.ops.dropout import _fused_dropout_fwd_impl, fused_dropout as jax_dropout
-from instageo_tpu_torch.models.seg import Dropout
+from instageo_tpu_torch.models.seg import Dropout, SeedSlots
 from instageo_tpu_torch.ops import dropout as tdrop
 
 torch.set_num_threads(1)
@@ -198,3 +198,27 @@ def test_plain_stream_threshold_and_keep_rate():
     assert int(bits.min()) >= 0 and int(bits.max()) < 1 << 32
     for p in (0.1, 0.5):
         assert _keep_rate_ok((bits >= tdrop.threshold(p)).numpy(), p)
+
+
+@pytest.mark.parametrize("offset", [0, 8, 3, 4 * 37 + 2])
+def test_offset_starts_the_stream_at_that_element(offset):
+    """An element offset gives x the stream of elements offset.. (what the
+    kernel takes as its 64-bit offset): a rank's rows draw the masks they
+    get in the whole batch, with the module's ``first_row`` as well as with
+    the function's ``offset``."""
+    p, seed = 0.3, 77
+    whole = torch.from_numpy(_x(seed=4)).reshape(-1)
+    n = whole.numel() - offset
+    out, mask = tdrop.fused_dropout_seeded_plain(whole[offset:], p, seed, offset)
+    bits = tdrop.philox_bits(n, seed, start=offset)
+    np.testing.assert_array_equal(mask.numpy(), (bits >= tdrop.threshold(p)).numpy())
+    _, whole_mask = tdrop.fused_dropout_seeded_plain(whole, p, seed)
+    np.testing.assert_array_equal(mask.numpy(), whole_mask[offset:].numpy())
+    batch = whole[: 4 * 60].reshape(4, 3, 4, 5)
+    drop = Dropout(p).train()
+    drop.seeds = SeedSlots(1, "cpu")
+    drop.seeds.buffer.fill_(seed)
+    drop.first_row = 2
+    rows = drop(batch[2:])
+    ref, _ = tdrop.fused_dropout_seeded_plain(batch, p, seed)
+    torch.testing.assert_close(rows, ref[2:], rtol=0, atol=0)

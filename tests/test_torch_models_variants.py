@@ -311,9 +311,13 @@ def test_factory_builds_every_variant(overrides):
         assert model.head_impl == "fast" and out.shape == (1, 3, size, size)
     gelu = overrides.get("tpu.gelu", "exact")
     assert model.prithvi_encoder.blocks[0].mlp.gelu == gelu
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        factory.build_model(load_config("config", overrides={
-            **over, "tpu.block_layout": "pipeline"}), device="cpu")
+    # Without tpu.pp the pipeline layout is the loop's blocks, as the JAX
+    # model's is the scan's without a pipe mesh; remat builds the same.
+    for extra in ({"tpu.block_layout": "pipeline"}, {"tpu.remat": True}):
+        other = factory.build_model(load_config("config", overrides={**over, **extra}),
+                                    device="cpu")
+        with torch.no_grad():
+            torch.testing.assert_close(other(torch.zeros(1, 6, 1, size, size)), out)
 
 
 def test_pretrained_weights_table_is_the_jax_one():

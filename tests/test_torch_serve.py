@@ -189,7 +189,8 @@ def test_port_imports_nothing_of_jax():
                 "data.raster_chip_creator", "webapp.settings", "webapp.db", "webapp.queue",
                 "webapp.tasks", "webapp.data_processor", "webapp.cog", "webapp.png",
                 "webapp.tiler", "webapp.auth", "webapp.docs", "webapp.web", "webapp.main",
-                "webapp.selftest_goldens", "apps.viz", "apps.app"):
+                "webapp.selftest_goldens", "apps.viz", "apps.app", "parallel.mesh",
+                "parallel.fsdp", "parallel.tp", "parallel.pp", "parallel.multihost"):
         assert f"instageo_tpu_torch.{new}" in modules
     assert "instageo_tpu_torch.native" in modules  # the decoder's binding is a package
     code = ("import sys, importlib\n"

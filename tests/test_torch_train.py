@@ -341,14 +341,16 @@ def test_fit_learns_the_toy_task():
 def test_trainer_refuses_what_is_not_ported():
     """What the port does not run raises; grad_accum, distillation, the
     regression task, steps_per_call, checkpointing, the GELU lowerings, the
-    scan block layout and ``tpu.quant`` (inference only: its training
+    scan and pipeline block layouts, remat and ``tpu.quant`` (inference only: its training
     entry points refuse it) are ported and build."""
     model = create_prithvi_seg("prithvi_eo_tiny", depth=1, image_size=32,
                                param_dtype=torch.float32, device="cpu")
-    for cfg in ({"tpu": {"tp": 2}}, {"tpu": {"block_layout": "pipeline"}}):
-        with pytest.raises(NotImplementedError):
+    # tp and pp need a mesh of processes (tests/test_torch_parallel.py).
+    for cfg in ({"tpu": {"tp": 2}}, {"tpu": {"pp": 2}}):
+        with pytest.raises(ValueError, match="mesh"):
             Trainer(cfg, model, device="cpu")
     for cfg in ({"train": {"grad_accum": 2}}, {"train": {"distillation": True}},
+                {"tpu": {"block_layout": "pipeline"}}, {"tpu": {"remat": True}},
                 {"tpu": {"steps_per_call": "auto"}}, {"tpu": {"steps_per_call": 4}},
                 {"is_reg_task": True}, {"tpu": {"gelu": "tanh"}},
                 {"tpu": {"block_layout": "scan"}}, {"tpu": {"quant": "int8"}}):
