@@ -18,8 +18,8 @@ Phases, one line each (any failure raises and exits non-zero):
    earlier design's at the same shapes, in turns: the attention routes by
    head dim (wgmma for Dh 64 and 80, beside the mma.sync kernels); the
    backward's dq run to run; the dropout's mask equal to the plain Philox
-   stream bit for bit (and the earlier 4-element design's), with its seed
-   by value and from device memory, the two timed in turns; under
+   stream bit for bit, with its seed by value and from device memory, the
+   two timed in turns; under
    deterministic mode the backward on the mma.sync route, two calls bit-equal;
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
@@ -96,9 +96,10 @@ Phases, one line each (any failure raises and exits non-zero):
     whole granule on decided pixels, a run at overlap 16 with full coverage
     and the kernel vs plain there too; decode, host-to-device, device,
     first-batch and wall seconds per granule, chips/s, peak device memory;
-    then the CLI at batch 8 in two fresh interpreters, one that builds the
-    forward kernel at its first launch and one on the built library: the
-    cold cost a user's first and later runs pay;
+    then the CLI at batch 8 in two fresh interpreters on one
+    ``INSTAGEO_COMPILE_CACHE_DIR``, one that builds the forward kernel there
+    at its first launch and one that loads it from there with ``nvcc``
+    barred: the cold cost a user's first and later runs pay;
 11. chip_ops: ``process_tile_chips`` on the same tile (196 chips of 256 px,
     Fmask cloud and shadow masking ``each`` and ``any``, 50,000 points with
     one dense chip): card = CPU bit for bit, also under deterministic mode;
@@ -119,8 +120,7 @@ Phases, one line each (any failure raises and exits non-zero):
     data_prep: on the host, the data cleaner (drop, buffer, limit) over the
     card run's chips and the splitter over the cleaned CSV; whether
     ``libopenjp2`` loads and decodes the committed JP2 fixture; whether
-    matplotlib is here for the regression plot; the compile cache
-    (``INSTAGEO_COMPILE_CACHE_DIR``) in two fresh interpreters;
+    matplotlib is here for the regression plot;
 13. webapp: the web platform as it is deployed (``webapp_phase``): the
     port's server in this process with its three spawned queue workers and
     a job process per stage, on the card; a ``POST /api/run-model`` of the
@@ -154,8 +154,19 @@ Phases, one line each (any failure raises and exits non-zero):
     against a run without; on the default backward, each step's loss
     within 1e-3 (the first bit for bit); peak memory of each; with one
     card visible, one line says what needs two;
-15. one JSON line ``{"kernels": [...]}``;
-16. last line: ``{"ok": true, "device": {...}}``.
+15. examples: the port's walkthroughs (``examples_phase``), each in a fresh
+    interpreter as a user runs it: the quickstart on the card (wall
+    seconds, #1 4 per forward and #3 4 per step on the wgmma route and
+    none on mma.sync,
+    its export artifact against a ``ModelServer`` of its checkpoint on one
+    batch), the multichip walkthrough under ``torch.distributed.run`` at
+    world = the visible cards (each placement's loss at both steps within
+    1e-3 of data parallelism's; with one card, the tensor-parallel
+    placement named as needing two), the raster chip creator demo on the
+    card and on the CPU (every file equal byte for byte), the last two
+    side by side;
+16. one JSON line ``{"kernels": [...]}``;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
 ``configs/multitemporal_crop_classification.yaml``.
@@ -208,12 +219,13 @@ KERNEL_SHAPES = [
     (4, 16, 1025, 80, "merged", "contiguous"),
     (8, 16, 589, 64, "merged", "contiguous"),  # the web stage 2's 300M at batch 8
     (64, 16, 257, 80, "merged", "qkv"),  # the 600M recipe's micro-batch of 64
+    (8, 4, 5, 64, "merged", "contiguous"),  # the quickstart's prithvi_eo_tiny at 32 px
 ]
 # The forward kernels' symbols, by route, as the profiler names them.
 FWD_KERNEL_SYMBOL = {"wgmma": "flash_attn_fwd_sm90_kernel", "mma_sync": "flash_attn_fwd_kernel"}
-# The dropout kernels' symbols: the wrapper's (8 elements per thread) and
-# the earlier design's (4).
-DROPOUT_SYMBOL = ("fused_dropout_kernel", "fused_dropout_x4_kernel")
+# The dropout kernel's symbol (tools/profile_dropout_designs.py times the
+# earlier design's beside it).
+DROPOUT_SYMBOL = "fused_dropout_kernel"
 # (B, H, L, Dh, entry) of the backward: the training step at batch 8 and 32,
 # T=1, the 600M shapes heads-first (L=1025 trains on the card), and the
 # q-blocked entry.
@@ -225,6 +237,7 @@ BWD_SHAPES = [
     (2, 16, 1025, 80, "heads_first"),
     (8, 16, 513, 80, "bloq"),
     (64, 16, 257, 80, "merged"),  # the 600M recipe's micro-batch of 64
+    (8, 4, 5, 64, "merged"),  # the quickstart's prithvi_eo_tiny at 32 px
 ]
 # The five dropout inputs of one batch-8 training step of the crop model: the
 # four upscaling blocks' ConvTranspose outputs and the head's last dropout.
@@ -645,10 +658,9 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
     """Hold the dropout kernel's mask to the plain Philox stream and its
     output to ``dropout_apply`` on that mask, bit for bit, at ``shapes``,
     with the seed by value and from device memory; check its keep rate,
-    streams and backward. Times the kernel and the earlier design ("prev", 4
-    elements per thread and step) in turns (new, prev, prev, new), by
-    wrapper ms and device ms, beside ``F.dropout``; and the kernel with the
-    seed from device memory ("seed_ptr") in turns with it by value."""
+    streams and backward. Times the kernel, by wrapper ms and device ms,
+    beside ``F.dropout``; and the kernel with the seed from device memory
+    ("seed_ptr") in turns with it by value."""
     import torch
     import torch.nn.functional as F
 
@@ -673,10 +685,6 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         del plain_mask
         if on_card:
             check(launches == 1, f"{launches} dropout launches at {shape}")
-            prev_out, prev_mask = tdrop._fused_dropout_cuda(x, p, i, "x4")
-            check(torch.equal(prev_mask, mask) and torch.equal(prev_out, out),
-                  f"the earlier dropout design gives other bits at {shape}")
-            del prev_out, prev_mask
         keep = {}
         for rate in (0.1, 0.5):
             _, m = tdrop.fused_dropout_fwd(x, rate, seed=i)
@@ -721,9 +729,9 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         row = dict(shape=list(shape), keep={str(k): v for k, v in keep.items()},
                    max_abs_err=0.0, launches=launches)
         if on_card:
-            row.update(_in_turns(new, lambda: tdrop._fused_dropout_cuda(x, p, i, "x4"), device,
-                                 iters, DROPOUT_SYMBOL))
-            ptr = _in_turns(held, new, device, iters, (DROPOUT_SYMBOL[0], DROPOUT_SYMBOL[0]))
+            row.update(ms=time_ms(new, device, iters),
+                       device_ms=device_ms(new, iters, match=DROPOUT_SYMBOL))
+            ptr = _in_turns(held, new, device, iters, (DROPOUT_SYMBOL, DROPOUT_SYMBOL))
             row.update(seed_ptr_ms=ptr["ms"], seed_ptr_device_ms=ptr["device_ms"],
                        seed_value_turns_ms=ptr["prev_ms"],
                        seed_value_turns_device_ms=ptr["prev_device_ms"])
@@ -1612,8 +1620,9 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
     ``chip_inference_from_paths`` at batch 64 with each decoder, in turns;
     a loader epoch without the decoded-chip cache, with it cold and warm;
     the time to a loader's first batch with a worker thread and a worker
-    process, one each. ``extra``: config overrides (a CPU rehearsal's
-    image size)."""
+    process, one each; on the card, an epoch of spawned workers dropped
+    after its first batch in a child process, beside the codec check.
+    ``extra``: config overrides (a CPU rehearsal's image size)."""
     import torch
 
     from instageo_tpu_torch import native
@@ -1630,7 +1639,35 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
     clock = Clock("loader")
     tmp = tempfile.TemporaryDirectory()
     root = tmp.name
+    early = None
     try:
+        data_root = os.path.join(root, "dataset")
+        os.makedirs(data_root)
+        _write_dataset(data_root, n_cache, 0, n_bands, size, classes)
+        clock.lap(f"writing {n_cache} chips and labels")
+        base = [f"--config-name={CROP_CONFIG}", f"root_dir={data_root}", *extra]
+        if device.type != "cuda":
+            base.append("device=cpu")
+        # An epoch of spawned workers dropped after its first batch: the
+        # workers must end cleanly (they aborted at exit while their queues
+        # still moved tensors into shared memory). It runs beside the codec
+        # check and the chip writes, which time nothing.
+        code = ("import sys\n"
+                "from instageo_tpu_torch.configs.config import load_config_from_argv\n"
+                "from instageo_tpu_torch.data.dataloader import create_dataloader\n"
+                "from instageo_tpu_torch.train import run\n"
+                "cfg = load_config_from_argv(sys.argv[2:])\n"
+                "ds = run._make_dataset(sys.argv[1], cfg, run._train_preprocess(cfg, False))\n"
+                "loader = create_dataloader(ds, 8, num_workers=2, worker_mode='process',\n"
+                "                           device='cuda')\n"
+                "batches = iter(loader)\n"
+                "next(batches)\n"
+                "del batches, loader\n")
+        if device.type == "cuda":
+            early = (subprocess.Popen(
+                [sys.executable, "-c", code, f"{data_root}/train.csv", *base],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), time.perf_counter())
         rng = np.random.default_rng(6)
         if out["native"]:
             same = {}
@@ -1665,6 +1702,15 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
         raw = rng.integers(0, 10000, (8, n_bands, size, size), dtype=np.uint16)
         paths = _write_chips(root, n_chips, raw)
         clock.lap(f"writing {n_chips} chips")
+        if early is not None:
+            proc, t0 = early
+            _, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0 and "terminate called" not in err,
+                  f"a dropped process-mode epoch: exit {proc.returncode}\n{err[-3000:]}")
+            print(f"[loader] a process-mode epoch (2 workers) dropped after its first batch "
+                  f"ended cleanly: exit {proc.returncode} in {time.perf_counter() - t0:.2f} s "
+                  "(beside the codec check and the chip writes)", flush=True)
+            clock.lap("early drop")
         model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, device=device, seed=0)
         kw = dict(temporal_size=t, bands=data["bands"][:n_bands], constant_multiplier=1.0,
                   batch_size=batch, img_size=size)
@@ -1695,13 +1741,6 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
         clock.lap("batch jobs")
 
         # --- a loader epoch through the decoded-chip cache ------------------
-        data_root = os.path.join(root, "dataset")
-        os.makedirs(data_root)
-        _write_dataset(data_root, n_cache, 0, n_bands, size, classes)
-        clock.lap(f"writing {n_cache} chips and labels")
-        base = [f"--config-name={CROP_CONFIG}", f"root_dir={data_root}", *extra]
-        if device.type != "cuda":
-            base.append("device=cpu")
         epochs, walls = {}, {}
         for name, cache in (("uncached", None), ("cache_cold", "cache"), ("cache_warm", "cache")):
             cfg = load_config_from_argv(
@@ -1753,32 +1792,10 @@ def loader_phase(device, model_kw: dict, data: dict, n_chips: int = 128, batch: 
               f"{out['first_batch_s']['process']:.3f} s (turns {json.dumps(first)})", flush=True)
         clock.lap("first batches")
 
-        # --- an epoch of spawned workers dropped after its first batch: the
-        # workers must end cleanly (they aborted at exit while their queues
-        # still moved tensors into shared memory) ----------------------------
-        code = ("import sys\n"
-                "from instageo_tpu_torch.configs.config import load_config_from_argv\n"
-                "from instageo_tpu_torch.data.dataloader import create_dataloader\n"
-                "from instageo_tpu_torch.train import run\n"
-                "cfg = load_config_from_argv(sys.argv[2:])\n"
-                "ds = run._make_dataset(sys.argv[1], cfg, run._train_preprocess(cfg, False))\n"
-                "loader = create_dataloader(ds, 8, num_workers=2, worker_mode='process',\n"
-                "                           device='cuda')\n"
-                "batches = iter(loader)\n"
-                "next(batches)\n"
-                "del batches, loader\n")
-        if device.type == "cuda":
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", code, f"{data_root}/train.csv", *base],
-                                  cwd=os.path.dirname(os.path.abspath(__file__)),
-                                  capture_output=True, text=True, timeout=600)
-            check(proc.returncode == 0 and "terminate called" not in proc.stderr,
-                  f"a dropped process-mode epoch: exit {proc.returncode}\n{proc.stderr[-3000:]}")
-            print(f"[loader] a process-mode epoch (2 workers) dropped after its first batch "
-                  f"ended cleanly: exit {proc.returncode} in {time.perf_counter() - t0:.2f} s",
-                  flush=True)
-            clock.lap("early drop")
     finally:
+        if early is not None and early[0].poll() is None:
+            early[0].kill()
+            early[0].communicate()
         tmp.cleanup()
     return out
 
@@ -2700,47 +2717,66 @@ GRANULE_GAP = 1e-3   # decided pixels: the plain logits' top-2 gap at least this
 GRANULE_OVERLAP = 16
 
 
+# The synthetic tile's files, written once per run and read by the granule,
+# chip_creator and webapp phases: (size, block, seed) -> (directory, bands,
+# fmask, granules).
+_TILES: dict = {}
+
+
 def _write_granule(root: str, size: int, block, seed: int = 8):
     """Three HLS granules of one synthetic MGRS tile: six uint16 band files
     each (values 100..8999; 0 on the nodata block in every band) and an
     Fmask plane, tiled 256 px with the writer's default compression (deflate),
-    EPSG 32633 at 30 m, written by 8 threads; and the dataset JSON with local
+    EPSG 32633 at 30 m, written by 8 threads once per run (later calls read
+    the same files); and, in ``root``, the dataset JSON with their local
     hrefs, one entry. Returns the JSON's path, the bands (18, size, size) in
-    the opener's order, the Fmask planes (3, size, size) and the transform."""
+    the opener's order, the Fmask planes (3, size, size), both read-only, and
+    the transform."""
+    import atexit
+    import copy
+    import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
     from instageo_tpu_torch.data.settings import BANDS_SETTINGS
 
-    rng = np.random.default_rng(seed)
     transform = Affine.from_origin(399960.0, 4600020.0, 30.0, 30.0)
-    top, left, side = block
-    bands = rng.integers(100, 9000, (6 * len(GRANULE_IDS), size, size), dtype=np.uint16)
-    bands[:, top:top + side, left:left + side] = 0
-    # Clear, cloud (bit 1), shadow (bit 3), both, water (bit 5).
-    fmask = rng.choice(np.asarray([0, 0, 0, 2, 8, 10, 32], np.uint8),
-                       (len(GRANULE_IDS), size, size))
-    granules, jobs = [], []
-    for t, (gid, when) in enumerate(GRANULE_IDS.items()):
-        names = (BANDS_SETTINGS.HLS_L30_ASSETS if ".L30." in gid
-                 else BANDS_SETTINGS.HLS_ASSETS) + [BANDS_SETTINGS.HLS_MASK_ASSET]
-        assets = {}
-        for k, name in enumerate(names):
-            path = os.path.join(root, f"{gid}.{name}.tif")
-            jobs.append((path, bands[6 * t + k] if k < 6 else fmask[t]))
-            assets[name] = {"href": path}
-        granules.append({"id": gid, "collection": "HLS" + gid.split(".")[1] + "_2.0",
-                         "bbox": [14.999, 41.51, 16.33, 42.51],
-                         "properties": {"datetime": when, "eo:cloud_cover": 5},
-                         "assets": assets})
-    with ThreadPoolExecutor(8) as pool:
-        for _ in pool.map(lambda job: write_geotiff(job[0], job[1], transform=transform,
-                                                    crs=32633, tiled=True, tile_size=256),
-                          jobs):
-            pass
+    key = (size, tuple(block), seed)
+    if key not in _TILES:
+        tile_dir = tempfile.mkdtemp(prefix="chip_smoke_tile_")
+        atexit.register(shutil.rmtree, tile_dir, ignore_errors=True)
+        rng = np.random.default_rng(seed)
+        top, left, side = block
+        bands = rng.integers(100, 9000, (6 * len(GRANULE_IDS), size, size), dtype=np.uint16)
+        bands[:, top:top + side, left:left + side] = 0
+        # Clear, cloud (bit 1), shadow (bit 3), both, water (bit 5).
+        fmask = rng.choice(np.asarray([0, 0, 0, 2, 8, 10, 32], np.uint8),
+                           (len(GRANULE_IDS), size, size))
+        granules, jobs = [], []
+        for t, (gid, when) in enumerate(GRANULE_IDS.items()):
+            names = (BANDS_SETTINGS.HLS_L30_ASSETS if ".L30." in gid
+                     else BANDS_SETTINGS.HLS_ASSETS) + [BANDS_SETTINGS.HLS_MASK_ASSET]
+            assets = {}
+            for k, name in enumerate(names):
+                path = os.path.join(tile_dir, f"{gid}.{name}.tif")
+                jobs.append((path, bands[6 * t + k] if k < 6 else fmask[t]))
+                assets[name] = {"href": path}
+            granules.append({"id": gid, "collection": "HLS" + gid.split(".")[1] + "_2.0",
+                             "bbox": [14.999, 41.51, 16.33, 42.51],
+                             "properties": {"datetime": when, "eo:cloud_cover": 5},
+                             "assets": assets})
+        with ThreadPoolExecutor(8) as pool:
+            for _ in pool.map(lambda job: write_geotiff(job[0], job[1], transform=transform,
+                                                        crs=32633, tiled=True, tile_size=256),
+                              jobs):
+                pass
+        bands.flags.writeable = False
+        fmask.flags.writeable = False
+        _TILES[key] = (tile_dir, bands, fmask, granules)
+    _, bands, fmask, granules = _TILES[key]
     path = os.path.join(root, "hls_dataset.json")
     with open(path, "w") as f:
-        json.dump({"T33TUN_2023152": {"granules": granules}}, f)
+        json.dump({"T33TUN_2023152": {"granules": copy.deepcopy(granules)}}, f)
     return path, bands, fmask, transform
 
 
@@ -2790,20 +2826,26 @@ def _sliding_inference_timed(argv) -> dict:
     return rec
 
 
-def _granule_fresh_process(build_root: str, argv) -> None:
+def _granule_fresh_process(build_root: str, mode: str, argv) -> None:
     """What a fresh interpreter runs for the granule phase's cold runs:
-    ``mode=sliding_inference`` as a user starts it, with the kernels' libraries
-    under ``build_root`` (an empty directory: the forward kernel is built at
-    its first launch; "": the checkout's built libraries). Prints one JSON
-    line: the granule's seconds, the process's seconds from before ``import
-    torch`` and the seconds each kernel build took."""
+    ``mode=sliding_inference`` as a user starts it, with
+    ``INSTAGEO_COMPILE_CACHE_DIR`` = ``build_root``: on an empty directory the
+    forward kernel is built there at its first launch; with ``mode``
+    "no_nvcc" any call for ``nvcc`` raises, so the library must come from
+    there. Prints one JSON line: the granule's seconds, the process's seconds
+    from before ``import torch``, the seconds each kernel build took and the
+    forward kernel's library path."""
     t0 = time.perf_counter()
-    if build_root:
-        os.environ["INSTAGEO_COMPILE_CACHE_DIR"] = build_root
+    os.environ["INSTAGEO_COMPILE_CACHE_DIR"] = build_root
     import torch
 
     from instageo_tpu_torch.ops import _build
 
+    if mode == "no_nvcc":
+        def no_nvcc():
+            raise RuntimeError("nvcc was asked for: the library was not in the cache")
+
+        _build._nvcc = no_nvcc
     rec = _sliding_inference_timed(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -2812,7 +2854,8 @@ def _granule_fresh_process(build_root: str, argv) -> None:
         done=rec["done"], decode_s=rec["decode_s"], file_s=rec["file_s"],
         h2d_s=stats["h2d_s"], device_s=stats["device_s"],
         first_batch_s=stats["first_batch_s"], process_s=time.perf_counter() - t0,
-        build_s=dict(_build.build_seconds))), flush=True)
+        build_s=dict(_build.build_seconds),
+        lib=str(_build._lib_path("flash_attn_fwd_sm90")))), flush=True)
 
 
 def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
@@ -3031,16 +3074,19 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         clock.lap(f"overlap {overlap}")
 
         # --- fresh interpreters: what a user's first and later runs pay ----
+        # Both on one INSTAGEO_COMPILE_CACHE_DIR, empty before the first: the
+        # first builds the forward kernel there, the second (nvcc barred)
+        # must load it from there, as a later process of a user's does.
         fresh = {}
         if on_card:
             first = batches[0]
-            for name, build_root in (("first_build", os.path.join(root, "build")),
-                                     ("built", "")):
+            cache = os.path.join(root, "build")
+            for name, mode in (("first_build", "build"), ("built", "no_nvcc")):
                 t0 = time.perf_counter()
                 proc = subprocess.run(
                     [sys.executable, "-c", "import sys, chip_smoke; "
-                     "chip_smoke._granule_fresh_process(sys.argv[1], sys.argv[2:])",
-                     build_root, *base, f"train.batch_size={first}"],
+                     "chip_smoke._granule_fresh_process(sys.argv[1], sys.argv[2], "
+                     "sys.argv[3:])", cache, mode, *base, f"train.batch_size={first}"],
                     cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                     text=True, timeout=600)
                 wall = time.perf_counter() - t0
@@ -3053,8 +3099,12 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
                 f_agree = float((f_pred == plain)[decided].mean())
                 check(bool((f_pred[nodata] == -1).all()) and f_agree >= ARGMAX_AGREEMENT,
                       f"fresh interpreter ({name}): nodata or kernel vs plain {f_agree}")
-                check((name == "built") == (not rec["build_s"]),
-                      f"fresh interpreter ({name}): kernel builds {rec['build_s']}")
+                check(rec["lib"].startswith(cache) and os.path.exists(rec["lib"])
+                      and sorted(rec["build_s"]) == ([] if name == "built"
+                                                     else ["flash_attn_fwd_sm90"])
+                      and rec["lib"] == fresh.get("first_build", rec)["lib"],
+                      f"fresh interpreter ({name}): kernel builds {rec['build_s']}, "
+                      f"library {rec['lib']} (the compile cache {cache})")
                 rec.update(process_wall_s=wall, agreement=f_agree,
                            granule_wall_s=rec["decode_s"] + rec["file_s"])
                 fresh[name] = rec
@@ -3467,31 +3517,6 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
 LIMIT_CHIPS = 32  # seg maps the limit cleaning reads (each against every observation)
 
 
-def _cache_child(mode: str) -> None:
-    """What a fresh interpreter of the data_prep phase runs, with
-    ``INSTAGEO_COMPILE_CACHE_DIR`` set: one forward kernel launch at the
-    serving shape of one chip. ``mode`` "no_nvcc": any call for ``nvcc``
-    raises, so the library must come from the cache. Prints one JSON line."""
-    t0 = time.perf_counter()
-    import torch
-
-    from instageo_tpu_torch.ops import _build, attention
-
-    if mode == "no_nvcc":
-        def no_nvcc():
-            raise RuntimeError("nvcc was asked for: the library was not in the cache")
-
-        _build._nvcc = no_nvcc
-    q = torch.randn(1, 12, 589, 64, device="cuda").to(torch.bfloat16)
-    o, _ = attention.flash_attention_fwd(q, q, q)
-    torch.cuda.synchronize()
-    print(json.dumps(dict(lib=str(_build._lib_path("flash_attn_fwd_sm90")),
-                          built=sorted(_build.build_logs), build_s=_build.build_seconds,
-                          launches=attention.launches.count,
-                          finite=bool(torch.isfinite(o.float()).all()),
-                          process_s=time.perf_counter() - t0)), flush=True)
-
-
 def data_prep_phase(device, smi: str, kept: str, limit_chips: int = LIMIT_CHIPS) -> dict:
     """The data-preparation tools on the host, as a user runs them after the
     chip creator (``kept``: the chip_creator phase's card output directory
@@ -3508,10 +3533,9 @@ def data_prep_phase(device, smi: str, kept: str, limit_chips: int = LIMIT_CHIPS)
     3. whether ``libopenjp2`` loads here, and the committed JP2 fixture
        decoded equal to its stored array where it does;
     4. whether matplotlib is here; where it is, the regression plot
-       written, else the refusal naming it;
-    5. on the card, a fresh interpreter with ``INSTAGEO_COMPILE_CACHE_DIR`` on
-       an empty directory, which builds the forward kernel's library there
-       and launches it, then a second that loads it with ``nvcc`` barred.
+       written, else the refusal naming it.
+    (The compile cache is held by the granule phase's two fresh
+    interpreters.)
 
     Wall seconds for each."""
     import csv
@@ -3645,38 +3669,6 @@ def data_prep_phase(device, smi: str, kept: str, limit_chips: int = LIMIT_CHIPS)
                                              "is refused naming it"), flush=True)
         clock.lap("jp2 and plot")
 
-        # --- 5. the compile cache, in two fresh interpreters ------------------
-        if on_card:
-            cache = os.path.join(root, "compile_cache")
-            os.makedirs(cache)
-            env = dict(os.environ, INSTAGEO_COMPILE_CACHE_DIR=cache)
-            recs = {}
-            for mode in ("build", "no_nvcc"):
-                t0 = time.perf_counter()
-                proc = subprocess.run(
-                    [sys.executable, "-c", "import sys, chip_smoke; "
-                     "chip_smoke._cache_child(sys.argv[1])", mode], env=env,
-                    cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                    text=True, timeout=600)
-                wall = time.perf_counter() - t0
-                check(proc.returncode == 0, f"compile cache child ({mode}): exit "
-                      f"{proc.returncode}\n{proc.stderr[-3000:]}")
-                recs[mode] = dict(json.loads(proc.stdout.strip().splitlines()[-1]), wall_s=wall)
-            lib = recs["build"]["lib"]
-            check(lib.startswith(cache) and os.path.exists(lib)
-                  and recs["build"]["built"] == ["flash_attn_fwd_sm90"]
-                  and recs["no_nvcc"]["built"] == [] and recs["no_nvcc"]["lib"] == lib
-                  and all(r["launches"] == 1 and r["finite"] for r in recs.values()),
-                  f"compile cache: {recs}")
-            out["compile_cache"] = recs
-            print(f"[data_prep] INSTAGEO_COMPILE_CACHE_DIR on an empty directory: a fresh "
-                  f"interpreter built flash_attn_fwd_sm90 there in "
-                  f"{recs['build']['build_s']['flash_attn_fwd_sm90']:.3f} s and launched it "
-                  f"(process {recs['build']['process_s']:.3f} s, wall "
-                  f"{recs['build']['wall_s']:.3f} s); a second loaded it with nvcc barred "
-                  f"(process {recs['no_nvcc']['process_s']:.3f} s, wall "
-                  f"{recs['no_nvcc']['wall_s']:.3f} s)", flush=True)
-            clock.lap("compile cache")
         return out
     finally:
         tmp.cleanup()
@@ -4491,6 +4483,190 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
     return out
 
 
+EXAMPLE_TIMEOUT_S = 420
+MULTICHIP_LOSS_ATOL = 1e-3  # each placement's step losses vs data parallelism's
+
+
+def _example_start(argv: list):
+    """Start a walkthrough as a user runs it, from the repository root, in a
+    process group of its own: (process, start time)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    # As in the granule and chip_creator phases: the pipelines' thread pool
+    # can load one tile several times at once (its tile cache checks, then
+    # loads), and 30 loads a minute would then stall a run for up to 60 s.
+    env.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def _example_wait(started, what: str, timeout: float = EXAMPLE_TIMEOUT_S) -> tuple:
+    """Wait for a walkthrough (its whole process group is killed at
+    ``timeout``) and check it exited 0: (stdout, wall s)."""
+    proc, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what} failed ({proc.returncode}) after {wall:.1f} s:\n"
+          + out[-4000:])
+    return out, wall
+
+
+def _quickstart_artifact_check(device, root: str, results: dict) -> dict:
+    """The quickstart's export artifact, loaded here, against a
+    ``ModelServer`` of its checkpoint on one batch of its chips (8):
+    class ids on decided pixels (>= ARTIFACT_AGREEMENT)."""
+    import torch
+
+    from instageo_tpu_torch.configs.config import load_config
+    from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.serve.export import load_predict
+    from instageo_tpu_torch.serve.infer import make_predict_fn
+    from instageo_tpu_torch.serve.server import ModelServer
+
+    cfg = load_config("config", os.path.join(root, "run", ".hydra"),
+                      overrides={"checkpoint_path": results["checkpoint"],
+                                 "device": device.type})
+    server = ModelServer(cfg)
+    raw = []
+    for i in range(8):
+        with GeoTiffReader(os.path.join(root, f"chip_{i}.tif")) as r:
+            raw.append(r.read())
+    x = _server_chips(server, np.stack(raw), device)
+    predict, meta = load_predict(results["artifact"])
+    got = predict(server.model.state_dict(), x)
+    with torch.inference_mode():
+        logits = server.model(x, channels_last=True).float()
+    top2 = logits.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * logits.abs().max()
+    same = got == make_predict_fn(server.model)(x)
+    agreement = same[decided].float().mean().item()
+    check(meta["device"] == device.type and agreement >= ARTIFACT_AGREEMENT,
+          f"the quickstart's artifact vs the server: {agreement} of decided pixels "
+          f"({int(decided.sum())}), artifact on {meta['device']}")
+    return dict(agreement=agreement, decided=int(decided.sum()), pixels=int(decided.numel()))
+
+
+def examples_phase(device, smi: str, nproc=None) -> dict:
+    """The port's walkthroughs (``instageo_tpu_torch/examples/``), each in
+    a fresh interpreter as a user runs it, on ``device``:
+
+    * ``quickstart.py``: synthetic chips, ``mode=train`` (3 epochs of
+      ``prithvi_eo_tiny`` at 32 px, batch 8), ``eval``, ``chip_inference``,
+      the map, ``mode=export``; its wall seconds, its launches by kernel
+      (``quickstart_results.json``: on the card #1 and #3 on the wgmma
+      route, none on mma.sync, #6 5 per step: the head's dropouts), finite
+      test metrics, and its artifact against a ``ModelServer`` of its
+      checkpoint here;
+    * ``multichip_training.py`` under ``python -m torch.distributed.run
+      --standalone --nproc-per-node <nproc>`` (the visible cards): each
+      placement's loss at both steps (the second after its own AdamW step)
+      within MULTICHIP_LOSS_ATOL of data parallelism's, no attention kernel launched (float32: the "xla"
+      route) and #6 5 per step (its float32 dropouts), and the placements a
+      world this size cannot hold named;
+    * ``raster_chip_creator_demo.py`` with ``--device`` the card and the
+      CPU, side by side with the multichip walkthrough: every file equal
+      byte for byte, with each run's own directory taken out of them."""
+    import torch
+
+    dev = device.type
+    nproc = torch.cuda.device_count() if nproc is None else nproc
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        qs = os.path.join(tmp, "quickstart")
+        stdout, wall = _example_wait(_example_start(
+            [sys.executable, "-m", "instageo_tpu_torch.examples.quickstart", qs, "--device",
+             dev]), "the quickstart")
+        check("map.html in a browser" in stdout, "the quickstart printed no map line")
+        with open(os.path.join(qs, "quickstart_results.json")) as f:
+            results = json.load(f)
+        launches = results["launches"]
+        steps = len(results["train_step_losses"]) * 3  # 3 epochs of 16 chips at batch 8
+        check(all(math.isfinite(v) for v in results["test_metrics"].values())
+              and results["predictions"] == 16, f"quickstart results {results}")
+        # Forwards through the depth-4 encoder: each train step, a validation
+        # pass over the chips after each of the 3 epochs, the eval and chip
+        # inference passes, and the export's eager call (the complexity
+        # count runs on the plain route).
+        batches = math.ceil(results["predictions"] / 8)
+        forwards = steps + 3 * batches + 2 * batches + 1
+        if dev == "cuda":
+            check(launches["flash_attn_fwd_sm90"] == 4 * forwards
+                  and launches["flash_attn_bwd_sm90"] == 4 * steps
+                  and launches["fused_dropout"] == 5 * steps
+                  and launches["flash_attn_fwd"] == 0 and launches["flash_attn_bwd"] == 0,
+                  f"the quickstart's launches {launches}: #1 4 per forward over {forwards} "
+                  f"forwards, #3 4 per step and #6 5 per step (the head's dropouts) over "
+                  f"{steps} steps, all on wgmma, none on mma.sync")
+        out["quickstart"] = dict(wall_s=wall, process_wall_s=results["wall_s"],
+                                 launches=launches, steps=steps,
+                                 test_metrics=results["test_metrics"],
+                                 train_step_losses=results["train_step_losses"],
+                                 artifact=_quickstart_artifact_check(device, qs, results))
+        print("[examples] quickstart " + json.dumps({"card": smi, **out["quickstart"]}),
+              flush=True)
+
+        # The multichip walkthrough and the raster demo on each device run
+        # side by side: their results are held; of their seconds only the
+        # multichip walkthrough's, collected first, is its own.
+        mc = os.path.join(tmp, "multichip")
+        rd = [(d, os.path.join(tmp, f"raster_{i}")) for i, d in enumerate((dev, "cpu"))]
+        started = {"multichip": _example_start(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(nproc), "-m", "instageo_tpu_torch.examples.multichip_training", mc, "--device",
+             dev])}
+        for i, (d, path) in enumerate(rd):
+            started[f"raster_{i}"] = _example_start(
+                [sys.executable, "-m", "instageo_tpu_torch.examples.raster_chip_creator_demo",
+                 path, "--device", d])
+        done = {name: _example_wait(p, name) for name, p in started.items()}
+
+        stdout, wall = done["multichip"]
+        check("multichip walkthrough OK" in stdout, "the multichip walkthrough printed no OK")
+        with open(os.path.join(mc, "multichip_results.json")) as f:
+            mres = json.load(f)
+        placed = mres["placements"]
+        dp_losses = placed["data parallel"]["step_losses"]
+        gaps = {t: max(abs(a - b) for a, b in zip(p["step_losses"], dp_losses))
+                for t, p in placed.items()}
+        check(mres["world"] == nproc and all(g <= MULTICHIP_LOSS_ATOL for g in gaps.values())
+              and all(len(p["step_losses"]) == 2 for p in placed.values()),
+              f"multichip step losses off data parallelism's: {gaps}")
+        mc_steps = sum(len(p["step_losses"]) for p in placed.values())
+        check(dev != "cuda" or mres["launches"] == {
+            "flash_attn_fwd_sm90": 0, "flash_attn_fwd": 0, "flash_attn_bwd_sm90": 0,
+            "flash_attn_bwd": 0, "fused_dropout": 5 * mc_steps},
+              f"the float32 walkthrough's launches {mres['launches']}: no attention kernel "
+              f"(the xla route), #6 5 per step over {mc_steps} steps (the head's dropouts)")
+        check(len(placed) + len(mres["skipped"]) == 4, f"placements {list(placed)}")
+        out["multichip"] = dict(wall_s=wall, world=mres["world"], gaps=gaps,
+                                losses={t: p["step_losses"] for t, p in placed.items()},
+                                placements={t: p["qkv_placement"] for t, p in placed.items()},
+                                skipped=mres["skipped"], launches=mres["launches"])
+        print("[examples] multichip " + json.dumps({"card": smi, **out["multichip"]}),
+              flush=True)
+
+        trees = []
+        for i, (_, path) in enumerate(rd):
+            check("2 chips + 2 seg maps" in done[f"raster_{i}"][0], f"the raster demo {i}: "
+                  "no marker")
+            # The files name their own directory: compare with it taken out.
+            trees.append({k: v.replace(path.encode(), b"<root>")
+                          for k, v in _tree(path).items()})
+        check(trees[0] == trees[1] and len(trees[1]) > 0,
+              "the raster demo's files differ between the card and the CPU: "
+              f"{sorted(k for k in trees[1] if trees[0].get(k) != trees[1][k])}")
+        out["raster_demo"] = dict(files=len(trees[1]), devices=[d for d, _ in rd])
+        print("[examples] raster_chip_creator_demo " + json.dumps(
+            {"card": smi, **out["raster_demo"]}), flush=True)
+    return out
+
+
 def _build_native() -> None:
     """Build the native GeoTIFF decoder (``instageo_tpu_torch/native``) and
     say what the machine offers it: zlib's header, zlib's runtime library,
@@ -4656,6 +4832,15 @@ def main() -> int:
 
     para = parallel_phase(device, smi, crop_model, crop_train_cfg, crop_data)
     clock.lap("parallel")
+    walked = examples_phase(device, smi)
+    clock.lap("examples")
+    print(f"[examples] {smi}: quickstart {walked['quickstart']['wall_s']:.3f} s wall, launches "
+          + json.dumps(walked["quickstart"]["launches"]) + "; multichip at world "
+          f"{walked['multichip']['world']}: step losses "
+          + ", ".join(f"{t} {v[0]:.6f} / {v[1]:.6f}" for t, v in walked["multichip"]["losses"].items())
+          + "".join(f"; {t} skipped ({r})" for t, r in walked["multichip"]["skipped"].items())
+          + f"; raster demo {walked['raster_demo']['files']} files, card = CPU byte for byte",
+          flush=True)
 
     # Each kernel's row is at the training step's shape (batch 8).
     at = lambda rows, shape: next(r for r in rows if r["shape"] == list(shape))  # noqa: E731
@@ -4736,6 +4921,8 @@ def main() -> int:
         for name in ("plain", "remat", "remat_default"):
             k["launches_by_path"][f"parallel_{name}_crop"] = route(
                 para["remat"]["launches"][name])
+        k["launches_by_path"]["examples_quickstart"] = walked["quickstart"]["launches"][k["name"]]
+        k["launches_by_path"]["examples_multichip"] = walked["multichip"]["launches"][k["name"]]
         for variant, row in models["variants"].items():
             k["launches_by_path"][f"serve_{variant}"] = (
                 row["fwd_launches_per_predict"] - row["mma_sync_launches"]

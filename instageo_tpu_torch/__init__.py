@@ -6,3 +6,17 @@ it. Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The Pallas TPU kernels on the ported path are hand-written CUDA kernels
 under ``ops/csrc/``, built with ``nvcc`` at first use.
 """
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "configs",
+    "data",
+    "models",
+    "ops",
+    "parallel",
+    "serve",
+    "train",
+    "utils",
+    "webapp",
+]

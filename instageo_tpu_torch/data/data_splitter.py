@@ -120,6 +120,18 @@ def _connected_components(tiles: List[str], distance_threshold: float) -> List[S
     return groups
 
 
+def find_connected_tiles(tile: str, remaining: Set[str], distance_threshold: float
+                         ) -> Set[str]:
+    """All tiles transitively within ``distance_threshold`` km of ``tile``;
+    the tiles of that component are removed from ``remaining``."""
+    pool = [tile] + [t for t in remaining if t != tile]
+    for comp in _connected_components(pool, distance_threshold):
+        if tile in comp:
+            remaining.difference_update(comp)
+            return comp
+    return {tile}
+
+
 def group_close_mgrs_tiles(mgrs_tiles: List[str],
                            distance_threshold: float = 400.0) -> List[Set[str]]:
     """Connected components of the distinct tiles under the km threshold."""

@@ -541,6 +541,20 @@ class GeoTiffReader:
             return arr[indexes - 1]
         return arr[[i - 1 for i in indexes]]
 
+    @property
+    def profile(self) -> Dict[str, Any]:
+        """rasterio's profile keys for the first image."""
+        return {
+            "width": self.width,
+            "height": self.height,
+            "count": self.count,
+            "dtype": self.dtypes[0],
+            "transform": self.transform,
+            "crs": self.crs,
+            "nodata": self.nodata,
+            "driver": "GTiff",
+        }
+
     def close(self) -> None:
         self.fp.close()
 
@@ -790,3 +804,12 @@ def write_cog(
                 f.write(b)
                 if len(b) % 2:
                     f.write(b"\0")
+
+
+def open_geotiff(path: str) -> GeoTiffReader:
+    return GeoTiffReader(path)
+
+
+def read_geotiff(path: str, indexes: Optional[Sequence[int]] = None) -> np.ndarray:
+    with GeoTiffReader(path) as r:
+        return r.read(indexes)

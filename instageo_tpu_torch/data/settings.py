@@ -24,7 +24,14 @@ def _env(name: str, default, cast=None):
 
 
 class GDALOptions:
-    """COG access settings."""
+    """COG access settings (the reference passes them to GDAL; the port's
+    readers use its own HTTP range reads)."""
+
+    GDAL_HTTP_MULTIRANGE: str = "YES"
+    GDAL_HTTP_MERGE_CONSECUTIVE_RANGES: str = "YES"
+    GDAL_HTTP_MAX_RETRY: int = 5
+    GDAL_HTTP_RETRY_DELAY: int = 2
+    CPL_VSIL_CURL_CACHE_SIZE: int = 32 * 1024 * 1024
 
     @staticmethod
     def get_access_token() -> Optional[str]:
@@ -41,6 +48,13 @@ class NoDataValues:
     S2: int = 0
     S1: float = -1.0
     SEG_MAP: int = -1
+
+
+@dataclass
+class BlockSizes:
+    HLS: int = 256
+    S2: int = 1024
+    S1: int = 1024
 
 
 @dataclass
@@ -72,6 +86,24 @@ class APISettings:
 
 
 @dataclass
+class HLSAPISettings(APISettings):
+    URL: str = "https://cmr.earthdata.nasa.gov/stac/LPCLOUD"
+    COLLECTIONS: List[str] = field(default_factory=lambda: ["HLSL30_2.0", "HLSS30_2.0"])
+
+
+@dataclass
+class S2APISettings(APISettings):
+    URL: str = "https://planetarycomputer.microsoft.com/api/stac/v1"
+    COLLECTIONS: List[str] = field(default_factory=lambda: ["sentinel-2-l2a"])
+
+
+@dataclass
+class S1APISettings(APISettings):
+    URL: str = "https://planetarycomputer.microsoft.com/api/stac/v1"
+    COLLECTIONS: List[str] = field(default_factory=lambda: ["sentinel-1-rtc"])
+
+
+@dataclass
 class DataPipelineSettings:
     # The class-prefixed spelling first (the reference's experiment
     # scripts export it), then the INSTAGEO_* one.
@@ -87,11 +119,12 @@ class DataPipelineSettings:
 
 GDAL_OPTIONS = GDALOptions()
 NO_DATA_VALUES = NoDataValues()
+BLOCK_SIZES = BlockSizes()
 BANDS_SETTINGS = BandsSettings()
-HLS_API = APISettings("https://cmr.earthdata.nasa.gov/stac/LPCLOUD",
-                      ["HLSL30_2.0", "HLSS30_2.0"])
-S2_API = APISettings("https://planetarycomputer.microsoft.com/api/stac/v1",
-                     ["sentinel-2-l2a"])
-S1_API = APISettings("https://planetarycomputer.microsoft.com/api/stac/v1",
-                     ["sentinel-1-rtc"])
+HLS_API = HLSAPISettings()
+S2_API = S2APISettings()
+S1_API = S1APISettings()
 DATA_PIPELINE_SETTINGS = DataPipelineSettings()
+
+# Microsoft Planetary Computer's STAC API
+MPC_STAC_API_URL = S2_API.URL

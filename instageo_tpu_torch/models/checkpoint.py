@@ -7,6 +7,9 @@
   strict=True)`` takes; either head, the ``_tl`` encoders' scales, and the
   blocks in the loop layout (``blocks_{i}``) or stacked (one ``blocks``
   subtree with a leading depth axis, ``tpu.block_layout: scan``);
+* ``export_torch_checkpoint``: the port's weights as the reference's
+  Lightning ``.ckpt`` (``{"state_dict": ...}``, keys prefixed ``net.``) or
+  an ``.npz``, what the JAX package's function of that name writes;
 * the torch-checkpoint readers of the same JAX module (``load_torch_file``,
   ``filter_checkpoint_vit``, ``select_patch_embed_weights``,
   ``load_pretrained_encoder``), which here act on state dicts directly,
@@ -253,3 +256,20 @@ def seg_state_dict_from_torch(state_dict: Mapping[str, torch.Tensor]
         raise KeyError("no prithvi_encoder.* weights in the checkpoint")
     prefix = anchor[:anchor.index("prithvi_encoder.")]
     return {k[len(prefix):]: torch.as_tensor(v) for k, v in sd.items() if k.startswith(prefix)}
+
+
+def export_torch_checkpoint(model_or_state_dict, path: str) -> str:
+    """Write a ``PrithviSeg``'s weights (the module or its state dict) as
+    the reference's Lightning ``.ckpt`` (``torch.save({"state_dict":
+    ...})``), or as an ``.npz`` where ``path`` ends so: float32 on the host,
+    keys prefixed ``net.``, BatchNorm's ``num_batches_tracked`` counters
+    left out as the JAX export leaves them."""
+    sd = (model_or_state_dict.state_dict() if isinstance(model_or_state_dict, torch.nn.Module)
+          else model_or_state_dict)
+    sd = {"net." + k: v.detach().float().cpu().contiguous() for k, v in sd.items()
+          if not k.endswith("num_batches_tracked")}
+    if path.endswith(".npz"):
+        np.savez(path, **{k: v.numpy() for k, v in sd.items()})
+    else:
+        torch.save({"state_dict": sd}, path)
+    return path

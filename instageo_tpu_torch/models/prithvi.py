@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from instageo_tpu_torch.models.checkpoint import unstack_block_params  # noqa: F401  (JAX's name)
 from instageo_tpu_torch.ops._build import HostCounter
 from instageo_tpu_torch.ops.attention import IMPLS as KERNEL_IMPLS
 from instageo_tpu_torch.ops.attention import flash_attention_blo
@@ -470,6 +471,11 @@ class PrithviViT(nn.Module):
             self.img_size // self.patch_size[1],
             self.img_size // self.patch_size[2],
         )
+
+    @property
+    def num_patches(self) -> int:
+        gt, gh, gw = self.grid_size
+        return gt * gh * gw
 
     def _pos_embed(self, sample_shape, device) -> torch.Tensor:
         key = (tuple(sample_shape), str(device))

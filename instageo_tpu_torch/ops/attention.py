@@ -507,3 +507,13 @@ def flash_attention_bloq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward and backward as ``flash_attention_blo``.
     """
     return _attention(q, k, v, "merged", impl)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    impl: str = "kernel") -> torch.Tensor:
+    """Token-major in and out: (B, L, H, Dh) -> (B, L, H, Dh). Counterpart
+    of ``flash_attention`` (TPU kernels #2 and #4): q, k, v enter the kernels
+    as heads-first views, and the merged output is (B, L, H, Dh) as it lies."""
+    b, l, h, d = q.shape
+    return flash_attention_blo(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               impl).view(b, l, h, d)

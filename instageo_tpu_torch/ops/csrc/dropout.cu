@@ -24,8 +24,8 @@
 // load is issued before the Philox rounds, which hide its latency. One unit
 // per thread, up to 2^20 blocks (a grid-stride loop beyond); a grid of one
 // wave striding over the tensor was slower at the largest tensor on an H100.
-// fused_dropout_x4 keeps the earlier design (4 elements per thread) for
-// timing beside it; both give the same bits.
+// (tools/profile_dropout_designs.py times the earlier design, 4 elements per
+// thread, beside it.)
 // The seed arrives by value, or, for a launch recorded into a CUDA graph,
 // as a pointer to a 64-bit word in device memory that the kernel reads when
 // it starts: each replay of the graph then takes the seed the host wrote
@@ -160,76 +160,17 @@ fused_dropout_kernel(const T* __restrict__ x, T* __restrict__ out, uint8_t* __re
   }
 }
 
-// The earlier design: 4 elements (one Philox call) per thread and step.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_dropout_x4_kernel(const T* __restrict__ x, T* __restrict__ out,
-                        uint8_t* __restrict__ mask, long long n, uint32_t threshold,
-                        float scale, uint2 key, bool vec) {
-  const long long groups = (n + 3) / 4;
-  for (long long grp = (long long)blockIdx.x * kThreads + threadIdx.x; grp < groups;
-       grp += (long long)gridDim.x * kThreads) {
-    const uint4 r = bits_of_group(grp, key);
-    const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
-    const long long i0 = grp * 4;
-    if (vec && i0 + 4 <= n) {
-      const Vec<T, 4> xv = *reinterpret_cast<const Vec<T, 4>*>(x + i0);
-      Vec<T, 4> ov;
-      uchar4 mv;
-      uint8_t* m = reinterpret_cast<uint8_t*>(&mv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ov.v[e] = dropped(xv.v[e], bits[e], threshold, scale);
-        m[e] = bits[e] >= threshold;
-      }
-      *reinterpret_cast<Vec<T, 4>*>(out + i0) = ov;
-      *reinterpret_cast<uchar4*>(mask + i0) = mv;
-    } else {
-      for (int e = 0; e < 4 && i0 + e < n; ++e) {
-        out[i0 + e] = dropped(x[i0 + e], bits[e], threshold, scale);
-        mask[i0 + e] = bits[e] >= threshold;
-      }
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(bool x4, const void* x, void* out, void* mask, long long n,
-                   uint32_t threshold, float scale, unsigned long long seed,
-                   const unsigned long long* seed_ptr, unsigned long long offset, bool vec,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, void* out, void* mask, long long n, uint32_t threshold,
+                   float scale, unsigned long long seed, const unsigned long long* seed_ptr,
+                   unsigned long long offset, bool vec, cudaStream_t stream) {
   const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  uint8_t* mp = static_cast<uint8_t*>(mask);
-  const int per_thread = x4 ? 4 : 8;
-  const long long blocks = ((n + per_thread - 1) / per_thread + kThreads - 1) / kThreads;
+  const long long blocks = ((n + 7) / 8 + kThreads - 1) / kThreads;
   const int grid = (int)(blocks < (1 << 20) ? blocks : (1 << 20));
-  if (x4) {
-    fused_dropout_x4_kernel<T><<<grid, kThreads, 0, stream>>>(xp, op, mp, n, threshold, scale,
-                                                               key, vec);
-  } else {
-    fused_dropout_kernel<T><<<grid, kThreads, 0, stream>>>(xp, op, mp, n, threshold, scale, key,
-                                                           seed_ptr, offset, vec);
-  }
+  fused_dropout_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<uint8_t*>(mask), n, threshold,
+      scale, key, seed_ptr, offset, vec);
   return cudaGetLastError();
-}
-
-int dispatch(bool x4, int dtype, const void* x, void* out, void* mask, long long n,
-             unsigned int threshold, float scale, unsigned long long seed,
-             const unsigned long long* seed_ptr, unsigned long long offset, int vec,
-             void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(x4, x, out, mask, n, threshold, scale, seed, seed_ptr, offset,
-                           vec != 0, s);
-    case 1:
-      return launch<__nv_bfloat16>(x4, x, out, mask, n, threshold, scale, seed, seed_ptr,
-                                   offset, vec != 0, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -241,23 +182,25 @@ extern "C" {
 // device memory holding 64-bit seeds, and the kernel reads seeds[slot] when
 // it runs (`seed` unused). Element i takes the stream's element offset + i.
 // vec != 0 promises that x and out are 16-byte
-// aligned and mask 8-byte aligned (fused_dropout_x4: aligned for 4-element
-// vectors; it takes its seed by value only). Returns the launch's CUDA error
+// aligned and mask 8-byte aligned. Returns the launch's CUDA error
 // code (0 on success); n == 0 launches nothing; another dtype returns
 // cudaErrorInvalidValue.
 int fused_dropout(int dtype, const void* x, void* out, void* mask, long long n,
                   unsigned int threshold, float scale, unsigned long long seed,
                   const unsigned long long* seeds, int slot, unsigned long long offset, int vec,
                   void* stream) {
+  if (n <= 0) return 0;
   const unsigned long long* seed_ptr = seeds == nullptr ? nullptr : seeds + slot;
-  return dispatch(false, dtype, x, out, mask, n, threshold, scale, seed, seed_ptr, offset, vec,
-                  stream);
-}
-
-int fused_dropout_x4(int dtype, const void* x, void* out, void* mask, long long n,
-                     unsigned int threshold, float scale, unsigned long long seed, int vec,
-                     void* stream) {
-  return dispatch(true, dtype, x, out, mask, n, threshold, scale, seed, nullptr, 0, vec, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch<float>(x, out, mask, n, threshold, scale, seed, seed_ptr, offset, vec != 0,
+                           s);
+    case 1:
+      return launch<__nv_bfloat16>(x, out, mask, n, threshold, scale, seed, seed_ptr, offset,
+                                   vec != 0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* fused_dropout_error_string(int err) {

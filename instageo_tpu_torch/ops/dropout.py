@@ -46,7 +46,6 @@ import torch
 from instageo_tpu_torch.ops._build import LaunchCounter, call_on_device
 
 IMPLS = ("kernel", "plain")
-DESIGNS = ("x8", "x4")  # elements per thread and step: the kernel, the earlier design
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
@@ -148,18 +147,16 @@ def fused_dropout_seeded_plain(x: torch.Tensor, p: float, seed: Seed, offset: in
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(design: str):
-    """(C entry, error-string function) of a kernel design, bound once."""
+def _entry():
+    """(C entry, error-string function) of the kernel, bound once."""
     from instageo_tpu_torch.ops import _build
 
     lib = _build.load("dropout")
-    fn = lib.fused_dropout if design == "x8" else lib.fused_dropout_x4
-    seed_args = [ctypes.c_uint64] + ([ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64]
-                                     if design == "x8" else [])
+    fn = lib.fused_dropout
     fn.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float, *seed_args,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float, ctypes.c_uint64,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.fused_dropout_error_string
     err.argtypes = [ctypes.c_int]
@@ -167,18 +164,13 @@ def _entry(design: str):
     return fn, err
 
 
-def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8",
-                        offset: int = 0):
-    """Launch the kernel of ``design`` ("x8", the wrapper's; "x4", the
-    earlier design, for measurements, which takes an int seed and no
-    offset)."""
+def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, offset: int = 0):
+    """Launch the kernel."""
     code = _DTYPE_CODES.get(x.dtype)
     if code is None:
         raise TypeError(f"the dropout kernel takes float32 or bfloat16; x is {x.dtype}")
     bits_threshold, scale = _rate_args(p)
     held = _seed_slot(seed, x.device)
-    if (held is not None or offset) and design != "x8":
-        raise ValueError("the x4 design takes its seed by value and no offset")
     if not 0 <= offset < 1 << 64:
         raise ValueError(f"dropout element offset {offset} out of range")
     x = x.contiguous()
@@ -186,12 +178,9 @@ def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8
     mask = torch.empty_like(x, dtype=torch.bool)
     # out and mask are fresh allocations, aligned for any vector.
     vec = x.data_ptr() % 16 == 0
-    fn, error_string = _entry(design)
-    if design == "x8":
-        seed_args = ((0, held[0].data_ptr(), held[1], offset) if held is not None
-                     else (seed % (1 << 64), None, 0, offset))
-    else:
-        seed_args = (seed % (1 << 64),)
+    fn, error_string = _entry()
+    seed_args = ((0, held[0].data_ptr(), held[1], offset) if held is not None
+                 else (seed % (1 << 64), None, 0, offset))
     err = call_on_device(x.device, fn, code, x.data_ptr(), out.data_ptr(), mask.data_ptr(),
                          x.numel(), bits_threshold, scale, *seed_args, vec)
     if err != 0:
@@ -199,6 +188,12 @@ def _fused_dropout_cuda(x: torch.Tensor, p: float, seed: Seed, design: str = "x8
         raise RuntimeError(f"fused_dropout launch failed: {msg} ({err})")
     launches.add()
     return out, mask
+
+
+def supports_fused_dropout(x: torch.Tensor) -> bool:
+    """Whether ``fused_dropout_fwd`` launches the kernel for ``x``: a float32
+    or bfloat16 tensor on a CUDA device."""
+    return x.device.type == "cuda" and x.dtype in _DTYPE_CODES
 
 
 def fused_dropout_fwd(x: torch.Tensor, p: float, seed: Seed, offset: int = 0

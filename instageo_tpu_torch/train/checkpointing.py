@@ -44,6 +44,10 @@ class BestCheckpointer:
                            if isinstance(v, (int, float))}, f)
         return self.path
 
+    def restore(self, map_location="cpu") -> Dict[str, Any]:
+        """The saved state, as :func:`load_checkpoint` reads it."""
+        return load_checkpoint(self.path, map_location)
+
 
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
     """A checkpoint directory written by :class:`BestCheckpointer`, loaded

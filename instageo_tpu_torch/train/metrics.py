@@ -8,6 +8,11 @@ place with no host synchronisation until ``compute()``/``score()``, so an
 update can be recorded into a CUDA graph. ``zero_()`` empties an
 accumulator in place. The masking rules and the final formulas are the JAX
 package's.
+
+``RunningConfusionMatrix``, ``RunningAUC`` and ``RunningRegressionMetrics``
+are the JAX package's host-side API (numpy or tensors on the host in, the
+reference's dicts out) over the same accumulators on the CPU: one copy of
+the math.
 """
 
 from __future__ import annotations
@@ -34,6 +39,10 @@ class ConfusionMatrix:
                                   device=device)
         self.total = torch.zeros((), dtype=torch.int64, device=device)
 
+    @classmethod
+    def empty(cls, num_classes: int, device=None) -> "ConfusionMatrix":
+        return cls(num_classes, device=device)
+
     def update(self, y_true: torch.Tensor, y_pred: torch.Tensor,
                ignore_index: Optional[int] = None) -> "ConfusionMatrix":
         """Add a batch of any shape. Labels or predictions outside [0, C)
@@ -50,6 +59,12 @@ class ConfusionMatrix:
         counts.index_add_(0, cell, torch.ones_like(cell))
         self.matrix += counts[:-1].view(c, c)
         self.total += valid.sum()
+        return self
+
+    def merge(self, other: "ConfusionMatrix") -> "ConfusionMatrix":
+        """Add ``other``'s counts into this accumulator."""
+        self.matrix += other.matrix.to(self.matrix.device)
+        self.total += other.total.to(self.total.device)
         return self
 
     def zero_(self) -> "ConfusionMatrix":
@@ -95,13 +110,20 @@ class AucHistogram:
         self.pos_hist = torch.zeros((num_classes, n_bins), dtype=torch.int64, device=device)
         self.neg_hist = torch.zeros((num_classes, n_bins), dtype=torch.int64, device=device)
 
+    @classmethod
+    def empty(cls, num_classes: int, n_bins: int = 1024, device=None) -> "AucHistogram":
+        return cls(num_classes, n_bins, device=device)
+
     def update(self, y_true: torch.Tensor, y_score: torch.Tensor,
                valid: Optional[torch.Tensor] = None) -> "AucHistogram":
         """y_true (N,), y_score (N, C) probabilities; ``valid`` (N,) masks
-        pixels out. Bin = floor(clip(score, 0, 1)·(n_bins − 1))."""
+        pixels out. Bin = floor(clip(score, 0, 1)·(n_bins − 1)), in float64
+        for float64 scores, else in float32."""
         c, nb = self.num_classes, self.n_bins
         y = y_true.reshape(-1).long()
-        scores = y_score.reshape(-1, c).float()
+        scores = y_score.reshape(-1, c)
+        if scores.dtype != torch.float64:
+            scores = scores.float()
         bins = torch.floor(scores.clamp(0.0, 1.0) * (nb - 1)).long()
         cell = bins + torch.arange(c, device=bins.device) * nb  # (N, C)
         is_c = y[:, None] == torch.arange(c, device=y.device)
@@ -149,6 +171,10 @@ class RegressionStats:
 
     def __init__(self, device=None) -> None:
         self.sums = torch.zeros(len(_REG_SUMS), dtype=torch.float64, device=device)
+
+    @classmethod
+    def empty(cls, device=None) -> "RegressionStats":
+        return cls(device=device)
 
     def update(self, y_true: torch.Tensor, y_pred: torch.Tensor,
                valid: Optional[torch.Tensor] = None, ee_bias: float = 0.05,
@@ -202,3 +228,90 @@ def _finalize_regression(s: Dict[str, float], include_ee: bool,
         "ee_bias": ee_bias,
         "ee_coef": ee_coef,
     }
+
+
+# ---------------------------------------------------------------------------
+# The reference's host-side API over the accumulators above
+# ---------------------------------------------------------------------------
+
+
+def _host(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).cpu()
+
+
+class RunningConfusionMatrix:
+    """Streaming confusion matrix on the host (the reference's API)."""
+
+    def __init__(self, num_classes: int, ignore_index: Optional[int] = None) -> None:
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+        self.reset()
+
+    def update(self, y_true, y_pred) -> None:
+        y_true, y_pred = _host(y_true).reshape(-1), _host(y_pred).reshape(-1)
+        if y_true.shape != y_pred.shape:
+            raise ValueError("y_true and y_pred shapes differ.")
+        self.state.update(y_true, y_pred, self.ignore_index)
+
+    def compute(self, include_per_class: bool = True) -> Dict:
+        return self.state.compute(include_per_class)
+
+    def reset(self) -> None:
+        self.state = ConfusionMatrix(self.num_classes)
+
+
+class RunningAUC:
+    """Streaming one-vs-rest ROC-AUC on the host (the reference's API):
+    scores are mapped from [min_score, max_score] onto [0, 1] in float64."""
+
+    def __init__(self, num_classes: int, n_bins: int = 1024,
+                 min_score: float = 0.0, max_score: float = 1.0) -> None:
+        self.num_classes = num_classes
+        self.n_bins = n_bins
+        self.min_score = min_score
+        self.max_score = max_score
+        self.reset()
+
+    def update(self, y_true, y_score) -> None:
+        y_true = _host(y_true).reshape(-1)
+        y_score = _host(y_score).double()
+        if y_score.dim() == 1:
+            if self.num_classes != 2:
+                raise ValueError("For 1-D y_score, num_classes must be 2.")
+            y_score = torch.stack([1 - y_score, y_score], dim=1)
+        if y_true.shape[0] != y_score.shape[0]:
+            raise ValueError("y_true and y_score length mismatch.")
+        if y_score.shape[1] != self.num_classes:
+            raise ValueError("Second dim of y_score must equal num_classes.")
+        span = self.max_score - self.min_score
+        norm = (y_score.clamp(self.min_score, self.max_score) - self.min_score) / span
+        self.state.update(y_true, norm)
+
+    def score(self, include_per_class: bool = True) -> Dict:
+        return self.state.score(include_per_class)
+
+    def reset(self) -> None:
+        self.state = AucHistogram(self.num_classes, self.n_bins)
+
+
+class RunningRegressionMetrics:
+    """Streaming regression metrics on the host (the reference's API)."""
+
+    def __init__(self, ee_bias: float = 0.05, ee_coef: float = 0.15,
+                 include_ee: bool = False) -> None:
+        self.ee_bias = ee_bias
+        self.ee_coef = ee_coef
+        self.include_ee = include_ee
+        self.reset()
+
+    def update(self, y_true, y_pred) -> None:
+        y_true, y_pred = _host(y_true).reshape(-1), _host(y_pred).reshape(-1)
+        if y_true.shape != y_pred.shape:
+            raise ValueError("y_true and y_pred shapes differ.")
+        self.state.update(y_true, y_pred, ee_bias=self.ee_bias, ee_coef=self.ee_coef)
+
+    def compute(self) -> Dict:
+        return self.state.compute(self.include_ee, self.ee_bias, self.ee_coef)
+
+    def reset(self) -> None:
+        self.state = RegressionStats()

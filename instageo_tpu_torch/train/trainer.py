@@ -130,6 +130,12 @@ class EpochMetrics:
         self.cm = None if is_reg else ConfusionMatrix(c, device=device)
         self.auc = AucHistogram(c, device=device) if with_auc and not is_reg else None
 
+    @classmethod
+    def empty(cls, num_classes: int, device=None, is_reg: bool = False,
+              with_auc: bool = False) -> "EpochMetrics":
+        return cls(num_classes, torch.device("cpu") if device is None else device, is_reg,
+                   with_auc)
+
     def zero_(self) -> "EpochMetrics":
         """Empty every accumulator in place (a captured graph adds into
         these tensors)."""

@@ -22,7 +22,7 @@ import shutil
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 DEFAULT_ROOT = Path(__file__).resolve().parents[2] / "build" / "instageo_tpu_torch"
 
@@ -38,6 +38,18 @@ def _private_root() -> Path:
             _private[os.getpid()] = root
             atexit.register(shutil.rmtree, root, ignore_errors=True)
         return root
+
+
+def enable_compilation_cache(cache_dir: Optional[str] = None) -> bool:
+    """Keep this process's builds in ``cache_dir`` (else the root
+    ``build_root`` names) for later processes; False, and nothing changed,
+    under ``INSTAGEO_COMPILE_CACHE=0``."""
+    if os.environ.get("INSTAGEO_COMPILE_CACHE", "1") == "0":
+        return False
+    if cache_dir:
+        os.environ["INSTAGEO_COMPILE_CACHE_DIR"] = str(cache_dir)
+    build_root().mkdir(parents=True, exist_ok=True)
+    return True
 
 
 def build_root() -> Path:

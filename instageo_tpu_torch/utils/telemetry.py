@@ -120,6 +120,11 @@ class EmissionsTracker:
         self.stop()
 
 
+def get_carbon_info(tracker: EmissionsTracker) -> Dict[str, Optional[float]]:
+    """The tracker's last results (the reference's ``get_carbon_info``)."""
+    return dict(tracker.results)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str, enabled: bool = True):
     """A ``torch.profiler`` trace (CPU, and CUDA when there is a card) of

@@ -324,15 +324,14 @@ def test_mma_sync_backward_still_matches_plain_at_wgmma_head_dims(cuda, d):
         assert _rel_err(g, ref) <= BWD_REL_TOL
 
 
-@pytest.mark.parametrize("design", tdrop.DESIGNS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 4099, 1 << 20])
-def test_dropout_mask_is_the_plain_stream(cuda, design, dtype, n):
+def test_dropout_mask_is_the_plain_stream(cuda, dtype, n):
     """Bit for bit the plain Philox stream, with ragged tails and, one
     element in, unaligned starts (the scalar path)."""
     x = torch.randn(n + 1, device=cuda).to(dtype)
     for view in (x[:n], x[1:]):
-        out, mask = tdrop._fused_dropout_cuda(view, 0.3, 12345678901, design)
+        out, mask = tdrop._fused_dropout_cuda(view, 0.3, 12345678901)
         _, ref = tdrop.fused_dropout_seeded_plain(view, 0.3, 12345678901)
         assert torch.equal(mask, ref)
         assert torch.equal(out, tdrop.dropout_apply(view, mask, 0.3))
@@ -411,8 +410,6 @@ def test_dropout_seed_from_device_memory(cuda, dtype, n):
         assert torch.equal(mask, by_value[1]) and torch.equal(out, by_value[0])
         _, plain = tdrop.fused_dropout_seeded_plain(x, 0.2, int(seeds[slot]))
         assert torch.equal(mask, plain)
-    with pytest.raises(ValueError, match="by value"):
-        tdrop._fused_dropout_cuda(x, 0.2, (seeds, 0), "x4")
 
 
 def test_dropout_graph_takes_the_seed_of_each_replay(cuda):
