@@ -99,7 +99,9 @@ Phases, one line each (any failure raises and exits non-zero):
     then the CLI at batch 8 in two fresh interpreters on one
     ``INSTAGEO_COMPILE_CACHE_DIR``, one that builds the forward kernel there
     at its first launch and one that loads it from there with ``nvcc``
-    barred: the cold cost a user's first and later runs pay;
+    barred: the cold cost a user's first and later runs pay; the second
+    first runs serve_models' and quant's export artifacts (one interpreter
+    for the three);
 11. chip_ops: ``process_tile_chips`` on the same tile (196 chips of 256 px,
     Fmask cloud and shadow masking ``each`` and ``any``, 50,000 points with
     one dense chip): card = CPU bit for bit, also under deterministic mode;
@@ -122,8 +124,9 @@ Phases, one line each (any failure raises and exits non-zero):
     ``libopenjp2`` loads and decodes the committed JP2 fixture; whether
     matplotlib is here for the regression plot;
 13. webapp: the web platform as it is deployed (``webapp_phase``): the
-    port's server in this process with its three spawned queue workers and
-    a job process per stage, on the card; a ``POST /api/run-model`` of the
+    topology of ``instageo_tpu_torch/deploy/docker-compose.yml``, the
+    backend and each queue's workers started from the file's commands with
+    its environment, a job process per stage, on the card; a ``POST /api/run-model`` of the
     shipped registry's ``crop_classification`` (Prithvi-EO-V2-300M at full
     width and depth, random weights from seed 0) over a bbox of the granule
     tile holding its nodata block, polled to ``completed`` (stage seconds,
@@ -133,7 +136,8 @@ Phases, one line each (any failure raises and exits non-zero):
     2 and 3 in this process on copies of the chips, with the kernel
     (launches 24 per chip batch; the COG = the worker-run one bit for bit)
     and with the plain attention (argmax on decided pixels); ``python -m
-    instageo_tpu_torch.webapp.main`` in a fresh interpreter;
+    instageo_tpu_torch.webapp.main`` with its own workers and auth on in a
+    fresh interpreter;
 14. parallel: ``parallel/`` as a user runs it (``parallel_phase``): the
     600M recipe (``configs/prithvi600_v5e8.yaml``: Prithvi-EO-V2-600M at
     full width and depth, FSDP, ZeRO-1, grad_accum 2, steps_per_call 4,
@@ -155,16 +159,16 @@ Phases, one line each (any failure raises and exits non-zero):
     within 1e-3 (the first bit for bit); peak memory of each; with one
     card visible, one line says what needs two;
 15. examples: the port's walkthroughs (``examples_phase``), each in a fresh
-    interpreter as a user runs it: the quickstart on the card (wall
-    seconds, #1 4 per forward and #3 4 per step on the wgmma route and
-    none on mma.sync,
-    its export artifact against a ``ModelServer`` of its checkpoint on one
-    batch), the multichip walkthrough under ``torch.distributed.run`` at
-    world = the visible cards (each placement's loss at both steps within
-    1e-3 of data parallelism's; with one card, the tensor-parallel
-    placement named as needing two), the raster chip creator demo on the
-    card and on the CPU (every file equal byte for byte), the last two
-    side by side;
+    interpreter as a user runs it, all side by side: the quickstart on the
+    card (wall seconds, #1 4 per forward and #3 4 per step on the wgmma
+    route and none on mma.sync, its export artifact against a
+    ``ModelServer`` of its checkpoint on one batch), ``InstaGeo_Demo.ipynb``'s
+    code cells in one interpreter, held to the same launches and checks,
+    the multichip walkthrough under ``torch.distributed.run`` at world =
+    the visible cards (each placement's loss at both steps within 1e-3 of
+    data parallelism's; with one card, the tensor-parallel placement named
+    as needing two), the raster chip creator demo on the card and on the
+    CPU (every file equal byte for byte);
 16. one JSON line ``{"kernels": [...]}``;
 17. last line: ``{"ok": true, "device": {...}}``.
 
@@ -183,6 +187,8 @@ import gc
 import json
 import math
 import os
+import re
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -2130,17 +2136,19 @@ def _predict_launches(predict, raw, depth: int, tag: str, on_card: bool) -> dict
     return counts
 
 
-def _artifact_check(server, x, root: str, depth: int, on_card: bool,
-                    batches=(64, 7)) -> dict:
-    """``server``'s export artifact (``ModelServer.export_artifact``) run in a
-    fresh interpreter that imports none of the port's models, on the first
-    ``b`` chips of ``x`` for each of ``batches``: its class ids against the
-    server's on decided pixels (>= ARTIFACT_AGREEMENT), ``depth`` forward
-    launches per call on the card, its size under 4 bytes per parameter."""
+def _artifact_prepare(server, x, root: str, depth: int, on_card: bool,
+                      batches=(64, 7)) -> dict:
+    """``server``'s export artifact (``ModelServer.export_artifact``) written
+    into ``root`` (its size under 4 bytes per parameter) with what a fresh
+    interpreter needs to run it on the first ``b`` chips of ``x`` for each of
+    ``batches``, and what it must give: the server's class ids and its
+    decided pixels. Returns the job for ``_artifact_child`` and
+    ``_artifact_verify``."""
     import torch
 
     from instageo_tpu_torch.serve.infer import make_predict_fn
 
+    os.makedirs(root, exist_ok=True)
     path = os.path.join(root, "predict.pt2")
     t0 = time.perf_counter()
     server.export_artifact(path)
@@ -2148,50 +2156,111 @@ def _artifact_check(server, x, root: str, depth: int, on_card: bool,
     n_params = sum(p.numel() for p in server.model.parameters())
     nbytes = os.path.getsize(path)
     check(nbytes < 4 * n_params, f"artifact {nbytes} bytes for {n_params} parameters")
-    state_path, x_path = os.path.join(root, "state.pt"), os.path.join(root, "x.pt")
-    torch.save(server.model.state_dict(), state_path)
-    torch.save(x.cpu(), x_path)
-    code = ("import json, sys, torch\n"
-            "from instageo_tpu_torch.ops import attention\n"
-            "from instageo_tpu_torch.serve.export import load_predict\n"
-            "predict, meta = load_predict(sys.argv[1])\n"
-            "state = torch.load(sys.argv[2], weights_only=True)\n"
-            "x = torch.load(sys.argv[3], weights_only=True)\n"
-            "launches = {}\n"
-            f"for b in {tuple(batches)!r}:\n"
-            "    before = attention.launches.count\n"
-            "    y = predict(state, x[:b])\n"
-            "    launches[b] = attention.launches.count - before\n"
-            "    torch.save(y.cpu(), f'{sys.argv[4]}.{b}.pt')\n"
-            "models = [m for m in sys.modules if m.startswith('instageo_tpu_torch.models')]\n"
-            "print(json.dumps({'launches': launches, 'models_imported': models,\n"
-            "                  'meta': meta}))\n")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, path, state_path, x_path,
-                           os.path.join(root, "y")], cwd=os.path.dirname(
-                               os.path.abspath(__file__)), capture_output=True, text=True,
-                          timeout=600)
-    reload_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the artifact's interpreter failed:\n{proc.stderr[-4000:]}")
-    child = json.loads(proc.stdout.strip().splitlines()[-1])
-    check(not child["models_imported"], f"load_predict imported {child['models_imported']}")
+    job = dict(path=path, state=os.path.join(root, "state.pt"), x=os.path.join(root, "x.pt"),
+               out=os.path.join(root, "y"), want=os.path.join(root, "want"),
+               decided=os.path.join(root, "decided.pt"), batches=list(batches), depth=depth,
+               on_card=on_card, export_s=export_s, bytes=nbytes, params=n_params)
+    torch.save(server.model.state_dict(), job["state"])
+    torch.save(x.cpu(), job["x"])
     live = make_predict_fn(server.model)
-    agreement = {}
     with torch.inference_mode():
         logits = server.model(x, channels_last=True).float()
     top2 = logits.topk(2, dim=-1).values
     decided = ((top2[..., 0] - top2[..., 1]) >= DECIDED_GAP * logits.abs().max()).cpu()
+    torch.save(decided, job["decided"])
     for b in batches:
-        got = torch.load(f"{os.path.join(root, 'y')}.{b}.pt", weights_only=True)
-        same = got == live(x[:b]).cpu()
+        torch.save(live(x[:b]).cpu(), f"{job['want']}.{b}.pt")
+    return job
+
+
+def _artifact_child(jobs: list) -> dict:
+    """What a fresh interpreter runs for ``_artifact_prepare``'s jobs: each
+    artifact loaded with ``load_predict``, called on each batch (the
+    forward launches of each call counted), the outputs saved; then which
+    of the port's model modules the interpreter imported (none may be)."""
+    import torch
+
+    from instageo_tpu_torch.ops import attention
+    from instageo_tpu_torch.serve.export import load_predict
+
+    recs = []
+    for job in jobs:
+        t0 = time.perf_counter()
+        predict, meta = load_predict(job["path"])
+        state = torch.load(job["state"], weights_only=True)
+        x = torch.load(job["x"], weights_only=True)
+        launches = {}
+        for b in job["batches"]:
+            before = attention.launches.count
+            y = predict(state, x[:b])
+            launches[b] = attention.launches.count - before
+            torch.save(y.cpu(), f"{job['out']}.{b}.pt")
+        recs.append(dict(launches=launches, meta=meta, seconds=time.perf_counter() - t0))
+    return dict(artifacts=recs, models_imported=[
+        m for m in sys.modules if m.startswith("instageo_tpu_torch.models")])
+
+
+def _artifact_fresh(jobs: list, root: str) -> dict:
+    """``_artifact_child`` of ``jobs`` in a fresh interpreter of its own:
+    its record, with the interpreter's wall seconds."""
+    path = os.path.join(root, "artifact_jobs.json")
+    with open(path, "w") as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print(json.dumps("
+         "chip_smoke._artifact_child(json.load(open(sys.argv[1])))))", path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    check(proc.returncode == 0, f"the artifacts' interpreter failed:\n{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec["process_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _artifact_verify(job: dict, child: dict, models_imported: list) -> dict:
+    """A job's artifact as the fresh interpreter ran it: no model module
+    imported, class ids equal to the server's on decided pixels
+    (>= ARTIFACT_AGREEMENT), ``depth`` forward launches per call on the
+    card."""
+    import torch
+
+    check(not models_imported, f"load_predict imported {models_imported}")
+    decided = torch.load(job["decided"], weights_only=True)
+    agreement = {}
+    for b in job["batches"]:
+        got = torch.load(f"{job['out']}.{b}.pt", weights_only=True)
+        same = got == torch.load(f"{job['want']}.{b}.pt", weights_only=True)
         agreement[b] = same[decided[:b]].float().mean().item()
         check(agreement[b] >= ARTIFACT_AGREEMENT,
               f"artifact vs server at batch {b}: {agreement[b]} of decided pixels")
-        if on_card:
-            check(child["launches"][str(b)] == depth,
+        if job["on_card"]:
+            check(child["launches"][str(b)] == job["depth"],
                   f"artifact at batch {b}: {child['launches'][str(b)]} forward launches")
-    return dict(bytes=nbytes, params=n_params, agreement=agreement, export_s=export_s,
-                fresh_interpreter_s=reload_s, child=child)
+    return dict(bytes=job["bytes"], params=job["params"], agreement=agreement,
+                export_s=job["export_s"], fresh_interpreter_s=child["seconds"], child=child)
+
+
+def serving_row(smi: str, row: dict, art: dict) -> dict:
+    """The serve_models phase's serving-layer row, with its export artifact
+    as a fresh interpreter ran it (``_artifact_verify``'s record)."""
+    child = art["child"]
+    _serve_row(smi, **row, artifact_bytes=art["bytes"], artifact_bound_bytes=4 * art["params"],
+               export_s=art["export_s"], fresh_interpreter_s=art["fresh_interpreter_s"],
+               artifact_launches=child["launches"], artifact_agreement_decided=art["agreement"],
+               artifact_meta=child["meta"])
+    return dict(eval_gap=row["evaluate_vs_trainer_test_max_gap"], bytes=art["bytes"],
+                params=art["params"], agreement=art["agreement"], launches=child["launches"])
+
+
+def quant_artifact_row(art: dict) -> dict:
+    """The quant phase's int8 export artifact as a fresh interpreter ran it."""
+    print(f"[quant] int8 export artifact: {art['bytes']} bytes (< {4 * art['params']}), "
+          f"exported in {art['export_s']:.3f} s; a fresh interpreter in "
+          f"{art['fresh_interpreter_s']:.3f} s: launches {art['child']['launches']}, "
+          f"class ids vs the server {art['agreement']} of decided pixels (>= "
+          f"{ARTIFACT_AGREEMENT})", flush=True)
+    return {k: v for k, v in art.items() if k != "child"}
 
 
 def _server_predict(server):
@@ -2221,7 +2290,8 @@ def _server_chips(server, raw, device):
 def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_batch: int = 8,
                        fixed_steps: int = 10, variants=(("prithvi_eo_v2_300_tl", 4, 16),
                                  ("prithvi_eo_v2_600_tl", 4, 4)),
-                       n_chips: int = 16, turns: int = SERVE_TURNS, iters: int = 5) -> dict:
+                       n_chips: int = 16, turns: int = SERVE_TURNS, iters: int = 5, *,
+                       artifact_dir: str) -> dict:
     """Every model the JAX package builds, served through the port's entry
     points (``ModelServer(cfg)``, ``EvaluationPipeline``, the export
     artifact) at full width with random weights from seed 0 in bf16:
@@ -2249,7 +2319,11 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
        size against 4 bytes per parameter.
 
     ``overrides``: config overrides (a CPU rehearsal's tiny model); on the
-    CPU no kernel launches, so the launch checks hold only on the card."""
+    CPU no kernel launches, so the launch checks hold only on the card.
+    ``artifact_dir``: where step 5's artifact is prepared for a fresh
+    interpreter that a later phase starts (``out["artifact_job"]``, its row
+    ``out["serving_row"]``, held by ``_artifact_verify`` and printed by
+    ``serving_row``)."""
     import torch
 
     from instageo_tpu_torch.configs.config import load_config
@@ -2466,19 +2540,15 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
               "pixels differ")
 
         x64 = _server_chips(server, raw_chips(batch, cfg), device)
-        art = _artifact_check(server, x64, root, depth, on_card)
-        nbytes, n_params, agreement = art["bytes"], art["params"], art["agreement"]
-        export_s, reload_s, child = art["export_s"], art["fresh_interpreter_s"], art["child"]
-        _serve_row(smi, part="serving_layer", chips=n_chips,
+        row = dict(part="serving_layer", chips=n_chips,
                    evaluate_vs_trainer_test_max_gap=eval_gap,
                    chip_inference_vs_online_decided_pixels=int(decided_ci.sum()),
                    chip_inference_pixels=int(decided_ci.size),
-                   chip_inference_vs_online_agree=True, artifact_bytes=nbytes,
-                   artifact_bound_bytes=4 * n_params, export_s=export_s,
-                   fresh_interpreter_s=reload_s, artifact_launches=child["launches"],
-                   artifact_agreement_decided=agreement, artifact_meta=child["meta"])
-        out["serving"] = dict(eval_gap=eval_gap, bytes=nbytes, params=n_params,
-                              agreement=agreement, launches=child["launches"])
+                   chip_inference_vs_online_agree=True)
+        # Run later, in a fresh interpreter shared with other phases.
+        out["artifact_job"] = _artifact_prepare(
+            server, x64, os.path.join(artifact_dir, "serve_models"), depth, on_card)
+        out["serving_row"] = row
         pipe.cleanup()
     finally:
         tmp.cleanup()
@@ -2497,7 +2567,7 @@ GEMM_SHAPE = (64 * 589, 768, 3072)  # fc1 of V1-100M at batch 64: (B·L, D) x (D
 
 def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: int = 16,
                 cpu_chips: int = 2, turns: int = SERVE_TURNS, iters: int = 5,
-                gemm_shape=GEMM_SHAPE, gemm_iters: int = 20) -> dict:
+                gemm_shape=GEMM_SHAPE, gemm_iters: int = 20, *, artifact_dir: str) -> dict:
     """``tpu.quant: int8`` (dynamic W8A8, ``ops/quant.py``) served through
     ``ModelServer(cfg)`` on the crop config at full width, random weights
     from seed 0:
@@ -2510,7 +2580,8 @@ def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: in
        ``cpu_chips`` chips: max |logit diff| within LOGIT_TOL of max |logit|,
        argmax agreement at least ARGMAX_AGREEMENT on decided pixels;
     3. its export artifact in a fresh interpreter against the server, at
-       ``batch``;
+       ``batch`` (prepared in ``artifact_dir`` for a later phase's fresh
+       interpreter, ``out["artifact_job"]``, as in serve_models);
     4. the Trainer refusing it in training;
     5. ``int8_matmul`` (quantize, ``torch._int_mm``, rescale; the weight
        quantized once, as a served layer holds it) against ``F.linear`` in
@@ -2611,13 +2682,10 @@ def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: in
         clock.lap("int8 card vs CPU")
 
         # --- 3. the export artifact in a fresh interpreter, at one batch ----
-        art = _artifact_check(servers["int8"], x, tmp.name, depth, on_card, batches=(batch,))
-        print(f"[quant] int8 export artifact: {art['bytes']} bytes (< {4 * art['params']}), "
-              f"exported in {art['export_s']:.3f} s; a fresh interpreter in "
-              f"{art['fresh_interpreter_s']:.3f} s: launches {art['child']['launches']}, "
-              f"class ids vs the server {art['agreement']} of decided pixels (>= "
-              f"{ARTIFACT_AGREEMENT})", flush=True)
-        out["artifact"] = {k: v for k, v in art.items() if k != "child"}
+        # Run later, in a fresh interpreter shared with other phases.
+        out["artifact_job"] = _artifact_prepare(
+            servers["int8"], x, os.path.join(artifact_dir, "quant"), depth, on_card,
+            batches=(batch,))
         clock.lap("int8 artifact")
 
         # --- 4. training refused --------------------------------------------
@@ -2826,15 +2894,17 @@ def _sliding_inference_timed(argv) -> dict:
     return rec
 
 
-def _granule_fresh_process(build_root: str, mode: str, argv) -> None:
+def _granule_fresh_process(build_root: str, mode: str, artifacts: str, argv) -> None:
     """What a fresh interpreter runs for the granule phase's cold runs:
     ``mode=sliding_inference`` as a user starts it, with
     ``INSTAGEO_COMPILE_CACHE_DIR`` = ``build_root``: on an empty directory the
     forward kernel is built there at its first launch; with ``mode``
     "no_nvcc" any call for ``nvcc`` raises, so the library must come from
-    there. Prints one JSON line: the granule's seconds, the process's seconds
-    from before ``import torch``, the seconds each kernel build took and the
-    forward kernel's library path."""
+    there. ``artifacts``: a JSON file of ``_artifact_prepare`` jobs, run
+    first (``_artifact_child``), or "-". Prints one JSON line: the granule's
+    seconds, the process's seconds from before ``import torch``, the seconds
+    each kernel build took, the forward kernel's library path and the
+    artifacts' record."""
     t0 = time.perf_counter()
     os.environ["INSTAGEO_COMPILE_CACHE_DIR"] = build_root
     import torch
@@ -2846,6 +2916,11 @@ def _granule_fresh_process(build_root: str, mode: str, argv) -> None:
             raise RuntimeError("nvcc was asked for: the library was not in the cache")
 
         _build._nvcc = no_nvcc
+    art = None
+    if artifacts != "-":
+        with open(artifacts) as f:
+            art = _artifact_child(json.load(f))
+    t_granule = time.perf_counter()
     rec = _sliding_inference_timed(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -2854,12 +2929,13 @@ def _granule_fresh_process(build_root: str, mode: str, argv) -> None:
         done=rec["done"], decode_s=rec["decode_s"], file_s=rec["file_s"],
         h2d_s=stats["h2d_s"], device_s=stats["device_s"],
         first_batch_s=stats["first_batch_s"], process_s=time.perf_counter() - t0,
-        build_s=dict(_build.build_seconds),
-        lib=str(_build._lib_path("flash_attn_fwd_sm90")))), flush=True)
+        granule_process_s=time.perf_counter() - t_granule, build_s=dict(_build.build_seconds),
+        lib=str(_build._lib_path("flash_attn_fwd_sm90")), artifacts=art)), flush=True)
 
 
 def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
-                  extra=(), batches=(8, 64), overlap: int = GRANULE_OVERLAP) -> dict:
+                  extra=(), batches=(8, 64), overlap: int = GRANULE_OVERLAP,
+                  artifacts=()) -> dict:
     """Whole-granule inference as a user runs it: ``mode=sliding_inference``
     of the run CLI (in-process) on the crop config over the synthetic HLS
     granule (T=3, ``size``² px), random weights from seed 0 in a checkpoint,
@@ -2882,8 +2958,12 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
     the first of ``batches`` (``_granule_fresh_process``): one builds the
     forward kernel into an empty directory at its first launch, one loads
     the built library, and both predictions are held against the plain
-    attention. ``extra``: overrides (a CPU rehearsal's tiny model).
-    Returns the numbers and the tile's arrays for the chip_ops phase."""
+    attention. ``artifacts``: earlier phases' export artifacts
+    (``_artifact_prepare`` jobs), run in the second of those interpreters
+    before its granule (off the card, in a fresh interpreter of their own);
+    their record is ``out["artifacts"]``. ``extra``: overrides (a CPU
+    rehearsal's tiny model). Returns the numbers and the tile's arrays for
+    the chip_ops phase."""
     # Each run opens 18 assets and the loader allows 30 a minute per
     # process by default; raise it before the loaders are imported.
     os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
@@ -3077,7 +3157,12 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         # Both on one INSTAGEO_COMPILE_CACHE_DIR, empty before the first: the
         # first builds the forward kernel there, the second (nvcc barred)
         # must load it from there, as a later process of a user's does.
-        fresh = {}
+        # The second also runs the earlier phases' export artifacts first:
+        # one fresh interpreter for the three.
+        fresh, art_rec = {}, None
+        jobs = os.path.join(root, "artifact_jobs.json")
+        with open(jobs, "w") as f:
+            json.dump(list(artifacts), f)
         if on_card:
             first = batches[0]
             cache = os.path.join(root, "build")
@@ -3086,7 +3171,9 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
                 proc = subprocess.run(
                     [sys.executable, "-c", "import sys, chip_smoke; "
                      "chip_smoke._granule_fresh_process(sys.argv[1], sys.argv[2], "
-                     "sys.argv[3:])", cache, mode, *base, f"train.batch_size={first}"],
+                     "sys.argv[3], sys.argv[4:])", cache, mode,
+                     jobs if name == "built" and artifacts else "-", *base,
+                     f"train.batch_size={first}"],
                     cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                     text=True, timeout=600)
                 wall = time.perf_counter() - t0
@@ -3107,6 +3194,8 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
                       f"library {rec['lib']} (the compile cache {cache})")
                 rec.update(process_wall_s=wall, agreement=f_agree,
                            granule_wall_s=rec["decode_s"] + rec["file_s"])
+                if rec["artifacts"] is not None:
+                    art_rec = dict(rec.pop("artifacts"), process_s=wall)
                 fresh[name] = rec
                 print(f"[granule] a fresh interpreter at batch {first} ({name}): process "
                       f"{wall:.3f} s, decode {rec['decode_s']:.3f} s, to the device "
@@ -3114,8 +3203,13 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
                       f"batch {rec['first_batch_s']:.3f} s (kernel builds "
                       f"{json.dumps(rec['build_s'])}), granule wall "
                       f"{rec['granule_wall_s']:.3f} s ({n / rec['granule_wall_s']:.2f} "
-                      f"chips/s); kernel vs plain {f_agree:.6f}", flush=True)
+                      f"chips/s); kernel vs plain {f_agree:.6f}"
+                      + (f"; before it, the earlier phases' {len(artifacts)} export artifacts "
+                         f"in {rec['process_s'] - rec['granule_process_s']:.3f} s"
+                         if name == "built" and artifacts else ""), flush=True)
             clock.lap("fresh interpreters")
+        if artifacts and art_rec is None:
+            art_rec = _artifact_fresh(list(artifacts), root)
         del model
         if on_card:
             torch.cuda.empty_cache()
@@ -3123,7 +3217,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
                     decided=float(decided.mean()), overlap=dict(
                         chips=len(o_coords), launches=o_counts, device_s=o_stats["device_s"],
                         agreement=o_agree, decided=float(o_decided.mean())),
-                    fresh=fresh, bands=bands, fmask=fmask)
+                    fresh=fresh, bands=bands, fmask=fmask, artifacts=art_rec)
     finally:
         tmp.cleanup()
 
@@ -3240,9 +3334,11 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
     points from ``seed`` in EPSG:4326 with labels 0/1:
 
     1. ``python -m instageo_tpu_torch.data.chip_creator`` (``main``, in
-       process) with ``CHIP_CREATOR_FLAGS`` on the card, then on the CPU:
-       every file equal byte for byte; the whole grid of ``chip``-px chips
-       written (18 bands, uint16), each chip equal to the tile's pixels in
+       process) with ``CHIP_CREATOR_FLAGS`` on the card, then on the CPU
+       (the granules selected and the tile decoded once, by the card run;
+       the CPU run's chip math gets copies of the same selections and
+       arrays): every file equal byte for byte; the whole grid of
+       ``chip``-px chips written (18 bands, uint16), each chip equal to the tile's pixels in
        the selected granules' order with the cloud bit's pixels 0, each seg
        map's singly-labelled pixels equal to the points' labels; the chip
        creation launches no kernel; wall, decode and ``process_tile_chips``
@@ -3332,18 +3428,44 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                 start.elapsed_time(end) / 1e3 if on else time.perf_counter() - t0)
             return out
 
+        # The tile is decoded and the granules selected once, by the card
+        # run; the CPU run, which holds the chip math on the other device,
+        # gets copies of the card run's arrays and selections.
+        tiles, selections, point_run = {}, [], {"name": None}
+
+        def selected(*a, **k):
+            if point_run["name"] == "cpu":
+                rec["selection_reused"] = rec.get("selection_reused", 0) + 1
+                return copy.deepcopy(selections[rec["selection_reused"] - 1])
+            got = search_fn(*a, **k)
+            if point_run["name"] == "card":
+                selections.append(copy.deepcopy(got))
+            return got
+
+        def opened(tile_dict, *a, **k):
+            key = (tuple(g["id"] if isinstance(g, dict) else g.id
+                         for g in tile_dict["granules"]), a, tuple(sorted(k.items())))
+            if point_run["name"] == "cpu":
+                rec["decode_reused"] = rec.get("decode_reused", 0) + 1
+                return tuple(v.copy() if isinstance(v, np.ndarray) else v for v in tiles[key])
+            got = opener(tile_dict, *a, **k)
+            if point_run["name"] == "card":
+                tiles[key] = got
+            return got
+
         search = lambda self, **kw: [stac.StacItem.from_dict(copy.deepcopy(g))  # noqa: E731
                                      for g in granules]
         out, runs = {}, {}
         with mock.patch.object(stac.StacClient, "search", search), \
-                mock.patch.object(hls, "open_hls_stac_items", timed(opener, "decode_s")), \
+                mock.patch.object(hls, "open_hls_stac_items", timed(opened, "decode_s")), \
                 mock.patch.object(pipeline, "process_tile_chips", timed_chips), \
                 mock.patch.object(pipeline, "write_geotiff", timed(writer, "write_s")), \
                 mock.patch.dict(chip_creator.DATA_SOURCE_CONFIG["HLS"],
-                                add_stac_items_func=timed(search_fn, "stac_s")):
+                                add_stac_items_func=timed(selected, "stac_s")):
             for name, dev in (("card", device), ("cpu", cpu)):
                 out[name] = os.path.join(root, f"points_{name}")
                 rec.clear()
+                point_run["name"] = name
                 # --- chip creation: counts from 0, read right after ---------
                 reset_counts()
                 if dev.type == "cuda":
@@ -3356,15 +3478,22 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                 counts = read_counts()
                 # ---------------------------------------------------------------
                 check(not any(counts.values()), f"chip creation launched {counts}")
-                check(len(rec.get("decode_s", [])) == 1 and len(rec.get("chips_s", [])) == 1,
+                check(len(rec.get("decode_s", [])) == 1 and len(rec.get("chips_s", [])) == 1
+                      and rec.get("decode_reused", 0) == (name == "cpu")
+                      and rec.get("selection_reused", 0) == (len(selections)
+                                                             if name == "cpu" else 0),
                       f"{name}: tile loads {rec}")
                 runs[name] = dict(wall_s=wall, stac_s=rec["stac_s"][0],
                                   decode_s=rec["decode_s"][0],
+                                  decode_reused=bool(rec.get("decode_reused")),
                                   process_tile_chips_s=rec["chips_s"][0],
                                   write_s=sum(rec["write_s"]),
                                   peak_device_bytes=torch.cuda.max_memory_allocated()
                                   if dev.type == "cuda" else None)
                 clock.lap(f"chip_creator --device={dev.type}")
+            point_run["name"] = None
+            tiles.clear()
+            selections.clear()
             files = _same_trees(out["card"], out["cpu"], "chip_creator")
             clock.lap("compared")
 
@@ -3419,9 +3548,10 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                   f"byte for byte; chips {probe} = the tile's pixels with the cloud bit 0; "
                   f"launches during chip creation 0", flush=True)
             for name, r in runs.items():
+                copied = " (a copy of the card run's)" if r["decode_reused"] else ""
                 print(f"[chip_creator] --device={'cuda' if name == 'card' else 'cpu'}: wall "
-                      f"{r['wall_s']:.3f} s: STAC search and selection {r['stac_s']:.3f} s, "
-                      f"decode {r['decode_s']:.3f} s, process_tile_chips "
+                      f"{r['wall_s']:.3f} s: STAC search and selection {r['stac_s']:.3f} s"
+                      f"{copied}, decode {r['decode_s']:.3f} s{copied}, process_tile_chips "
                       f"{r['process_tile_chips_s']:.3f} s "
                       f"({'CUDA events' if on_card and name == 'card' else 'host clock'}), GeoTIFF writes "
                       f"{r['write_s']:.3f} s; peak device memory {r['peak_device_bytes']} B",
@@ -3745,6 +3875,99 @@ if __name__ == "__mp_main__" and os.environ.get(STAC_ITEMS_ENV):
     _install_webapp_hooks()
 
 
+# The web phase's deployment: the compose file whose services it starts.
+COMPOSE_FILE = "instageo_tpu_torch/deploy/docker-compose.yml"
+# The web platform's environment names, which a service's own environment
+# sets: taken out of what the phase's processes inherit from this one.
+WEB_ENV_NAMES = ("DATABASE_URL", "TASKS_DATA_DIR", "MODELS_PATH", "MODELS_REGISTRY_PATH",
+                 "AUTH0_DOMAIN", "AUTH0_AUDIENCE", "AUTH0_CLIENT_ID", "API_BASE_URL",
+                 "AUTH_DISABLED", "TESTING", "INSTAGEO_DEVICE", "INSTAGEO_NO_WORKERS", "PORT")
+# Imported at the start of every process of the deployed topology (the
+# backend, the workers and the job processes they spawn, which run no file
+# of this repo's as their main module): the phase's hooks where its STAC
+# items are named, after any other sitecustomize on the path.
+SITECUSTOMIZE = """\
+import importlib.machinery
+import importlib.util
+import os
+import sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or os.curdir) != _here])
+if _spec is not None:
+    _other = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_other)
+if os.environ.get({stac!r}):
+    sys.path.insert(0, {repo!r})
+    import chip_smoke
+    chip_smoke._install_webapp_hooks()
+"""
+
+
+def _subst(text: str, variables: dict) -> str:
+    """Compose's interpolation: ``${NAME}`` and ``${NAME:-default}`` (the
+    default where NAME is unset or empty)."""
+    return re.sub(r"\$\{(\w+)(?::-([^}]*))?\}",
+                  lambda m: variables.get(m.group(1)) or (m.group(2) or ""), text)
+
+
+def compose_services(path: str, root: str, variables: dict) -> dict:
+    """The services of a compose file built from this repository, as this
+    machine runs them: name -> ``argv`` (its ``command``, ``python`` this
+    interpreter), ``env`` (its ``environment``, interpolated from
+    ``variables``, each path under a mount point mapped to the mount's
+    source), ``mounts`` (mount point -> directory: a named volume under
+    ``root``, a path relative to the file's directory), ``replicas`` and
+    ``gpu`` (whether it reserves an NVIDIA device). Read with the port's
+    YAML reader."""
+    from instageo_tpu_torch.configs.config import loads
+
+    with open(path) as f:
+        spec = loads(f.read())
+    here = os.path.dirname(os.path.abspath(path))
+    out = {}
+    for name, svc in spec["services"].items():
+        if "build" not in svc:
+            continue  # nginx, cloudflared: images of their own
+        mounts = {}
+        for vol in svc.get("volumes", []):
+            src, dst = _subst(vol, variables).split(":")[:2]
+            if not src.startswith((".", "/")):
+                src = os.path.join(root, src)
+            mounts[dst] = os.path.normpath(os.path.join(here, src))
+        env = svc.get("environment") or {}
+        if isinstance(env, list):
+            env = dict(e.split("=", 1) for e in env)
+        env = {k: _subst(str(v), variables) for k, v in env.items()}
+        for k, v in env.items():
+            for dst, src in mounts.items():
+                if v == dst or v.startswith(dst + "/"):
+                    env[k] = src + v[len(dst):]
+        argv = shlex.split(svc["command"])
+        check(argv[0] == "python", f"{name}: {svc['command']}")
+        deploy = svc.get("deploy") or {}
+        devices = deploy.get("resources", {}).get("reservations", {}).get("devices", [])
+        out[name] = dict(argv=[sys.executable] + argv[1:], env=env, mounts=mounts,
+                         replicas=int(_subst(str(deploy.get("replicas", 1)), variables)),
+                         gpu=any(d.get("driver") == "nvidia" for d in devices))
+    return out
+
+
+def _logged_port(proc, log: str, what: str, timeout: float = 60.0) -> int:
+    """The port a server started with ``PORT=0`` logs ("Serving on
+    http://...:<port>"), read from its log file."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        with open(log, errors="replace") as f:
+            for line in f:
+                if "Serving on http://" in line:
+                    return int(line.rsplit(":", 1)[1])
+        check(proc.poll() is None, f"{what} exited {proc.returncode}")
+        time.sleep(0.1)
+    raise RuntimeError(f"chip_smoke check failed: {what} logged no port in {timeout} s")
+
+
 def read_png(data: bytes) -> np.ndarray:
     """A PNG file's pixels, (H, W, 4) uint8, for 8-bit RGBA non-interlaced
     images with filter type 0 on every scanline (what `webapp/png.py`
@@ -3808,13 +4031,21 @@ def _xyz(lon: float, lat: float, z: int):
 def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK,
                  bbox_px=WEB_BBOX_PX, overrides=None, zooms=WEB_ZOOMS) -> dict:
     """The web platform as it is deployed, on the granule tile (written again
-    here, its STAC items the search's answer in every process): the port's
-    server (``create_app(start_workers=True)``) on a free localhost port in
-    this process, its three spawned queue workers, an isolated job process
-    per stage, all on ``INSTAGEO_DEVICE`` (``cuda`` on the card), auth off;
-    this process talks to it over HTTP only, as the SPA does.
+    here, its STAC items the search's answer in every process): the
+    topology of ``COMPOSE_FILE`` (``compose_services``), each service built
+    from the repo started from the file's own ``command`` with the file's
+    own environment (its volumes in a directory of this phase, one process
+    per replica, each a process group of its own, killed at the end; a
+    service without the GPU reservation sees no card): the backend
+    (``INSTAGEO_NO_WORKERS=1``) on a free localhost port and each queue's
+    workers, an isolated job process per stage, on ``INSTAGEO_DEVICE``
+    (``cuda`` on the card), auth off (no Auth0 tenant). The phase's hooks
+    reach processes it did not spawn through a ``sitecustomize`` on their
+    path (``SITECUSTOMIZE``). This process talks to the backend over HTTP
+    only, as the SPA does.
 
-    1. With auth on, a request without a token is answered 401.
+    1. The backend answers ``/api/health`` with no workers of its own, and
+       ``/api/models`` with the shipped registry.
     2. ``POST /api/run-model`` of ``crop_classification`` (the shipped
        registry; ``base`` is ``WEB_MODEL``, its config the crop yaml with that
        model, random weights from seed 0) over the tile's pixels ``bbox_px``,
@@ -3836,7 +4067,9 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
        ARGMAX_AGREEMENT of decided pixels (plain top-2 gap at least
        GRANULE_GAP, nodata inputs not decided) and mark the same pixels −1.
     5. ``python -m instageo_tpu_torch.webapp.main`` in a fresh interpreter
-       answers ``/api/health`` and ``/api/models``, and stops on SIGTERM.
+       with the backend's environment but ``INSTAGEO_NO_WORKERS`` and with
+       ``AUTH_DISABLED=false``: ``/api/health`` with its three workers
+       alive, a request without a token answered 401; it stops on SIGTERM.
 
     ``overrides``: config overrides of the model (a CPU rehearsal's tiny one).
     """
@@ -3857,8 +4090,9 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
     clock = Clock("webapp")
     tmp = tempfile.TemporaryDirectory()
     root = tmp.name
+    repo = os.path.dirname(os.path.abspath(__file__))
     saved_env = dict(os.environ)
-    server = None
+    topology = []  # (name, log, process): each its own process group
     try:
         # --- the tile, its items, the model in a models directory ------------
         _, bands, _, transform = _write_granule(root, size, block)
@@ -3889,43 +4123,75 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
         del model
         records = os.path.join(root, "job_records")
         os.makedirs(records)
-        os.environ.update({
-            "TASKS_DATA_DIR": os.path.join(root, "tasks"),
-            "DATABASE_URL": os.path.join(root, "backend.sqlite"),
-            "MODELS_PATH": os.path.join(root, "models"), "AUTH_DISABLED": "true",
-            "TESTING": "true", "INSTAGEO_DEVICE": device.type,
-            "INSTAGEO_COG_RATELIMIT": "1000", STAC_ITEMS_ENV: items_path,
-            JOB_RECORDS_ENV: records})
-        os.makedirs(os.environ["TASKS_DATA_DIR"])
-        os.environ.pop("MODELS_REGISTRY_PATH", None)
-        from instageo_tpu_torch.webapp import queue, web
-        from instageo_tpu_torch.webapp.main import create_app
+        # The compose file's services as a host runs them: its volumes in this
+        # directory, the models directory where the model was saved.
+        variables = {"MODELS_DIR": os.path.join(root, "models")}
+        if device.type != "cuda":  # the file's default is the card
+            variables["INSTAGEO_DEVICE"] = device.type
+        services = compose_services(os.path.join(repo, COMPOSE_FILE), root, variables)
+        check(sorted(services) == ["backend", "worker-data-processing",
+                                   "worker-model-prediction", "worker-visualization"],
+              f"services built from the repo: {sorted(services)}")
+        for svc in services.values():
+            for path in svc["mounts"].values():
+                os.makedirs(path, exist_ok=True)  # a volume exists before its container
+        hooks = os.path.join(root, "hooks")
+        os.makedirs(hooks)
+        with open(os.path.join(hooks, "sitecustomize.py"), "w") as f:
+            f.write(SITECUSTOMIZE.format(stac=STAC_ITEMS_ENV, repo=repo))
+        # What every process of the topology gets beside its service's own
+        # environment: the machine's (less the web platform's names, which
+        # the file sets), the hooks, the asset-load limit of the other phases.
+        host_env = {k: v for k, v in saved_env.items() if k not in WEB_ENV_NAMES}
+        host_env.update(PYTHONPATH=os.pathsep.join([hooks, repo]),
+                        INSTAGEO_COG_RATELIMIT="1000", **{STAC_ITEMS_ENV: items_path,
+                                                          JOB_RECORDS_ENV: records})
+        # This process reads the same database and task directory as the
+        # backend, and runs stages 2 and 3 on the device (step 4).
+        os.environ.clear()
+        os.environ.update(host_env)
+        os.environ.update(services["backend"]["env"])
+        os.environ.update(INSTAGEO_DEVICE=device.type)
+        from instageo_tpu_torch.webapp import queue
         from instageo_tpu_torch.webapp.settings import settings
         from instageo_tpu_torch.webapp.tasks import Task
+        from instageo_tpu_torch.webapp.tiler import TilerService
 
-        check(settings.DEVICE == device.type and settings.AUTH_DISABLED,
+        check(settings.DEVICE == device.type and settings.AUTH_DISABLED
+              and settings.TASKS_DATA_DIR == services["backend"]["env"]["TASKS_DATA_DIR"],
               f"settings {settings}")
         clock.lap("wrote the tile, its items and the model")
 
-        # --- the server and its workers ---------------------------------------
+        # --- the deployed topology: the backend, then each queue's workers ------
         t0 = time.perf_counter()
-        app = create_app(start_workers=True)
-        server = web.AppServer(app, "127.0.0.1", 0)
-        base = f"http://127.0.0.1:{server.port}"
+        logs = os.path.join(root, "logs")
+        os.makedirs(logs)
+        for name, svc in services.items():
+            env = dict(host_env, **svc["env"])
+            if not svc["gpu"]:
+                env["CUDA_VISIBLE_DEVICES"] = ""  # a container without the reservation
+            if name == "backend":
+                env["PORT"] = "0"  # a free port, logged as "Serving on http://...:<port>"
+            for i in range(svc["replicas"]):
+                log = os.path.join(logs, f"{name}.{i}.log")
+                with open(log, "w") as out:
+                    topology.append((f"{name}.{i}", log, subprocess.Popen(
+                        svc["argv"], cwd=repo, env=env, stdout=out, stderr=subprocess.STDOUT,
+                        start_new_session=True)))
+            if name == "backend":
+                port = _logged_port(topology[0][2], topology[0][1], "the deployed backend")
+                base = f"http://127.0.0.1:{port}"
         health = _get_json(base, "/api/health")
-        check(health["status"] == "healthy" and health["workers"]["count"] == 3,
-              f"health {health}")
-        settings.AUTH_DISABLED = False
-        try:
-            code, _, body, _ = _http(base, "/api/tasks")
-        finally:
-            settings.AUTH_DISABLED = True
-        check(code == 401 and json.loads(body) == {"detail": "Missing bearer token"},
-              f"auth on, no token: {code} {body!r}")
+        check(health["status"] == "healthy" and health["workers"]["count"] == 0,
+              f"the deployed backend (INSTAGEO_NO_WORKERS=1): health {health}")
         models = [m["model_key"] for m in _get_json(base, "/api/models")["models"]]
-        check("crop_classification" in models, f"models {models}")
+        check("crop_classification" in models and len(models) >= 2, f"models {models}")
         server_s = time.perf_counter() - t0
-        clock.lap("server up")
+        print(f"[webapp] {COMPOSE_FILE}: " + ", ".join(
+            f"{name} x{svc['replicas']} ({'GPU' if svc['gpu'] else 'no GPU'}): "
+            + " ".join(svc["argv"][1:]) for name, svc in services.items())
+            + f"; up in {server_s:.3f} s", flush=True)
+        clock.lap("topology up")
 
         # --- one task through the three stages ---------------------------------
         post = dict(WEB_POST, bboxes=[bbox])
@@ -4038,7 +4304,8 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
                   flush=True)
         # The same tiles rendered in this process, one thread, no HTTP: the
         # render's own share of a request.
-        tilers = {layer: app["tiler"].get_tiler(task_id, layer) for layer in layers}
+        tiler_service = TilerService(settings.TASKS_DATA_DIR)
+        tilers = {layer: tiler_service.get_tiler(task_id, layer) for layer in layers}
         render_ms = {}
         for layer, z, x, y in tiles:
             t0 = time.perf_counter()
@@ -4156,60 +4423,60 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
               f"peak device memory {inproc['kernel']['peak_device_bytes']} B", flush=True)
         clock.lap("in-process stages, kernel vs plain")
 
-        # --- a fresh interpreter ------------------------------------------------
-        # PORT=0: the server binds a free port and logs it ("Serving on ...").
-        env = {k: v for k, v in os.environ.items() if k not in (STAC_ITEMS_ENV, JOB_RECORDS_ENV)}
-        env.update(PORT="0", DATABASE_URL=os.path.join(root, "fresh.sqlite"))
+        # --- a fresh interpreter: the backend with its own workers, auth on ----
+        # The backend's environment without INSTAGEO_NO_WORKERS: it starts the
+        # three queue workers itself; AUTH_DISABLED=false: a request without
+        # a token is refused.
+        env = dict(host_env, **services["backend"]["env"])
+        for k in ("INSTAGEO_NO_WORKERS", STAC_ITEMS_ENV, JOB_RECORDS_ENV):
+            env.pop(k)
+        env.update(PORT="0", DATABASE_URL=os.path.join(root, "fresh.sqlite"),
+                   AUTH_DISABLED="false")
         t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m", "instageo_tpu_torch.webapp.main"],
-                                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-                                errors="replace")
-        err_lines, bound = [], {}
-        serving = threading.Event()
-
-        def read_stderr():
-            for line in proc.stderr:
-                err_lines.append(line)
-                if "Serving on http://" in line and not serving.is_set():
-                    bound["port"] = int(line.rsplit(":", 1)[1])
-                    serving.set()
-
-        reader = threading.Thread(target=read_stderr, daemon=True)
-        reader.start()
-        try:
-            check(serving.wait(60), "python -m instageo_tpu_torch.webapp.main logged no port "
-                  f"in 60 s: {''.join(err_lines)[-2000:]}")
-            fresh_base = f"http://127.0.0.1:{bound['port']}"
-            fresh = _get_json(fresh_base, "/api/health")
-            first_answer_s = time.perf_counter() - t0
-            check(fresh["status"] == "healthy",
-                  f"python -m instageo_tpu_torch.webapp.main: {fresh}")
-            fresh_models = _get_json(fresh_base, "/api/models")["models"]
-            check(len(fresh_models) >= 2, f"fresh interpreter models {fresh_models}")
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=60)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            reader.join(timeout=10)
-        err = "".join(err_lines)
+        log = os.path.join(logs, "fresh.log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen([sys.executable, "-m", "instageo_tpu_torch.webapp.main"],
+                                    cwd=repo, env=env, stdout=out, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        topology.append(("fresh", log, proc))
+        fresh_base = f"http://127.0.0.1:{_logged_port(proc, log, 'webapp.main')}"
+        fresh = _get_json(fresh_base, "/api/health")
+        first_answer_s = time.perf_counter() - t0
+        check(fresh["status"] == "healthy" and fresh["workers"] == {"count": 3, "alive": 3},
+              f"python -m instageo_tpu_torch.webapp.main: {fresh}")
+        code, _, body, _ = _http(fresh_base, "/api/tasks")
+        check(code == 401 and json.loads(body) == {"detail": "Missing bearer token"},
+              f"auth on, no token: {code} {body!r}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        with open(log) as f:
+            err = f.read()
         check(rc == 0 and "Traceback" not in err, f"webapp.main exit {rc}: {err[-2000:]}")
         print(f"[webapp] python -m instageo_tpu_torch.webapp.main in a fresh interpreter: "
               f"/api/health answered {first_answer_s:.3f} s after the start "
-              f"({fresh['workers']['count']} workers), /api/models "
-              f"{len(fresh_models)} models; stopped on SIGTERM, exit 0", flush=True)
+              f"({fresh['workers']['count']} workers alive); with auth on a request without "
+              f"a token is answered 401; stopped on SIGTERM, exit 0", flush=True)
         clock.lap("fresh interpreter")
+        for name, log, p in topology[:-1]:
+            check(p.poll() is None, f"{name} of the deployed topology exited {p.returncode}")
         return dict(chips=n, wall_s=wall, stages_s=stages, jobs=parts, server_s=server_s,
                     layers=layers, tiles=tile_runs, launches=inproc["kernel"]["launches"],
                     worker_launches=stage2.get("launches"),
                     inproc_s={k: v["seconds"] for k, v in inproc.items()},
                     inproc_peak_device_bytes=inproc["kernel"]["peak_device_bytes"],
-                    agreement=agreement, decided=decided, fresh_s=first_answer_s)
+                    agreement=agreement, decided=decided, fresh_s=first_answer_s,
+                    services={k: dict(argv=v["argv"][1:], replicas=v["replicas"], gpu=v["gpu"])
+                              for k, v in services.items()})
+    except BaseException:
+        for name, log, _ in topology:  # what each process said, for the failure
+            with open(log, errors="replace") as f:
+                print(f"[webapp] {name} log (tail):\n{f.read()[-3000:]}", flush=True)
+        raise
     finally:
-        if server is not None:
-            server.close()
+        for _, _, p in topology:  # each process group, job processes included
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
         os.environ.clear()
         os.environ.update(saved_env)
         tmp.cleanup()
@@ -4487,11 +4754,13 @@ EXAMPLE_TIMEOUT_S = 420
 MULTICHIP_LOSS_ATOL = 1e-3  # each placement's step losses vs data parallelism's
 
 
-def _example_start(argv: list):
+def _example_start(argv: list, env=None):
     """Start a walkthrough as a user runs it, from the repository root, in a
-    process group of its own: (process, start time)."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    process group of its own, with ``env`` added to this process's
+    environment: (process, start time)."""
+    env = {**{k: v for k, v in os.environ.items()
+              if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")},
+           **(env or {})}
     # As in the granule and chip_creator phases: the pipelines' thread pool
     # can load one tile several times at once (its tile cache checks, then
     # loads), and 30 loads a minute would then stall a run for up to 60 s.
@@ -4515,6 +4784,26 @@ def _example_wait(started, what: str, timeout: float = EXAMPLE_TIMEOUT_S) -> tup
     check(proc.returncode == 0, f"{what} failed ({proc.returncode}) after {wall:.1f} s:\n"
           + out[-4000:])
     return out, wall
+
+
+NOTEBOOK = "instageo_tpu_torch/notebooks/InstaGeo_Demo.ipynb"
+NOTEBOOK_RESULTS = "[notebook results] "
+
+
+def _notebook_script(path: str) -> str:
+    """A notebook's code cells, concatenated (what a kernel runs top to
+    bottom), and one last statement of this script's: the launch counters
+    (``utils/telemetry.py:kernel_launches``), the test metrics, the
+    predictions, the artifact and the checkpoint, as one JSON line."""
+    with open(path) as f:
+        nb = json.load(f)
+    code = "\n\n".join("".join(c["source"]) for c in nb["cells"] if c["cell_type"] == "code")
+    return code + (
+        "\n\nimport json as _json\n"
+        "from instageo_tpu_torch.utils.telemetry import kernel_launches as _launches\n"
+        f"print({NOTEBOOK_RESULTS!r} + _json.dumps(dict(\n"
+        "    launches=_launches(), predictions=len(preds), artifact=artifact, checkpoint=ckpt,\n"
+        "    test_metrics={k: v for k, v in metrics.items() if isinstance(v, (int, float))})))\n")
 
 
 def _quickstart_artifact_check(device, root: str, results: dict) -> dict:
@@ -4563,6 +4852,13 @@ def examples_phase(device, smi: str, nproc=None) -> dict:
       route, none on mma.sync, #6 5 per step: the head's dropouts), finite
       test metrics, and its artifact against a ``ModelServer`` of its
       checkpoint here;
+    * ``NOTEBOOK`` (``InstaGeo_Demo.ipynb``, the same work in notebook
+      form) beside it: its code cells concatenated and run in one fresh
+      interpreter with ``INSTAGEO_DEVICE`` the device, a last statement
+      printing the launch counters (``_notebook_script``); held as the
+      quickstart is: its wall seconds, the same launches by kernel and
+      route, finite test metrics, ``predict.pt2`` against a ``ModelServer``
+      of its checkpoint;
     * ``multichip_training.py`` under ``python -m torch.distributed.run
       --standalone --nproc-per-node <nproc>`` (the visible cards): each
       placement's loss at both steps (the second after its own AdamW step)
@@ -4570,61 +4866,83 @@ def examples_phase(device, smi: str, nproc=None) -> dict:
       route) and #6 5 per step (its float32 dropouts), and the placements a
       world this size cannot hold named;
     * ``raster_chip_creator_demo.py`` with ``--device`` the card and the
-      CPU, side by side with the multichip walkthrough: every file equal
-      byte for byte, with each run's own directory taken out of them."""
+      CPU: every file equal byte for byte, with each run's own directory
+      taken out of them.
+
+    All five run side by side, each in a process group of its own."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     dev = device.type
     nproc = torch.cuda.device_count() if nproc is None else nproc
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        qs = os.path.join(tmp, "quickstart")
-        stdout, wall = _example_wait(_example_start(
-            [sys.executable, "-m", "instageo_tpu_torch.examples.quickstart", qs, "--device",
-             dev]), "the quickstart")
-        check("map.html in a browser" in stdout, "the quickstart printed no map line")
-        with open(os.path.join(qs, "quickstart_results.json")) as f:
-            results = json.load(f)
-        launches = results["launches"]
-        steps = len(results["train_step_losses"]) * 3  # 3 epochs of 16 chips at batch 8
-        check(all(math.isfinite(v) for v in results["test_metrics"].values())
-              and results["predictions"] == 16, f"quickstart results {results}")
-        # Forwards through the depth-4 encoder: each train step, a validation
-        # pass over the chips after each of the 3 epochs, the eval and chip
-        # inference passes, and the export's eager call (the complexity
-        # count runs on the plain route).
-        batches = math.ceil(results["predictions"] / 8)
-        forwards = steps + 3 * batches + 2 * batches + 1
-        if dev == "cuda":
-            check(launches["flash_attn_fwd_sm90"] == 4 * forwards
-                  and launches["flash_attn_bwd_sm90"] == 4 * steps
-                  and launches["fused_dropout"] == 5 * steps
-                  and launches["flash_attn_fwd"] == 0 and launches["flash_attn_bwd"] == 0,
-                  f"the quickstart's launches {launches}: #1 4 per forward over {forwards} "
-                  f"forwards, #3 4 per step and #6 5 per step (the head's dropouts) over "
-                  f"{steps} steps, all on wgmma, none on mma.sync")
-        out["quickstart"] = dict(wall_s=wall, process_wall_s=results["wall_s"],
-                                 launches=launches, steps=steps,
-                                 test_metrics=results["test_metrics"],
-                                 train_step_losses=results["train_step_losses"],
-                                 artifact=_quickstart_artifact_check(device, qs, results))
-        print("[examples] quickstart " + json.dumps({"card": smi, **out["quickstart"]}),
-              flush=True)
-
-        # The multichip walkthrough and the raster demo on each device run
-        # side by side: their results are held; of their seconds only the
-        # multichip walkthrough's, collected first, is its own.
+        # Every walkthrough runs side by side with the others: their results
+        # are held, and each one's seconds are its own process's under that
+        # load. The quickstart and the notebook do the same work, and each
+        # is held to the same launches.
+        qs, nbw = os.path.join(tmp, "quickstart"), os.path.join(tmp, "notebook")
         mc = os.path.join(tmp, "multichip")
         rd = [(d, os.path.join(tmp, f"raster_{i}")) for i, d in enumerate((dev, "cpu"))]
-        started = {"multichip": _example_start(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-             str(nproc), "-m", "instageo_tpu_torch.examples.multichip_training", mc, "--device",
-             dev])}
+        script = os.path.join(tmp, "notebook.py")
+        with open(script, "w") as f:
+            f.write(_notebook_script(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                  NOTEBOOK)))
+        started = {"quickstart": _example_start(
+            [sys.executable, "-m", "instageo_tpu_torch.examples.quickstart", qs, "--device",
+             dev]),
+            "notebook": _example_start([sys.executable, script],
+                                       env={"INSTAGEO_DEVICE": dev, "DEMO_DIR": nbw}),
+            "multichip": _example_start(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(nproc), "-m",
+                 "instageo_tpu_torch.examples.multichip_training", mc, "--device", dev])}
         for i, (d, path) in enumerate(rd):
             started[f"raster_{i}"] = _example_start(
                 [sys.executable, "-m", "instageo_tpu_torch.examples.raster_chip_creator_demo",
                  path, "--device", d])
-        done = {name: _example_wait(p, name) for name, p in started.items()}
+        # One thread per walkthrough reads its output and times it to its end.
+        with ThreadPoolExecutor(len(started)) as pool:
+            done = dict(zip(started, pool.map(lambda kv: _example_wait(kv[1], f"the {kv[0]}"),
+                                              started.items())))
+        stdout, wall = done["quickstart"]
+        check("map.html in a browser" in stdout, "the quickstart printed no map line")
+        with open(os.path.join(qs, "quickstart_results.json")) as f:
+            results = json.load(f)
+        nb_out, nb_wall = done["notebook"]
+        check("predict.pt2" in nb_out and f"device: {dev}" in nb_out,
+              "the notebook printed no artifact or device line")
+        nb_results = json.loads(nb_out.split(NOTEBOOK_RESULTS, 1)[1].splitlines()[0])
+        steps = 3 * math.ceil(16 / 8)  # 3 epochs of the 16 chips at batch 8
+        check(len(results["train_step_losses"]) * 3 == steps, f"quickstart results {results}")
+        for name, res, root, seconds in (("quickstart", results, qs, wall),
+                                         ("notebook", nb_results, nbw, nb_wall)):
+            launches = res["launches"]
+            check(all(math.isfinite(v) for v in res["test_metrics"].values())
+                  and res["test_metrics"] and res["predictions"] == 16,
+                  f"{name} results {res}")
+            # Forwards through the depth-4 encoder: each train step, a
+            # validation pass over the chips after each of the 3 epochs, the
+            # eval and chip inference passes, and the export's eager call
+            # (the complexity count runs on the plain route).
+            batches = math.ceil(res["predictions"] / 8)
+            forwards = steps + 3 * batches + 2 * batches + 1
+            if dev == "cuda":
+                check(launches["flash_attn_fwd_sm90"] == 4 * forwards
+                      and launches["flash_attn_bwd_sm90"] == 4 * steps
+                      and launches["fused_dropout"] == 5 * steps
+                      and launches["flash_attn_fwd"] == 0 and launches["flash_attn_bwd"] == 0,
+                      f"the {name}'s launches {launches}: #1 4 per forward over {forwards} "
+                      f"forwards, #3 4 per step and #6 5 per step (the head's dropouts) over "
+                      f"{steps} steps, all on wgmma, none on mma.sync")
+            out[name] = dict(wall_s=seconds, launches=launches, steps=steps,
+                             test_metrics=res["test_metrics"],
+                             artifact=_quickstart_artifact_check(device, root, res))
+        out["quickstart"].update(process_wall_s=results["wall_s"],
+                                 train_step_losses=results["train_step_losses"])
+        for name in ("quickstart", "notebook"):
+            print(f"[examples] {name} " + json.dumps({"card": smi, **out[name]}), flush=True)
 
         stdout, wall = done["multichip"]
         check("multichip walkthrough OK" in stdout, "the multichip walkthrough printed no OK")
@@ -4772,18 +5090,28 @@ def main() -> int:
     print(f"[replica] {smi}: " + ", ".join(
         f"{name} {st['wall_s']:.3f} s" for name, st in replicated["stages"].items())
         + f"; mode=replica {replicated['wall_s']:.3f} s wall", flush=True)
-    models = serve_models_phase(device, smi)
+    # serve_models' and quant's export artifacts run in the granule phase's
+    # second fresh interpreter, before its granule.
+    art_dir = tempfile.TemporaryDirectory()
+    models = serve_models_phase(device, smi, artifact_dir=art_dir.name)
     clock.lap("serve_models")
     print(f"[serve_models] {smi}: batch 64 " + ", ".join(
         f"{head} head {r['ms']:.3f} ms per predict" for head, r in models["heads"]["timing"].items())
         + "; " + ", ".join(f"gelu {g} {r['ms']:.3f} ms" for g, r in models["gelu"].items()),
         flush=True)
-    quantized = quant_phase(device, smi)
+    quantized = quant_phase(device, smi, artifact_dir=art_dir.name)
     clock.lap("quant")
     print(f"[quant] {smi}: batch 64 int8 {quantized['timing']['int8']['ms']:.3f} ms per "
           f"predict, bf16 {quantized['timing']['bf16']['ms']:.3f}; fc1 GEMM "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in quantized["gemm"]["ms"].items()), flush=True)
-    granuled = granule_phase(device, smi)
+    granuled = granule_phase(device, smi, artifacts=[models["artifact_job"],
+                                                     quantized["artifact_job"]])
+    shared = granuled.pop("artifacts")
+    models["serving"] = serving_row(smi, models.pop("serving_row"), _artifact_verify(
+        models.pop("artifact_job"), shared["artifacts"][0], shared["models_imported"]))
+    quantized["artifact"] = quant_artifact_row(_artifact_verify(
+        quantized.pop("artifact_job"), shared["artifacts"][1], shared["models_imported"]))
+    art_dir.cleanup()
     clock.lap("granule")
     print(f"[granule] {smi}: " + "; ".join(
         f"batch {b}: decode {r['decode_s']:.3f} s, to the device {r['h2d_s']:.3f} s, device "
@@ -4835,7 +5163,9 @@ def main() -> int:
     walked = examples_phase(device, smi)
     clock.lap("examples")
     print(f"[examples] {smi}: quickstart {walked['quickstart']['wall_s']:.3f} s wall, launches "
-          + json.dumps(walked["quickstart"]["launches"]) + "; multichip at world "
+          + json.dumps(walked["quickstart"]["launches"]) + "; InstaGeo_Demo.ipynb "
+          f"{walked['notebook']['wall_s']:.3f} s wall beside it, launches "
+          + json.dumps(walked["notebook"]["launches"]) + "; multichip at world "
           f"{walked['multichip']['world']}: step losses "
           + ", ".join(f"{t} {v[0]:.6f} / {v[1]:.6f}" for t, v in walked["multichip"]["losses"].items())
           + "".join(f"; {t} skipped ({r})" for t, r in walked["multichip"]["skipped"].items())
@@ -4922,6 +5252,7 @@ def main() -> int:
             k["launches_by_path"][f"parallel_{name}_crop"] = route(
                 para["remat"]["launches"][name])
         k["launches_by_path"]["examples_quickstart"] = walked["quickstart"]["launches"][k["name"]]
+        k["launches_by_path"]["examples_notebook"] = walked["notebook"]["launches"][k["name"]]
         k["launches_by_path"]["examples_multichip"] = walked["multichip"]["launches"][k["name"]]
         for variant, row in models["variants"].items():
             k["launches_by_path"][f"serve_{variant}"] = (

@@ -10,6 +10,12 @@ or in the class's body: a definition, an assignment or an import. The
 exceptions are ``JAX_ONLY``: each names its port counterpart (or None) and
 why the name itself has none. The file lists of the three pairs are equal
 but for ``PORT_ONLY_FILES`` and ``JAX_ONLY_FILES``, each with its reason.
+The two user surfaces outside the packages have their twins inside the
+port's: the notebooks (``notebooks/`` and ``instageo_tpu_torch/notebooks/``,
+the same file names, their generators ``tools/gen_notebooks.py`` and
+``tools/gen_torch_notebooks.py`` binding the same public names) and the
+deployment (``deploy/`` with the root ``Dockerfile``, and
+``instageo_tpu_torch/deploy/``, the same file list).
 """
 
 import ast
@@ -23,8 +29,16 @@ REPO = Path(__file__).resolve().parent.parent
 PAIRS = [("instageo_tpu", "instageo_tpu_torch"),
          ("examples", "instageo_tpu_torch/examples"),
          ("experiments", "instageo_tpu_torch/experiments")]
-# The port's own subdirectories that mirror the pairs after the first.
-NESTED = ("examples/", "experiments/")
+# The port's own subdirectories that mirror the pairs after the first, and
+# the surfaces of ``SURFACES``.
+NESTED = ("examples/", "experiments/", "notebooks/", "deploy/")
+# (JAX files, relative to the repo; their port directory). The JAX side of
+# the deployment is ``deploy/`` and the image's root ``Dockerfile``.
+SURFACES = {"notebooks": (("notebooks",), "instageo_tpu_torch/notebooks"),
+            "deploy": (("deploy", "Dockerfile"), "instageo_tpu_torch/deploy")}
+# (JAX tool, its port twin): the public names of the first are bound in the
+# second.
+TOOL_PAIRS = [("tools/gen_notebooks.py", "tools/gen_torch_notebooks.py")]
 
 # (JAX module, name) -> (port counterpart, reason). A counterpart is
 # "module.py:name" in the port, a dotted torch name, or None.
@@ -208,3 +222,20 @@ def test_named_file_lists_are_true():
     for pattern in JAX_ONLY_FILES:  # a build output may be absent
         assert not set(fnmatch.filter(jax_files, pattern)) & port_files, pattern
     assert fnmatch.filter(jax_files, "*/README.md")
+
+
+@pytest.mark.parametrize("surface", list(SURFACES))
+def test_surface_file_lists_are_equal(surface):
+    jax_paths, port_root = SURFACES[surface]
+    jax_files = set()
+    for rel in jax_paths:
+        path = REPO / rel
+        jax_files |= _files(path) if path.is_dir() else {path.name}
+    assert jax_files and _files(REPO / port_root) == jax_files
+
+
+@pytest.mark.parametrize("jax_tool,port_tool", TOOL_PAIRS)
+def test_tool_binds_every_public_name(jax_tool, port_tool):
+    want = _public_names(REPO / jax_tool) | {"NOTEBOOKS"}
+    missing = sorted(want - _bound_names(REPO / port_tool))
+    assert {"render", "main"} <= want and missing == []
