@@ -17,10 +17,11 @@ Phases, one line each (any failure raises and exits non-zero):
    each kernel's device time per call from ``torch.profiler`` beside its
    earlier design's at the same shapes, in turns: the attention routes by
    head dim (wgmma for Dh 64 and 80, beside the mma.sync kernels); the
-   backward's dq run to run; the dropout's mask equal to the plain Philox
-   stream bit for bit, with its seed by value and from device memory, the
-   two timed in turns; under
-   deterministic mode the backward on the mma.sync route, two calls bit-equal;
+   backward's dq, dk and dv bit for bit from one call to the next; the
+   dropout's mask equal to the plain Philox stream bit for bit, with its
+   seed by value and from device memory, the two timed in turns; under
+   deterministic mode the backward on its default (wgmma) route, two calls
+   bit-equal;
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
    8 threads through the dynamic batcher and one batch run over synthetic
@@ -36,11 +37,11 @@ Phases, one line each (any failure raises and exits non-zero):
 6. graph: ``tpu.steps_per_call: auto`` (8 optimizer steps per CUDA graph
    at batch 8) against the one-step loop over 24 batches from the same
    weights and seeds, each run twice: launches per step through the
-   replays; with the backward on its atomic-free kernel, and again under
-   deterministic mode, captured = eager bit for bit; with the default
-   backward, one group replayed from the state after the first group
-   against plain steps from that state (losses, parameters); the attention
-   forward and backward captured alone; a dropout graph replayed with two
+   replays; captured = eager and each run = its rerun bit for bit (losses
+   and parameters), and again under deterministic mode; one group replayed
+   twice from the state after the first group against plain steps from
+   that state, bit for bit; the attention forward and backward captured
+   alone, bit for bit; a dropout graph replayed with two
    seeds; ms per step eager vs captured at batch 8 and 32, and per eval
    batch at 8, in turns; the grouped eval epoch vs the eager;
 7. loader: full-size synthetic chips through the native decoder and the
@@ -146,18 +147,17 @@ Phases, one line each (any failure raises and exits non-zero):
     instageo_tpu_torch.train.run`` over synthetic 13-band 224 px chips, 8
     optimizer steps at the global batch 128; its plain twin (the same CLI
     in one process, ``tpu.fsdp=False tpu.zero1=False``, captured groups):
-    each step's loss within 1e-3 relative, ms per step, each rank's
-    parameter and moment bytes and peak memory, launches per step counted
-    around the train epoch alone (``metrics.jsonl``'s ``train_launches``:
+    each step's loss bit for bit at world 1 (within 1e-3 relative across
+    more ranks, whose gradient sums run in another order), ms per step,
+    each rank's parameter and moment bytes and peak memory, launches per
+    step counted around the train epoch alone (``metrics.jsonl``'s ``train_launches``:
     #1 and #3 once per block per micro-batch on the sm90 route, #6 once
     per head dropout per micro-batch); with two cards or more, the crop
     yaml as DP, tp=2, pp=2 and tp=2 sp, each within 1e-3 of one process;
     then ``tpu.remat`` at the crop model's full width (V1-100M, L 589,
-    batch 8): 2 forward launches per block per step against 1; with the
-    backward on its atomic-free kernel, losses and parameters bit for bit
-    against a run without; on the default backward, each step's loss
-    within 1e-3 (the first bit for bit); peak memory of each; with one
-    card visible, one line says what needs two;
+    batch 8): 2 forward launches per block per step against 1, losses and
+    parameters bit for bit against a run without; peak memory of each; with
+    one card visible, one line says what needs two;
 15. examples: the port's walkthroughs (``examples_phase``), each in a fresh
     interpreter as a user runs it, all side by side: the quickstart on the
     card (wall seconds, #1 4 per forward and #3 4 per step on the wgmma
@@ -253,13 +253,10 @@ O_TOL = 3e-2    # bf16 output, atol = rtol (the JAX package's bf16 attention tes
 LSE_TOL = 1e-3  # float32 row statistics, other summation order
 # Backward kernel vs plain: both round dS and P to bf16 at the TPU kernel's
 # points but sum in other orders, so single elements can differ by a bf16
-# rounding; the whole gradient must agree to 1e-2 of its norm.
+# rounding; the whole gradient must agree to 1e-2 of its norm. From one call
+# to the next the kernels give the same bits: every sum is taken in one
+# thread block in a fixed order.
 BWD_REL_TOL = 1e-2
-# The wgmma backward adds dQ's f32 partial sums in an order that changes from
-# run to run: a dq element stays within one bf16 step of itself, or, where
-# the partial sums cancel, within a few float32 roundings of them, far below
-# this share of its row's largest |dq|.
-DQ_RUN_TO_RUN_ROW = 2.0 ** -16
 KEEP_SIGMAS = 5.0  # dropout keep fraction within 5 binomial sigma of 1 - p
 # One bf16 training step with the kernels vs with the plain versions
 # (dropout off): other summation orders through 12 bf16 blocks. Gradients:
@@ -285,21 +282,10 @@ LOGIT_TOL = 0.05         # max |logit diff| / max |logit|
 FEATURE_REL_TOL = 2e-2
 DECIDED_GAP = 0.01       # pixels whose top-2 gap is at least this x max |logit| ...
 ARGMAX_AGREEMENT = 0.99  # ... agree at least this often
-# Captured vs eager training (``steps_per_call``). The wgmma backward adds
-# dQ's partial sums in an order that changes from run to run; nothing else
-# in the step does, so with the backward on its atomic-free kernel (alone,
-# or under deterministic mode) the captured and eager runs must agree bit
-# for bit. With the default backward, one group replayed from a saved state
-# against plain steps from that state: each step's loss within
-# GRAPH_LOSS_REL_TOL, each parameter's ‖captured − eager‖ within
-# GRAPH_NOISE_FACTOR times the largest ‖Δ‖ between plain runs from that
-# state plus GRAPH_PARAM_FLOOR of its norm. (Over 24 steps from the same
-# weights, AdamW compounds the dQ order until two eager runs differ by up
-# to 2e-3 of the loss on an H100, so the longer runs are held bit for bit
-# on the atomic-free kernel instead.) The eval metrics within GRAPH_EVAL_TOL.
-GRAPH_LOSS_REL_TOL = 1e-3
-GRAPH_NOISE_FACTOR = 2.0
-GRAPH_PARAM_FLOOR = 1e-6
+# Captured vs eager training (``steps_per_call``): nothing in the step sums
+# in an order that changes from run to run, so the captured and eager runs,
+# and each run and its rerun, agree bit for bit (losses and parameters).
+# The eval metrics within GRAPH_EVAL_TOL.
 GRAPH_EVAL_TOL = 1e-3
 SEED = 1042  # the run CLI's
 # The run phase's wall seconds per mode when each loader spawned a worker
@@ -505,19 +491,6 @@ def kernel_phase(device, shapes, iters: int = 20) -> list:
     return results
 
 
-def _run_to_run(a, b) -> dict:
-    """How far two runs' bf16 dq lie apart: the largest |Δ| in bf16 steps of
-    the element (2⁻⁷ of its magnitude), how many elements differ by more,
-    and the largest |Δ| over its row's largest |dq|."""
-    a, b = a.float(), b.float()
-    diff = (a - b).abs()
-    step = a.abs().maximum(b.abs()) * 2.0 ** -7
-    row = a.abs().amax(-1, keepdim=True).clamp_min(1e-30)
-    return dict(max_bf16_steps=(diff / step.clamp_min(1e-30)).max().item(),
-                over_one_step=int((diff > step).sum()), max_of_row_max=(diff / row).max().item(),
-                within=bool((diff <= step.maximum(row * DQ_RUN_TO_RUN_ROW)).all()))
-
-
 def _in_turns(new, prev, device, iters: int, symbols=(None, None)) -> dict:
     """A kernel (``new``) and its earlier design (``prev``) timed in turns
     (new, prev, prev, new): wrapper ms by CUDA events and device ms per call
@@ -538,14 +511,16 @@ def _in_turns(new, prev, device, iters: int, symbols=(None, None)) -> dict:
 def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
     """Hold the backward kernels against their plain version at ``shapes``,
     on the forward kernel's O and lse and a random dO. Per shape: the route
-    ``bwd_route`` gives; at a wgmma head dim dq run to run within one bf16
-    step and dk, dv equal, and the mma.sync design ("prev") checked too and
-    timed in turns with the wgmma kernel (new, prev, prev, new), by wrapper
-    ms and by device ms per call (all three launches summed); SDPA's
-    backward on its own forward, by wrapper ms and device ms."""
+    ``bwd_route`` gives; dq, dk and dv bit for bit equal between two calls,
+    and on the card in a CUDA graph's replay; at a wgmma head dim the
+    mma.sync design ("prev") checked too and timed in turns with the wgmma
+    kernels (new, prev, prev, new), by wrapper ms and by device ms per call
+    (all three launches summed); SDPA's backward on its own forward, by
+    wrapper ms and device ms."""
     import torch
     import torch.nn.functional as F
 
+    from instageo_tpu_torch.ops import _build
     from instageo_tpu_torch.ops import attention as tattn
 
     on_card = device.type == "cuda"
@@ -573,21 +548,27 @@ def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
         if on_card:
             check(launches == 1 and mma_launches == (route == "mma_sync"),
                   f"{launches} backward launches, {mma_launches} on mma.sync, at {what} ({route})")
+        again = tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)
         row = dict(shape=[b, h, l, d], entry=entry, route=route, rel_err=rel, max_abs_err=err,
-                   launches=launches)
+                   launches=launches,
+                   same_bits=[bool(torch.equal(x, y)) for x, y in zip(grads, again)])
+        if on_card:
+            graph = _build.CapturedGraph(
+                lambda: tattn.flash_attention_bwd(q, k, v, o, do, lse, layout))
+            graph.replay()
+            row["same_bits"] += [bool(torch.equal(x, y)) for x, y in zip(grads, graph.outputs)]
+            del graph
+        check(all(row["same_bits"]), f"dq, dk, dv of two calls (and of a graph replay) equal "
+              f"{row['same_bits']} at {what} ({route})")
+        del again
         if route == "wgmma" and on_card:
-            again = tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)
-            row["dq_run_to_run"] = _run_to_run(grads[0], again[0])
-            check(row["dq_run_to_run"]["within"]
-                  and torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2]),
-                  f"run to run: dq {row['dq_run_to_run']}, or dk/dv differ, at {what}")
             prev = tattn._flash_attention_bwd_cuda(q, k, v, o, do, lse, layout, "mma_sync")
             row["prev_rel_err"] = {f"d{n}": _rel_err(x, r) for n, x, r in zip("qkv", prev, refs)}
             row["prev_max_abs_err"] = max((x.float() - r.float()).abs().max().item()
                                           for x, r in zip(prev, refs))
             check(max(row["prev_rel_err"].values()) <= BWD_REL_TOL,
                   f"the mma.sync backward is off the plain version at {what}")
-            del again, prev
+            del prev
         del grads, refs
         if entry == "bloq":
             # The q-blocked entry end to end: autograd through both kernels
@@ -629,9 +610,9 @@ def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
 
 
 def deterministic_bwd_phase(device, shape=(8, 12, 589, 64)) -> dict:
-    """Under ``torch.use_deterministic_algorithms(True)`` the backward takes
-    the mma.sync route, which has no atomics: two calls give the same dq,
-    dk and dv bit for bit."""
+    """Under ``torch.use_deterministic_algorithms(True)`` the backward keeps
+    its default route (the wgmma kernels at Dh 64), none on mma.sync: two
+    calls give the same dq, dk and dv bit for bit."""
     import torch
 
     from instageo_tpu_torch.ops import attention as tattn
@@ -645,19 +626,21 @@ def deterministic_bwd_phase(device, shape=(8, 12, 589, 64)) -> dict:
     torch.use_deterministic_algorithms(True)
     try:
         route = tattn.bwd_route(d)
-        mma0 = tattn.bwd_mma_launches.count
+        all0, mma0 = tattn.bwd_launches.count, tattn.bwd_mma_launches.count
         first = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
         second = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
+        launched = tattn.bwd_launches.count - all0
         mma = tattn.bwd_mma_launches.count - mma0
     finally:
         torch.use_deterministic_algorithms(False)
     equal = [bool(torch.equal(a, c)) for a, c in zip(first, second)]
-    check(route == "mma_sync" and (mma == 2 or device.type != "cuda"),
-          f"deterministic mode: route {route}, {mma} launches on mma.sync")
+    check(route == "wgmma" and mma == 0 and (launched == 2 or device.type != "cuda"),
+          f"deterministic mode: route {route}, {launched} launches, {mma} on mma.sync")
     check(all(equal), f"deterministic backward differs between two calls: dq/dk/dv equal {equal}")
-    print(f"[kernels] deterministic mode at {shape}: bwd_route {route}, 2 calls on mma.sync, "
-          "dq, dk, dv bit-equal between them", flush=True)
-    return dict(shape=list(shape), route=route, mma_launches=mma, equal=equal)
+    print(f"[kernels] deterministic mode at {shape}: bwd_route {route}, {launched} calls on it, "
+          f"{mma} on mma.sync, dq, dk, dv bit-equal between them", flush=True)
+    return dict(shape=list(shape), route=route, launches=launched, mma_launches=mma,
+                equal=equal)
 
 
 def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
@@ -1212,15 +1195,6 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
                 grad_rel_max=worst[0][1], loss_rel=loss_rel, rates=rates, peak_gb=peak_gb)
 
 
-def _params_rel_gap(a: dict, b: dict, noise: dict) -> dict:
-    """Per parameter: ‖a − b‖ over the allowed gap, GRAPH_NOISE_FACTOR times
-    its run-to-run ‖Δ‖ plus GRAPH_PARAM_FLOOR of its norm (≤ 1 passes)."""
-    return {n: ((a[n] - b[n]).float().norm()
-                / (GRAPH_NOISE_FACTOR * noise[n]
-                   + GRAPH_PARAM_FLOOR * b[n].float().norm()).clamp_min(1e-30)).item()
-            for n in b}
-
-
 def _first_difference(a: dict, b: dict):
     """Where two training runs part: None when their losses and parameters
     are equal bit for bit, else the first step whose loss differs and the
@@ -1240,13 +1214,12 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
                 rate_batches=(8, 32), rate_steps: int = 16) -> dict:
     """``tpu.steps_per_call: auto`` (k = 8 at batch 8) against the one-step
     loop on the crop model: the same weights, batches and seeds through
-    ``Trainer.run_train_epoch``, each run twice, with the default backward
-    and with its atomic-free kernel; once more under deterministic mode;
-    one group from a saved state, replayed and as plain steps; the
-    attention captured alone; the launches per step through the replays; a
-    dropout-only graph replayed with two seeds; ms per train step (batch 8
-    and 32) and per eval batch (8) in turns; the grouped eval epoch against
-    the eager one."""
+    ``Trainer.run_train_epoch``, each run twice, all four equal bit for bit;
+    once more under deterministic mode; one group from a saved state,
+    replayed twice and as plain steps, bit for bit; the attention captured
+    alone; the launches per step through the replays; a dropout-only graph
+    replayed with two seeds; ms per train step (batch 8 and 32) and per eval
+    batch (8) in turns; the grouped eval epoch against the eager one."""
     import warnings
 
     import torch
@@ -1293,66 +1266,50 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
             torch.cuda.empty_cache()
         return out
 
-    def four_runs(label, backward_kernel):
+    def four_runs():
         """Eager, captured, captured, eager: each run's launches per step
-        (the backward's on ``backward_kernel``)."""
-        mma = depth if backward_kernel == "mma_sync" else 0
+        (every attention launch on the wgmma route)."""
         expected = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
-                    "flash_attn_bwd_mma": mma, "fused_dropout": 5}
+                    "flash_attn_bwd_mma": 0, "fused_dropout": 5}
         runs = {}
         for name, spc in (("eager", 1), ("captured", "auto"), ("captured_2", "auto"),
                           ("eager_2", 1)):
             runs[name] = r = run(spc)
             per_step = {n: c / r["steps"] for n, c in r["counts"].items()}
-            print(f"[graph] {label}, {name}: k={r['k']}, {r['steps']} steps in "
+            print(f"[graph] {name}: k={r['k']}, {r['steps']} steps in "
                   f"{r['wall_s']:.3f} s, launches per step {json.dumps(per_step)}, graph "
                   f"replays {r['graphs']['graph_replays']}, captured "
                   f"{json.dumps(r['graphs']['captured'])}", flush=True)
             check(r["steps"] == n_batches and all(math.isfinite(v) for v in r["losses"]),
-                  f"{label}, {name}: {r['steps']} steps, losses {r['losses']}")
+                  f"{name}: {r['steps']} steps, losses {r['losses']}")
             if on_card:
                 check(per_step == expected,
-                      f"{label}, {name}: launches per step {per_step}, expected {expected}")
+                      f"{name}: launches per step {per_step}, expected {expected}")
         if on_card:
             cap = runs["captured"]
             k = cap["k"]
             check(k == 8, f"steps_per_call auto gave k={k} at batch {batch}, expected 8")
             check(cap["graphs"]["graph_replays"] == n_batches // k - 1
                   and cap["graphs"]["captured"] == {n: c * k for n, c in expected.items()},
-                  f"{label}: graph counts {cap['graphs']}: expected {n_batches // k - 1} "
+                  f"graph counts {cap['graphs']}: expected {n_batches // k - 1} "
                   f"replays of {k} captured steps")
         return runs
-
-    def step_gaps(a, b):
-        return [abs(u - v) / abs(v) for u, v in zip(a["losses"], b["losses"])]
 
     pairs = (("captured", "eager"), ("captured_2", "eager_2"), ("eager_2", "eager"),
              ("captured_2", "captured"))
     clock = Clock("graph")
-    # --- the default backward (wgmma): launches; the gaps that its dQ order
-    # leaves after n_batches AdamW steps, between any two runs --------------
-    runs = four_runs("default backward", "wgmma")
-    print(f"[graph] default backward, per-step loss rel gaps over {n_batches} steps: " + json.dumps(
-        {f"{a}/{b}": [float(f"{g:.3g}") for g in step_gaps(runs[a], runs[b])]
-         for a, b in pairs}), flush=True)
+    # --- captured = eager and each run = its rerun, bit for bit: launches,
+    # losses and every parameter after n_batches AdamW steps ----------------
+    runs = four_runs()
+    parted = {f"{a}/{b}": _first_difference(runs[a], runs[b]) for a, b in pairs}
+    print(f"[graph] {n_batches} steps, captured vs eager and run vs rerun: "
+          f"{json.dumps({p: d or 'bit-equal' for p, d in parted.items()})}", flush=True)
+    # Checked at the end of the script, so that a failure here still leaves
+    # the later phases' numbers.
+    checks = [(not any(parted.values()), f"captured vs eager or run vs rerun differ: {parted}")]
     for r in runs.values():
         r.pop("params")
-    clock.lap("four runs, default backward")
-
-    # --- the atomic-free backward: captured = eager bit for bit. Every
-    # backward on flash_attn_bwd.cu, the route deterministic mode takes, and
-    # the rest of the step as by default ------------------------------------
-    checks = []
-    with mock.patch.object(tattn, "bwd_route", lambda d: "mma_sync"):
-        exact = four_runs("atomic-free backward", "mma_sync")
-    parted = {f"{a}/{b}": _first_difference(exact[a], exact[b]) for a, b in pairs}
-    print(f"[graph] atomic-free backward, otherwise as by default, {n_batches} steps: "
-          f"{json.dumps({p: d or 'bit-equal' for p, d in parted.items()})}", flush=True)
-    checks.append((not any(parted.values()),
-                   f"with the atomic-free backward, runs differ: {parted}"))
-    for r in exact.values():
-        r.pop("params")
-    clock.lap("four runs, atomic-free backward")
+    clock.lap("four runs")
 
     # --- deterministic mode: captured vs eager bit for bit -----------------
     det = {}
@@ -1373,7 +1330,7 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
           f"{json.dumps(det_per_step)}; ops without a deterministic CUDA version in the "
           f"step: {json.dumps(ops) if ops else 'none'}", flush=True)
     if on_card:
-        check(det_per_step["flash_attn_bwd_mma"] == depth,
+        check(det_per_step["flash_attn_bwd"] == depth and det_per_step["flash_attn_bwd_mma"] == 0,
               f"deterministic mode: backward launches per step {det_per_step}")
     check(det_parted is None, f"captured vs eager differ under deterministic mode: "
           f"{det_parted} (ops that warned: {ops or 'none'})")
@@ -1381,8 +1338,7 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
         r.pop("params")
     clock.lap("deterministic runs")
 
-    # --- the default backward, one group from a saved state: replayed twice
-    # against plain steps three times ----------------------------------------
+    # --- one group from a saved state: plain steps, then replayed twice -----
     model.load_state_dict(init)
     trainer = trainer_for("auto")
     k = trainer.steps_per_call
@@ -1411,34 +1367,17 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
 
     reset_counts()
     window = {}
-    for name, spc in (("eager", 1), ("captured", k), ("eager_2", 1), ("captured_2", k),
-                      ("eager_3", 1)):
+    for name, spc in (("eager", 1), ("captured", k), ("captured_2", k)):
         window[name] = from_saved(spc)
     window_replays = read_graph_counts()["graph_replays"]
     del trainer, optimizer, saved_opt, saved_model
-    eager_pairs = (("eager_2", "eager"), ("eager_3", "eager"), ("eager_3", "eager_2"))
-    noise = {n: max((window[a]["params"][n] - window[b]["params"][n]).float().norm()
-                    for a, b in eager_pairs) for n in window["eager"]["params"]}
-    same_loss = max(g for a, b in eager_pairs for g in step_gaps(window[a], window[b]))
-    loss_rel = max(g for a, b in pairs[:2] for g in step_gaps(window[a], window[b]))
-    gaps = {}
-    for a, b in pairs[:2]:
-        for n, g in _params_rel_gap(window[a]["params"], window[b]["params"], noise).items():
-            gaps[n] = max(g, gaps.get(n, 0.0))
-    worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
-    window_gaps = {f"{a}/{b}": [float(f"{g:.3g}") for g in step_gaps(window[a], window[b])]
-                   for a, b in pairs[:2]}
-    print(f"[graph] default backward, steps {k + 1}..{2 * k} from the state after step {k} "
-          f"(2 graph replays, 3 plain runs; {window_replays} replays counted): per-step loss "
-          f"rel gaps captured vs eager {json.dumps(window_gaps)}, max {loss_rel:.3g} (<= {GRAPH_LOSS_REL_TOL}; eager vs eager max {same_loss:.3g}); "
-          f"parameter gap / ({GRAPH_NOISE_FACTOR} x the largest eager-vs-eager ‖Δ‖ + "
-          f"{GRAPH_PARAM_FLOOR} x norm) max {worst[0][1]:.3g} (<= 1; worst {json.dumps(worst)})",
-          flush=True)
-    # Checked at the end of the script, so that a failure here still
-    # leaves the later phases' numbers.
-    checks += [(loss_rel <= GRAPH_LOSS_REL_TOL,
-                f"captured vs eager losses from one state differ by {loss_rel}"),
-               (worst[0][1] <= 1.0, f"captured vs eager parameters from one state differ: {worst}")]
+    window_parted = {f"{a}/eager": _first_difference(window[a], window["eager"])
+                     for a in ("captured", "captured_2")}
+    print(f"[graph] steps {k + 1}..{2 * k} from the state after step {k} (plain steps, then 2 "
+          f"graph replays; {window_replays} replays counted): "
+          f"{json.dumps({p: d or 'bit-equal' for p, d in window_parted.items()})}", flush=True)
+    checks.append((not any(window_parted.values()),
+                   f"captured vs eager from one state differ: {window_parted}"))
     if on_card:
         checks.append((window_replays == 2, f"{window_replays} replays from the saved state"))
     del window
@@ -1448,7 +1387,7 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
     clock.lap("one group from a saved state")
 
     # --- the attention alone, forward and backward captured at the step's
-    # shape: O, dk, dv = eager bit for bit, dq within the run-to-run bound -----
+    # shape: O, dq, dk, dv = eager bit for bit ---------------------------------
     if on_card:
         arch = model.arch
         pt, ph, pw = arch.patch_size
@@ -1471,10 +1410,8 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
         for _ in range(2):
             graph.replay()
             o, dq, dk, dv = graph.outputs
-            attn.append(dict(o=bool(torch.equal(o, eager_out[0])),
-                             dk=bool(torch.equal(dk, eager_out[2])),
-                             dv=bool(torch.equal(dv, eager_out[3])),
-                             dq=_run_to_run(dq, eager_out[1])))
+            attn.append({n: bool(torch.equal(x, e))
+                         for n, x, e in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), eager_out)})
         held = {("forward" if c is tattn.launches else "backward"): n
                 for c, n in graph.launches.items()}
         print(f"[graph] attention forward + backward captured alone at {shape} (the "
@@ -1482,8 +1419,7 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
               f"{json.dumps(attn)}; launches held {json.dumps(held)}", flush=True)
         check(graph.launches == {tattn.launches: 1, tattn.bwd_launches: 1},
               f"the attention graph holds {graph.launches}")
-        check(all(r["o"] and r["dk"] and r["dv"] and r["dq"]["within"] for r in attn),
-              f"captured attention differs from eager: {attn}")
+        check(all(all(r.values()) for r in attn), f"captured attention differs from eager: {attn}")
         del graph, eager_out, q, kk, v, do
     clock.lap("attention graph")
 
@@ -1577,10 +1513,10 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
             torch.cuda.empty_cache()
         clock.lap(f"rates at batch {b}")
     del model
-    return dict(runs=runs, exact=exact, deterministic=det, deterministic_ops=ops,
-                loss_rel=loss_rel, param_gap_max=worst[0][1], eval_gap=eval_gap,
-                eval_ms=eval_ms, rates=rates, launches=runs["captured"]["counts"],
-                graphs=runs["captured"]["graphs"], checks=checks)
+    return dict(runs=runs, parted=parted, deterministic=det, deterministic_ops=ops,
+                window=window_parted, eval_gap=eval_gap, eval_ms=eval_ms, rates=rates,
+                launches=runs["captured"]["counts"], graphs=runs["captured"]["graphs"],
+                checks=checks)
 
 
 def _write_dataset(root: str, n_train: int, n_val: int, n_bands: int, size: int,
@@ -4484,7 +4420,7 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
 
 PARALLEL_CONFIG = "prithvi600_v5e8"
 PARALLEL_STEPS = 8          # two groups of the recipe's steps_per_call: 4
-PARALLEL_LOSS_RTOL = 1e-3   # recipe vs plain twin, each step's loss
+PARALLEL_LOSS_RTOL = 1e-3   # each step's loss vs one process, over more than one rank
 PARALLEL_RUN_TIMEOUT_S = 480
 
 
@@ -4523,25 +4459,19 @@ def _recipe_run(argv: list, nproc: int, run_dir: str) -> dict:
 
 def _remat_check(device, model_kw: dict, cfg: dict, data: dict, batch: int, steps: int):
     """``tpu.remat`` at the crop model's full width, from the same weights,
-    inputs and seeds (``steps`` optimizer steps each). With the backward on
-    its atomic-free kernel (``flash_attn_bwd.cu``, the route deterministic
-    mode takes: the wgmma backward adds dQ's partial sums in an order that
-    changes from run to run), remat against no remat bit for bit, losses
-    and parameters; then remat on the default (wgmma) backward: its
-    launches, its first loss bit for bit and each step's within
-    GRAPH_LOSS_REL_TOL. Launches per step and peak memory of each run."""
+    inputs and seeds (``steps`` optimizer steps each), against no remat:
+    losses and parameters bit for bit, launches per step and peak memory of
+    each run."""
     import torch
 
     from instageo_tpu_torch.models.seg import create_prithvi_seg
-    from instageo_tpu_torch.ops import attention as tattn
     from instageo_tpu_torch.train.trainer import Trainer
 
     on_card = device.type == "cuda"
     t, size, classes = model_kw["temporal_step"], model_kw["image_size"], model_kw["num_classes"]
     x, y = _crop_batch(batch, t, size, classes, seed=11, data=data)
     runs = {}
-    for name, remat, atomic_free in (("plain", False, True), ("remat", True, True),
-                                     ("remat_default", True, False)):
+    for name, remat in (("plain", False), ("remat", True)):
         model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
                                    remat=remat, device=device, seed=0)
         trainer = Trainer(cfg, model, device=device)
@@ -4551,36 +4481,28 @@ def _remat_check(device, model_kw: dict, cfg: dict, data: dict, batch: int, step
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        route = (mock.patch.object(tattn, "bwd_route", lambda d: "mma_sync") if atomic_free
-                 else contextlib.nullcontext())
-        with route:
-            # --- this run's training path: counts from 0, read right after --
-            reset_counts()
-            losses = [trainer.train_step(xb, yb, gen) for _ in range(steps)]
-            counts = read_counts()
-            # ------------------------------------------------------------------
+        # --- this run's training path: counts from 0, read right after ------
+        reset_counts()
+        losses = [trainer.train_step(xb, yb, gen) for _ in range(steps)]
+        counts = read_counts()
+        # ----------------------------------------------------------------------
         runs[name] = dict(
             losses=[float(v) for v in losses], counts=counts,
             params={n: p.detach().clone() for n, p in model.named_parameters()},
             peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
         del model, trainer
         gc.collect()
-    plain, remat, default = runs["plain"], runs["remat"], runs["remat_default"]
+    plain, remat = runs["plain"], runs["remat"]
     depth = len([k for k in plain["params"] if k.endswith("attn.qkv.weight")])
     if on_card:
-        for name, fwd, mma in (("plain", 1, 1), ("remat", 2, 1), ("remat_default", 2, 0)):
+        for name, fwd in (("plain", 1), ("remat", 2)):
             want = {"flash_attn_fwd": fwd * depth * steps, "flash_attn_fwd_mma": 0,
-                    "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": mma * depth * steps}
+                    "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": 0}
             got = {k: runs[name]["counts"][k] for k in want}
             check(got == want, f"{name}: launches {got} over {steps} steps, expected {want}")
     difference = _first_difference(remat, plain)
-    check(difference is None, f"remat vs no remat on the atomic-free backward: {difference}")
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(default["losses"], plain["losses"]))
-    check(default["losses"][0] == plain["losses"][0],
-          f"remat's first loss {default['losses'][0]} is not the plain {plain['losses'][0]}")
-    check(loss_rel <= GRAPH_LOSS_REL_TOL,
-          f"remat on the default backward vs no remat: loss rel {loss_rel}")
-    return dict(loss_rel=loss_rel, launches={k: r["counts"] for k, r in runs.items()},
+    check(difference is None, f"remat vs no remat: {difference}")
+    return dict(launches={k: r["counts"] for k, r in runs.items()},
                 launches_per_step={k: {n: v / steps for n, v in r["counts"].items()}
                                    for k, r in runs.items()},
                 peak_bytes={k: r["peak_bytes"] for k, r in runs.items()},
@@ -4712,8 +4634,9 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
               f"losses {json.dumps(r['losses'])}; {r['notes']}", flush=True)
     rel = [abs(a - b) / abs(b) for a, b in zip(out["recipe"]["losses"], out["twin"]["losses"])]
     out["loss_rel_max"] = max(rel)
+    out["bit_equal"] = out["recipe"]["losses"] == out["twin"]["losses"]
     print(f"[parallel] recipe vs twin: each step's loss within {max(rel):.3g} relative "
-          f"(<= {PARALLEL_LOSS_RTOL})", flush=True)
+          f"(<= {PARALLEL_LOSS_RTOL}); bit-equal: {out['bit_equal']}", flush=True)
     for name in ("recipe", "twin"):
         losses = out[name]["losses"]
         check(len(losses) == PARALLEL_STEPS and all(math.isfinite(v) for v in losses),
@@ -4731,8 +4654,13 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
     check(out["recipe"]["placement"] == ("fsdp" if nproc else "single")
           and out["twin"]["placement"] == "single",
           f"placements {out['recipe']['placement']}, {out['twin']['placement']}")
-    check(max(rel) <= PARALLEL_LOSS_RTOL,
-          f"recipe vs plain twin step losses differ by {rel} (rtol {PARALLEL_LOSS_RTOL})")
+    if nproc == 1:
+        # One rank: the recipe's placement changes no sum, so its losses are
+        # the twin's bit for bit.
+        check(out["bit_equal"], f"recipe vs plain twin at world 1: step losses differ by {rel}")
+    else:
+        check(max(rel) <= PARALLEL_LOSS_RTOL,
+              f"recipe vs plain twin step losses differ by {rel} (rtol {PARALLEL_LOSS_RTOL})")
     if nproc < 2:
         print(f"[parallel] {nproc} card(s) visible: tensor, pipeline and sequence "
               "parallelism and a data axis of more than one rank need 2 cards; they are "
@@ -4742,8 +4670,7 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
     remat = _remat_check(device, model_kw, train_cfg, data, remat_batch, remat_steps)
     out["remat"] = remat
     print(f"[parallel] {smi}: remat at batch {remat_batch} over {remat_steps} steps: "
-          f"bit-equal to no remat on the atomic-free backward; on the default backward each "
-          f"step's loss within {remat['loss_rel']:.3g} (first bit-equal); "
+          f"losses and parameters bit-equal to no remat; "
           f"launches per step {json.dumps(remat['launches_per_step'])}; peak "
           + ", ".join(f"{k_} {(v or 0) / 2**30:.3f} GiB" for k_, v in remat["peak_bytes"].items()),
           flush=True)
@@ -5248,7 +5175,7 @@ def main() -> int:
         k["launches_by_path"]["webapp_job_process"] = route(web["worker_launches"])
         for name in ("recipe", "twin"):  # rank 0's train epoch
             k["launches_by_path"][f"parallel_{name}"] = para[name]["train_launches"][0][k["name"]]
-        for name in ("plain", "remat", "remat_default"):
+        for name in ("plain", "remat"):
             k["launches_by_path"][f"parallel_{name}_crop"] = route(
                 para["remat"]["launches"][name])
         k["launches_by_path"]["examples_quickstart"] = walked["quickstart"]["launches"][k["name"]]

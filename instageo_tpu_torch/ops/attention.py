@@ -13,10 +13,11 @@ five Pallas kernels:
   ``_attn_bwd_kernel`` (heads-first) and ``_attn_bwd_kernel_bloq`` (q rows
   in blocks, dk/dv summed over them in float32), takes one of two routes by
   head dim (``bwd_route``): ``csrc/flash_attn_bwd_sm90.cu`` (TMA, wgmma,
-  five tile products per tile pair, dQ summed by bulk reduce-adds) for Dh
-  in ``SM90_HEAD_DIMS``; ``csrc/flash_attn_bwd.cu`` (mma.sync, a dK/dV pass
-  and a dQ pass, no atomics) for the other supported ones, and for every
-  head dim under ``torch.use_deterministic_algorithms(True)``.
+  a dK/dV kernel and a dQ kernel) for Dh in ``SM90_HEAD_DIMS``;
+  ``csrc/flash_attn_bwd.cu`` (mma.sync, a dK/dV pass and a dQ pass) for the
+  other supported ones. Neither adds across thread blocks, so both give the
+  same bits on every call and ``torch.use_deterministic_algorithms(True)``
+  changes no route.
 
 A layout only changes the strides a kernel is given. q/k/v are (B, H, L, Dh)
 with any strides whose last one is 1, so the model passes views of its fused
@@ -190,46 +191,20 @@ def fwd_route(d: int) -> str:
 def bwd_route(d: int) -> str:
     """The backward kernels that head dim ``d`` takes on the card: the
     forward's route, ``"wgmma"`` (``csrc/flash_attn_bwd_sm90.cu``) or
-    ``"mma_sync"`` (``csrc/flash_attn_bwd.cu``). Under
-    ``torch.use_deterministic_algorithms(True)`` every head dim takes
-    ``"mma_sync"``: the wgmma kernel adds dQ's partial sums with reduce-adds
-    that arrive in a run-dependent order, ``flash_attn_bwd.cu`` has no
-    atomics, so two calls give the same bits."""
-    route = fwd_route(d)
-    if route == "wgmma" and torch.are_deterministic_algorithms_enabled():
-        return "mma_sync"
-    return route
+    ``"mma_sync"`` (``csrc/flash_attn_bwd.cu``), in every mode. Both are
+    deterministic: each sums dq, dk and dv in one thread block's registers
+    in a fixed order, with no atomics, so two calls give the same bits with
+    or without ``torch.use_deterministic_algorithms(True)``."""
+    return fwd_route(d)
 
 
-def bwd_scratch_shapes(b: int, h: int, l: int, d: int) -> tuple:
-    """The float32 scratch of one wgmma backward call: (lse·log2 e, δ) per
-    q row, padded to whole 64-row tiles, (2, B, H, Lp); and the dQ
-    accumulator, one block of 64·Dh values per (b, h, q tile) in the
-    consumers' fragment order (``dq_accumulator_index``)."""
-    tiles = -(-l // BWD_TILE_Q)
-    return (2, b, h, tiles * BWD_TILE_Q), (b, h, tiles, BWD_TILE_Q * d)
-
-
-def dq_accumulator_index(d: int) -> torch.Tensor:
-    """Where each value of one 64·Dh block of the wgmma backward's dQ
-    accumulator belongs in the (64, Dh) tile, as row·Dh + column.
-
-    Both consumer warpgroups add a whole 64 × Dh tile in wgmma's accumulator
-    layout; each of their four warps adds one contiguous run of 32 · Dh/2
-    values, 16 bytes per thread at a time: position (j·32 + lane)·4 + e of
-    warp w's run is register 4j + e of that lane, row 16·w + lane/4 (+8 for
-    e ≥ 2), column 8j + 2·(lane % 4) + e % 2. The post-pass of
-    ``csrc/flash_attn_bwd_sm90.cu`` inverts it.
-    """
+def bwd_scratch_shape(b: int, h: int, l: int, d: int) -> tuple:
+    """The float32 scratch of one wgmma backward call, its only one:
+    (lse·log2 e, δ) per q row, padded to whole 64-row tiles, (2, B, H, Lp).
+    dq, dk and dv are summed in registers; no accumulator lies in memory."""
     if d not in SM90_HEAD_DIMS:
         raise ValueError(f"the wgmma backward takes Dh in {SM90_HEAD_DIMS}; got {d}")
-    f = torch.arange(BWD_TILE_Q * d)
-    run = 32 * (d // 2)
-    warp, o2 = f // run, f % run
-    j, lane, e = o2 // 128, (o2 // 4) % 32, o2 % 4
-    row = 16 * warp + lane // 4 + 8 * (e // 2)
-    col = 8 * j + 2 * (lane % 4) + e % 2
-    return row * d + col
+    return (2, b, h, -(-l // BWD_TILE_Q) * BWD_TILE_Q)
 
 
 def tma_boxes(d: int) -> tuple:
@@ -305,7 +280,7 @@ def _bwd_entry(route: str):
     if route == "wgmma":
         lib = _build.load("flash_attn_bwd_sm90")
         fn, err = lib.flash_attn_bwd_sm90_bf16, lib.flash_attn_bwd_sm90_error_string
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     else:
         lib = _build.load("flash_attn_bwd")
         fn, err = lib.flash_attn_bwd_bf16, lib.flash_attn_bwd_error_string
@@ -399,16 +374,15 @@ def _flash_attention_bwd_cuda(q, k, v, o, do, lse, layout, route):
     grads = torch.empty((3,) + shape, dtype=do.dtype, device=q.device).unbind(0)
     fn, error_string = _bwd_entry(route)
     if route == "wgmma":
-        stats_shape, acc_shape = bwd_scratch_shapes(b, h, l, d)
-        stats = torch.empty(stats_shape, dtype=torch.float32, device=q.device)
-        dq_acc = torch.empty(acc_shape, dtype=torch.float32, device=q.device)
+        stats = torch.empty(bwd_scratch_shape(b, h, l, d), dtype=torch.float32,
+                            device=q.device)
         o4, do4 = views["O"], views["dO"]
         desc = _tma_array(*(tma_description(x) for x in (q, k, v, do4)))
         strides = _int64_array(tuple(s for x in (o4, do4) + grads for s in x.stride()[:3]))
         err = call_on_device(q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          o4.data_ptr(), do4.data_ptr(), lse.data_ptr(),
-                         *(g.data_ptr() for g in grads), stats.data_ptr(), dq_acc.data_ptr(),
-                         b, h, l, d, ctypes.addressof(desc), ctypes.addressof(strides))
+                         *(g.data_ptr() for g in grads), stats.data_ptr(), b, h, l, d,
+                         ctypes.addressof(desc), ctypes.addressof(strides))
     else:
         delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
         tensors = list(views.values()) + list(grads)

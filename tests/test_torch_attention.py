@@ -215,15 +215,17 @@ def test_backward_route_by_head_dim(d):
 
 @pytest.mark.parametrize("d", tattn.SUPPORTED_HEAD_DIMS)
 def test_backward_route_under_deterministic_mode(d):
-    """Under torch.use_deterministic_algorithms every head dim takes the
-    mma.sync backward, which has no atomics; the forward keeps its route."""
+    """Under torch.use_deterministic_algorithms every head dim keeps its
+    default routes, forward and backward: both backward kernels give the
+    same bits on every call (neither adds across thread blocks)."""
+    default = "wgmma" if d in tattn.SM90_HEAD_DIMS else "mma_sync"
     torch.use_deterministic_algorithms(True)
     try:
-        assert tattn.bwd_route(d) == "mma_sync"
-        assert tattn.fwd_route(d) == ("wgmma" if d in tattn.SM90_HEAD_DIMS else "mma_sync")
+        assert tattn.bwd_route(d) == default
+        assert tattn.fwd_route(d) == default
     finally:
         torch.use_deterministic_algorithms(False)
-    assert tattn.bwd_route(d) == ("wgmma" if d in tattn.SM90_HEAD_DIMS else "mma_sync")
+    assert tattn.bwd_route(d) == default
 
 
 def test_backward_route_refuses_unsupported_head_dims():
@@ -231,7 +233,7 @@ def test_backward_route_refuses_unsupported_head_dims():
         with pytest.raises(ValueError):
             tattn.bwd_route(d)
     with pytest.raises(ValueError):
-        tattn.dq_accumulator_index(128)
+        tattn.bwd_scratch_shape(1, 2, 64, 128)
 
 
 @pytest.mark.parametrize("layout", tattn.LAYOUTS)
@@ -252,23 +254,14 @@ def test_tma_description_of_backward_operands(layout, d):
 
 @pytest.mark.parametrize("d", [64, 80])
 def test_dq_accumulator_layout(d):
-    """The wgmma backward's f32 scratch: (lse, δ) padded to whole 64-row q
-    tiles, and a dQ block of 64·Dh values per q tile whose fragment order
-    is a permutation of the (64, Dh) tile, each warp's run 16 whole rows."""
+    """The wgmma backward keeps no dQ accumulator: its dQ kernel sums each
+    q row's dq over the key tiles in registers, in order. Its one scratch
+    is (lse, δ) padded to whole 64-row q tiles, the same at every Dh."""
     b, h, l = 2, 3, 589
-    stats, acc = tattn.bwd_scratch_shapes(b, h, l, d)
-    assert stats == (2, b, h, 640) and acc == (b, h, 10, 64 * d)
-    index = tattn.dq_accumulator_index(d)
-    assert torch.equal(index.sort().values, torch.arange(64 * d))
-    runs = (index // d).reshape(4, 16 * d)
-    assert all(set(r.tolist()) == set(range(16 * w, 16 * w + 16)) for w, r in enumerate(runs))
-    # Each thread's 16 bytes: rows g and g + 8 of two neighbouring columns.
-    rows, cols = index // d, index % d
-    assert rows[:4].tolist() == [0, 0, 8, 8] and cols[:4].tolist() == [0, 1, 0, 1]
-    assert rows[4:8].tolist() == [0, 0, 8, 8] and cols[4:8].tolist() == [2, 3, 2, 3]
+    assert tattn.bwd_scratch_shape(b, h, l, d) == (2, b, h, 640)
+    assert tattn.bwd_scratch_shape(b, h, l, d) == tattn.bwd_scratch_shape(b, h, l, 144 - d)
 
 
 @pytest.mark.parametrize("l,tiles", [(1, 1), (64, 1), (65, 2), (197, 4), (1025, 17)])
 def test_backward_scratch_covers_whole_q_tiles(l, tiles):
-    stats, acc = tattn.bwd_scratch_shapes(1, 2, l, 80)
-    assert stats == (2, 1, 2, 64 * tiles) and acc == (1, 2, tiles, 64 * 80)
+    assert tattn.bwd_scratch_shape(1, 2, l, 80) == (2, 1, 2, 64 * tiles)

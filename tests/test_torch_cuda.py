@@ -9,18 +9,16 @@ Tolerance: bf16 outputs atol = rtol = 3e-2 (as the JAX package's bf16
 attention test), lse atol 1e-3 (float32 statistics, other summation order).
 Backward: dq, dk, dv within ‖Δ‖/‖ref‖ ≤ 1e-2 of the plain version (both
 round dS and P to bf16, but at other summation orders, so single elements
-can differ by a bf16 rounding); the wgmma backward's dq from one run to
-the next within one bf16 step (its f32 reduce-adds arrive in any order),
-dk and dv bit for bit. Dropout: the mask bit for bit equal to the plain
-Philox stream, the output bit for bit given the mask, with the seed by
-value or from device memory. Under deterministic mode the backward repeats
-bit for bit. CUDA graphs: a dropout graph takes the seed of each replay;
-the attention forward and backward captured alone equal eager calls (O,
-dk, dv bit for bit, dq within the run-to-run bound); the tiny model's
+can differ by a bf16 rounding); the wgmma backward's dq, dk and dv from
+one call to the next bit for bit. Dropout: the mask bit for bit equal to
+the plain Philox stream, the output bit for bit given the mask, with the
+seed by value or from device memory. With and without deterministic mode
+the backward repeats bit for bit on the wgmma route. CUDA graphs: a
+dropout graph takes the seed of each replay; the attention forward and
+backward captured alone equal eager calls bit for bit; the tiny model's
 grouped train steps (``steps_per_call`` 4, a captured graph replayed once)
-equal the one-step run bit for bit under deterministic mode, and with only
-the backward on its atomic-free kernel; its grouped eval epoch the eager
-one. The chip ops on the card equal the CPU's bit for bit; the granule
+equal the one-step run bit for bit, with and without deterministic mode;
+its grouped eval epoch the eager one. The chip ops on the card equal the CPU's bit for bit; the granule
 path launches the kernel once per block and chip batch and stitches the
 fused predict's output bit for bit. A web task on the card equals the
 CPU's (chips and manifest byte for byte, argmax on at least 0.99 of decided
@@ -257,32 +255,20 @@ def test_wgmma_backward_matches_plain(cuda, layout, l, d):
         assert _rel_err(g, ref) <= BWD_REL_TOL, f"d{name}: {_rel_err(g, ref)}"
 
 
-def _dq_within_run_to_run(a, b):
-    """The wgmma backward's dq from two runs: each element within one bf16
-    step of the other, or, where its f32 partial sums cancel, within 2⁻¹⁶
-    of its row's largest |dq| (a few f32 roundings of the partial sums,
-    whose order changes)."""
-    a, b = a.float(), b.float()
-    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -7  # one bf16 step, or less
-    row = a.abs().amax(-1, keepdim=True) * 2.0 ** -16
-    return bool(((a - b).abs() <= torch.maximum(step, row)).all())
-
-
 @pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
 def test_wgmma_backward_run_to_run(cuda, d):
-    """dq within the run-to-run bound of itself; dk, dv equal."""
+    """dq, dk and dv the same bits on every call."""
     q, k, v, o, do, lse = _bwd_inputs((4, 12, 589, d), "merged", cuda, seed=d)
     first = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
     for _ in range(3):
         again = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
-        assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
-        assert _dq_within_run_to_run(first[0], again[0])
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_captured_attention_equals_eager(cuda):
     """The attention forward and backward captured alone at the crop
-    model's training shape, on the wgmma backward: each replay's O, dk and
-    dv equal an eager call's bit for bit, dq within the run-to-run bound."""
+    model's training shape, on the wgmma backward: each replay's O, dq, dk
+    and dv equal an eager call's bit for bit."""
     shape = (8, 12, 589, 64)
     assert tattn.bwd_route(shape[-1]) == "wgmma"
     q, k, v = (t.requires_grad_() for t in _qkv(shape, cuda, seed=5))
@@ -298,9 +284,8 @@ def test_captured_attention_equals_eager(cuda):
     for _ in range(3):
         graph.replay()
         o, dq, dk, dv = graph.outputs
-        assert torch.equal(o, eager[0])
+        assert torch.equal(o, eager[0]) and torch.equal(dq, eager[1])
         assert torch.equal(dk, eager[2]) and torch.equal(dv, eager[3])
-        assert _dq_within_run_to_run(dq, eager[1])
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma"), (80, "wgmma"), (128, "mma_sync")])
@@ -429,17 +414,21 @@ def test_dropout_graph_takes_the_seed_of_each_replay(cuda):
     assert _build.graph_replays.count == replays + 2
 
 
+@pytest.mark.parametrize("mode", ["default", "deterministic"])
 @pytest.mark.parametrize("d", tattn.SM90_HEAD_DIMS)
-def test_deterministic_backward_repeats_bit_for_bit(cuda, d):
+def test_deterministic_backward_repeats_bit_for_bit(cuda, d, mode):
+    """With or without deterministic mode, the wgmma backward: two calls,
+    the same bits, none on mma.sync."""
     q, k, v = _qkv((2, 3, 197, d), cuda, seed=d)
     o, lse = tattn.flash_attention_fwd(q, k, v, "merged")
     do = torch.randn_like(o)
-    torch.use_deterministic_algorithms(True)
+    torch.use_deterministic_algorithms(mode == "deterministic")
     try:
-        before = tattn.bwd_mma_launches.count
+        before, mma = tattn.bwd_launches.count, tattn.bwd_mma_launches.count
         first = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
         second = tattn.flash_attention_bwd(q, k, v, o, do, lse, "merged")
-        assert tattn.bwd_mma_launches.count == before + 2
+        assert tattn.bwd_launches.count == before + 2
+        assert tattn.bwd_mma_launches.count == mma
     finally:
         torch.use_deterministic_algorithms(False)
     for a, b in zip(first, second):
@@ -494,26 +483,22 @@ def test_captured_train_steps_equal_single_steps(cuda):
     (group,) = grouped._groups.values()
     launches = {c: n for c, n in group.graph.launches.items()}
     assert launches[tdrop.launches] == 4 * 5 and launches[tattn.launches] == 4 * 2
-    assert launches[tattn.bwd_mma_launches] == 4 * 2  # deterministic: the mma.sync backward
+    assert launches[tattn.bwd_launches] == 4 * 2  # deterministic mode keeps the wgmma backward
+    assert tattn.bwd_mma_launches not in launches
 
 
 def test_captured_train_steps_equal_single_steps_on_the_atomic_free_backward(cuda):
-    """Without deterministic mode, the backward alone moved to its kernel
-    without atomics: k = 4 equals k = 1 bit for bit, so nothing in the
-    captured step but the wgmma backward's dQ order differs from the eager
-    step."""
-    from unittest import mock
-
+    """Without deterministic mode, on the default (wgmma) backward, which
+    adds nothing across thread blocks: k = 4 equals k = 1 bit for bit."""
     from instageo_tpu_torch.train.trainer import epoch_generator
 
     runs = []
-    with mock.patch.object(tattn, "bwd_route", lambda d: "mma_sync"):
-        for k in (1, 4):
-            trainer = _tiny_trainer(cuda, k)
-            losses = []
-            trainer.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4, losses)
-            runs.append(([float(v) for v in losses],
-                         {n: p.detach().clone() for n, p in trainer.model.named_parameters()}))
+    for k in (1, 4):
+        trainer = _tiny_trainer(cuda, k)
+        losses = []
+        trainer.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4, losses)
+        runs.append(([float(v) for v in losses],
+                     {n: p.detach().clone() for n, p in trainer.model.named_parameters()}))
     (losses_1, params_1), (losses_4, params_4) = runs
     assert losses_4 == losses_1
     for name, p in params_4.items():
@@ -536,29 +521,24 @@ def test_captured_eval_equals_eager(cuda):
 def test_restore_on_card_keeps_a_capturable_optimizer(cuda, tmp_path):
     """A checkpoint of a card run restores into a capturable AdamW (the
     rate a device tensor, the step counts on the card) whose grouped steps
-    go on: a resumed epoch equals an unbroken second epoch under
-    deterministic mode."""
+    go on: a resumed epoch equals an unbroken second epoch bit for bit."""
     from instageo_tpu_torch.train.checkpointing import BestCheckpointer
     from instageo_tpu_torch.train.trainer import epoch_generator
 
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        straight = _tiny_trainer(cuda, 4)
-        for epoch in range(2):
-            straight.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, epoch), 4)
-        first = _tiny_trainer(cuda, 4)
-        first.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4)
-        ckpt = BestCheckpointer(str(tmp_path))
-        ckpt.save(first.state_dict())
-        resumed = _tiny_trainer(cuda, 4)
-        resumed.restore(ckpt.path)
-        group = resumed.optimizer.param_groups[0]
-        assert group["capturable"] and group["lr"].device.type == "cuda"
-        state = next(iter(resumed.optimizer.state.values()))
-        assert state["step"].device.type == "cuda"
-        resumed.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 1), 4)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    straight = _tiny_trainer(cuda, 4)
+    for epoch in range(2):
+        straight.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, epoch), 4)
+    first = _tiny_trainer(cuda, 4)
+    first.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4)
+    ckpt = BestCheckpointer(str(tmp_path))
+    ckpt.save(first.state_dict())
+    resumed = _tiny_trainer(cuda, 4)
+    resumed.restore(ckpt.path)
+    group = resumed.optimizer.param_groups[0]
+    assert group["capturable"] and group["lr"].device.type == "cuda"
+    state = next(iter(resumed.optimizer.state.values()))
+    assert state["step"].device.type == "cuda"
+    resumed.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 1), 4)
     assert resumed.step == straight.step == 16
     for (name, a), b in zip(straight.model.state_dict().items(),
                             resumed.model.state_dict().values()):
