@@ -265,14 +265,16 @@ def test_wgmma_backward_run_to_run(cuda, d):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def test_captured_attention_equals_eager(cuda):
+@pytest.mark.parametrize("d,route", [(64, "wgmma"), (128, "mma_sync")])
+def test_captured_attention_equals_eager(cuda, d, route):
     """The attention forward and backward captured alone at the crop
-    model's training shape, on the wgmma backward: each replay's O, dq, dk
-    and dv equal an eager call's bit for bit."""
-    shape = (8, 12, 589, 64)
-    assert tattn.bwd_route(shape[-1]) == "wgmma"
+    model's training shape (width 768), on each backward route: each
+    replay's O, dq, dk and dv equal an eager call's bit for bit."""
+    h = 768 // d
+    shape = (8, h, 589, d)
+    assert tattn.bwd_route(d) == route
     q, k, v = (t.requires_grad_() for t in _qkv(shape, cuda, seed=5))
-    do = torch.randn((8, 589, 12 * 64), device=cuda).to(torch.bfloat16)
+    do = torch.randn((8, 589, h * d), device=cuda).to(torch.bfloat16)
 
     def fwd_bwd():
         o = tattn.flash_attention_blo(q, k, v)
@@ -280,7 +282,8 @@ def test_captured_attention_equals_eager(cuda):
 
     eager = fwd_bwd()
     graph = _build.CapturedGraph(fwd_bwd)
-    assert graph.launches == {tattn.launches: 1, tattn.bwd_launches: 1}
+    mma = {tattn.fwd_mma_launches: 1, tattn.bwd_mma_launches: 1} if route == "mma_sync" else {}
+    assert graph.launches == {tattn.launches: 1, tattn.bwd_launches: 1, **mma}
     for _ in range(3):
         graph.replay()
         o, dq, dk, dv = graph.outputs
@@ -455,15 +458,17 @@ def _tiny_batches(n=8):
              rng.integers(-1, 3, (4, 32, 32))) for _ in range(n)]
 
 
-def test_captured_train_steps_equal_single_steps(cuda):
-    """Deterministic mode: 8 batches at k = 4 (the first group as plain
-    steps, then one replay of the captured group) against k = 1, with
-    dropout and the schedule on: equal losses and parameters; the graph
-    holds 4 steps' launches and replays them once."""
+@pytest.mark.parametrize("deterministic", [True, False], ids=["deterministic", "default"])
+def test_captured_train_steps_equal_single_steps(cuda, deterministic):
+    """8 batches at k = 4 (the first group as plain steps, then one replay
+    of the captured group) against k = 1, with dropout and the schedule on,
+    in deterministic mode and without it: equal losses and parameters bit
+    for bit; the graph holds 4 steps' launches, all on the wgmma backward
+    (which adds nothing across thread blocks), and replays them once."""
     from instageo_tpu_torch.train.trainer import epoch_generator
 
     runs = []
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
     try:
         for k in (1, 4):
             trainer = _tiny_trainer(cuda, k)
@@ -483,26 +488,8 @@ def test_captured_train_steps_equal_single_steps(cuda):
     (group,) = grouped._groups.values()
     launches = {c: n for c, n in group.graph.launches.items()}
     assert launches[tdrop.launches] == 4 * 5 and launches[tattn.launches] == 4 * 2
-    assert launches[tattn.bwd_launches] == 4 * 2  # deterministic mode keeps the wgmma backward
+    assert launches[tattn.bwd_launches] == 4 * 2
     assert tattn.bwd_mma_launches not in launches
-
-
-def test_captured_train_steps_equal_single_steps_on_the_atomic_free_backward(cuda):
-    """Without deterministic mode, on the default (wgmma) backward, which
-    adds nothing across thread blocks: k = 4 equals k = 1 bit for bit."""
-    from instageo_tpu_torch.train.trainer import epoch_generator
-
-    runs = []
-    for k in (1, 4):
-        trainer = _tiny_trainer(cuda, k)
-        losses = []
-        trainer.run_train_epoch(iter(_tiny_batches()), epoch_generator(0, 0), 4, losses)
-        runs.append(([float(v) for v in losses],
-                     {n: p.detach().clone() for n, p in trainer.model.named_parameters()}))
-    (losses_1, params_1), (losses_4, params_4) = runs
-    assert losses_4 == losses_1
-    for name, p in params_4.items():
-        assert torch.equal(p, params_1[name]), name
 
 
 def test_captured_eval_equals_eager(cuda):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the attention backward's kernels on one CUDA card.
 
-    python3 tools/profile_attn_bwd.py [--iters 10] [--variants] [--designs]
+    python3 tools/profile_attn_bwd.py [--iters 10] [--variants]
 
 Prints one JSON line per measurement, each with the card's name and power
 limit, all device times from ``torch.profiler`` (``chip_smoke.device_ms``
@@ -21,17 +21,7 @@ and the per-kernel split below):
   kernel built from a copy of its source with one part left out (the S and
   dP products; the dK and dV products; the dK and dV stores; the EX2s),
   beside the source as it is, built the same way. The parts' outputs are
-  wrong by construction; only their times are read;
-- ``design`` (with ``--designs``): at each Dh 64/80 row but the q-blocked
-  one, the kept design (the wrapper) and the other one,
-  ``tools/flash_attn_bwd_ordered.cu`` (dQ by bulk reduce-adds taken in
-  key-tile order), the other checked against the plain version and for the
-  same bits on two calls and with its grid capped at 2 CTAs, then both
-  timed in turns (kept, other, other, kept), by wrapper ms and by device
-  ms per call of all their launches; and the other's main kernel as it is,
-  without its dQ writers' wait for their turn ("unordered": its adds in
-  any order, the design before the order) and with its grid left at the
-  SM count ("unaligned_grid"), in turns: what the order costs.
+  wrong by construction; only their times are read.
 
 Imports nothing of JAX. Exits non-zero where CUDA is not available.
 """
@@ -49,12 +39,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SOURCE = "flash_attn_bwd_sm90"
-MAIN_SYMBOL = "flash_attn_bwd_sm90_kernel"  # the dK/dV kernel (the other design's main)
-ORDERED = os.path.join(ROOT, "tools", "flash_attn_bwd_ordered.cu")
-# The C entries' argument types: the kept design's, and the other one's
-# (with its dQ accumulator, turn counters and grid cap).
+MAIN_SYMBOL = "flash_attn_bwd_sm90_kernel"  # the dK/dV kernel
+# The C entry's argument types.
 ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-ORDERED_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
 # Parts left out by a source substitution: (old text, new text).
 VARIANTS = {
     "no_scores_products": [
@@ -73,11 +60,6 @@ VARIANTS = {
     ],
     "no_exp2": [("exp2_approx(fmaf(sacc[i], sc, -(e ? l2.y : l2.x)))",
                  "fmaf(sacc[i], sc, -(e ? l2.y : l2.x))")],
-}
-# The other design's main kernel with its order taken out, part by part.
-ORDERED_VARIANTS = {
-    "unordered": [("while (ld_acquire_gpu(turn) != my_turn) {\n          }", "")],
-    "unaligned_grid": [("if (grid >= key_tiles) grid -= grid % key_tiles;", "")],
 }
 
 
@@ -105,21 +87,20 @@ def kernel_ms(fn, iters: int, warmup: int = 2) -> dict:
 def _short(name: str) -> str:
     if "flash_attn_bwd_sm90_prepass" in name:
         return "prepass"
-    if "flash_attn_bwd_dq_kernel" in name:
+    if "flash_attn_bwd_sm90_dq_kernel" in name:
         return "dq"
     return "main" if MAIN_SYMBOL in name else name
 
 
-def _variant_entries(variants: dict, build_dir: str, source=None, argtypes=ARGTYPES) -> dict:
-    """The C entry of the wgmma backward built from its source (or from
-    ``source``, a path, whose entry takes ``argtypes``) with each variant's
-    substitutions, one ``nvcc`` per variant, all started together."""
+def _variant_entries(variants: dict, build_dir: str) -> dict:
+    """The C entry of the wgmma backward built from its source with each
+    variant's substitutions, one ``nvcc`` per variant, all started together."""
     from instageo_tpu_torch.ops import _build
 
     os.makedirs(build_dir, exist_ok=True)
     procs = {}
     for name, subs in variants.items():
-        with open(source or _build.CSRC / f"{SOURCE}.cu") as f:
+        with open(_build.CSRC / f"{SOURCE}.cu") as f:
             src = f.read()
         for old, new in subs:
             if old not in src:
@@ -138,16 +119,15 @@ def _variant_entries(variants: dict, build_dir: str, source=None, argtypes=ARGTY
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} does not build:\n{out}")
         fn = ctypes.CDLL(os.path.abspath(so)).flash_attn_bwd_sm90_bf16
-        fn.argtypes = argtypes
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         entries[name] = fn
     return entries
 
 
-def _call_entry(fn, q, k, v, o, do, lse, layout, ordered: bool = False, max_ctas: int = 0):
-    """A call of a wgmma backward C entry, as the wrapper makes it (for the
-    other design, ``ordered``, with its scratch and grid cap); it returns
-    (dq, dk, dv), the same tensors on every call."""
+def _call_entry(fn, q, k, v, o, do, lse, layout):
+    """A call of a wgmma backward C entry, as the wrapper makes it; it
+    returns (dq, dk, dv), the same tensors on every call."""
     import torch
 
     from instageo_tpu_torch.ops import attention as tattn
@@ -158,22 +138,13 @@ def _call_entry(fn, q, k, v, o, do, lse, layout, ordered: bool = False, max_ctas
     grads = torch.empty((3,) + shape, dtype=do.dtype, device=q.device).unbind(0)
     stats = torch.empty(tattn.bwd_scratch_shape(b, h, l, d), dtype=torch.float32,
                         device=q.device)
-    tiles = stats.shape[-1] // tattn.BWD_TILE_Q
-    # The other design's dQ accumulator (a block of 64·Dh f32 per q tile)
-    # and its int32 turn counters.
-    scratch = ((torch.empty((b, h, tiles, tattn.BWD_TILE_Q * d), dtype=torch.float32,
-                            device=q.device),
-                torch.empty((b, h, tiles), dtype=torch.int32, device=q.device))
-               if ordered else ())
     desc = tattn._tma_array(*(tattn.tma_description(x) for x in (q, k, v, do4)))
     strides = tattn._int64_array(tuple(s for x in (o4, do4) + grads for s in x.stride()[:3]))
-    cap = (max_ctas,) if ordered else ()
 
     def call():
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o4.data_ptr(), do4.data_ptr(),
                  lse.data_ptr(), *(g.data_ptr() for g in grads), stats.data_ptr(),
-                 *(x.data_ptr() for x in scratch),
-                 b, h, l, d, *cap, ctypes.addressof(desc), ctypes.addressof(strides),
+                 b, h, l, d, ctypes.addressof(desc), ctypes.addressof(strides),
                  torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"variant launch failed ({err})")
@@ -204,7 +175,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--variants", action="store_true")
-    parser.add_argument("--designs", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_attn_bwd: CUDA is not available", file=sys.stderr)
@@ -286,44 +256,6 @@ def main() -> int:
                  main_ms={n: sum(t) / len(t) for n, t in times.items()}, turns=times)
             del q, k, v, o, do, lse, calls
 
-    if args.designs:
-        ordered = _variant_entries({"as_is": [], **ORDERED_VARIANTS},
-                                   os.path.join(ROOT, "build", "attn_bwd_designs"),
-                                   source=ORDERED, argtypes=ORDERED_ARGTYPES)
-        for i, (b, h, l, d, entry) in enumerate(cs.BWD_SHAPES):
-            if entry == "bloq" or d not in tattn.SM90_HEAD_DIMS:
-                continue
-            layout = "heads_first" if entry == "heads_first" else "merged"
-            q, k, v, o, do, lse = _inputs(dev, b, h, l, d, layout, seed=i)
-            kept = lambda: tattn.flash_attention_bwd(q, k, v, o, do, lse, layout)  # noqa: E731
-            other = _call_entry(ordered["as_is"], q, k, v, o, do, lse, layout, ordered=True)
-            capped = _call_entry(ordered["as_is"], q, k, v, o, do, lse, layout, ordered=True,
-                                 max_ctas=2)
-            refs = tattn.flash_attention_bwd_plain(q, k, v, o, do, lse, layout)
-            first = [x.clone() for x in other()]
-            same = [bool(torch.equal(x, y)) for x, y in zip(first, other())]
-            same_capped = [bool(torch.equal(x, y)) for x, y in zip(first, capped())]
-            rel = {f"d{n}": cs._rel_err(x, r) for n, x, r in zip("qkv", first, refs)}
-            if max(rel.values()) > cs.BWD_REL_TOL or not all(same + same_capped):
-                raise RuntimeError(f"the ordered design at {(b, h, l, d, entry)}: {rel}, same "
-                                   f"bits on two calls {same}, capped {same_capped}")
-            turns = {"kept": [], "other": []}
-            for name in ("kept", "other", "other", "kept"):
-                fn = kept if name == "kept" else other
-                turns[name].append((cs.time_ms(fn, dev, args.iters),
-                                    cs.device_ms(fn, args.iters)))
-            mean = {n: [sum(x[j] for x in ts) / len(ts) for j in range(2)]
-                    for n, ts in turns.items()}
-            calls = {name: _call_entry(fn, q, k, v, o, do, lse, layout, ordered=True)
-                     for name, fn in ordered.items()}
-            main = {name: [] for name in calls}
-            for name in list(calls) + list(calls)[::-1]:
-                main[name].append(cs.device_ms(calls[name], args.iters, match=MAIN_SYMBOL))
-            emit(kind="design", shape=[b, h, l, d], entry=entry, other_rel_err=rel,
-                 kept_ms=mean["kept"][0], kept_device_ms=mean["kept"][1],
-                 other_ms=mean["other"][0], other_device_ms=mean["other"][1], turns=turns,
-                 other_main_ms={n: sum(t) / len(t) for n, t in main.items()}, main_turns=main)
-            del q, k, v, o, do, lse, kept, other, capped, first, refs, calls
     return 0
 
 
