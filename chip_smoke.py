@@ -3273,7 +3273,10 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
        process) with ``CHIP_CREATOR_FLAGS`` on the card, then on the CPU
        (the granules selected and the tile decoded once, by the card run;
        the CPU run's chip math gets copies of the same selections and
-       arrays): every file equal byte for byte; the whole grid of
+       arrays) with the observations as Parquet (``--data_format=parquet``,
+       the file written from the CSV's records by ``data/parquet.py``):
+       every file equal byte for byte, the Parquet records caches included
+       (Parquet input = CSV input); the whole grid of
        ``chip``-px chips written (18 bands, uint16), each chip equal to the tile's pixels in
        the selected granules' order with the cloud bit's pixels 0, each seg
        map's singly-labelled pixels equal to the points' labels; the chip
@@ -3284,9 +3287,14 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
        prediction per chip, 12 forward launches per chip batch on wgmma,
        none on mma.sync;
     3. ``raster_chip_creator`` with ``--is_bbox_feature=true`` over the bbox of
-       the tile's pixels ``raster_px`` (col0, row0, col1, row1), on the card
-       then on the CPU: the same files (the manifest's absolute paths aside),
-       the grid chips written, wall seconds.
+       the tile's pixels ``raster_px`` (col0, row0, col1, row1), on the card,
+       then on the CPU resuming from a copy of the card run's
+       ``hls_dataset.json`` and ``filtered_raster_records.parquet`` with the
+       STAC search raising: the same files (the manifest's absolute paths
+       aside), the grid chips written, no search on resume, wall seconds;
+    4. ``tests/torch_fixtures/observations.parquet`` (written by pandas:
+       Snappy, dictionaries, a ``time`` column, a null, a ``list<double>``)
+       read by ``data/parquet.py`` equal to its expected records.
 
     ``extra``: run-CLI overrides (a CPU rehearsal's tiny model). ``keep``: a
     directory that gets the card run's output directory (``points``) and the
@@ -3294,6 +3302,7 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
     os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
     import copy
     import csv
+    import shutil
 
     import torch
 
@@ -3301,8 +3310,10 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
     from instageo_tpu_torch.data import chip_creator, pipeline, raster_chip_creator, stac
     from instageo_tpu_torch.data.crs import utm_to_latlon
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
+    from instageo_tpu_torch.data.parquet import read_table, write_records
     from instageo_tpu_torch.data.settings import DATA_PIPELINE_SETTINGS
     from instageo_tpu_torch.data.sources import hls
+    from instageo_tpu_torch.data.table import read_csv
     from instageo_tpu_torch.train import run
     from instageo_tpu_torch.train.checkpointing import BestCheckpointer
     from instageo_tpu_torch.train.factory import create_model
@@ -3335,7 +3346,12 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
             w.writerow(["x", "y", "label", "date"])
             w.writerows((repr(float(a)), repr(float(b)), int(c), OBS_DATE)
                         for a, b, c in zip(plon, plat, labels))
-        clock.lap(f"wrote the tile and {n_points} observations")
+        # The CPU run reads the same observations from Parquet.
+        obs_parquet = os.path.join(root, "observations.parquet")
+        write_records(obs_parquet, read_csv(obs)[0])
+        obs_args = {"card": [f"--dataframe_path={obs}"],
+                    "cpu": [f"--dataframe_path={obs_parquet}", "--data_format=parquet"]}
+        clock.lap(f"wrote the tile and {n_points} observations (CSV and Parquet)")
 
         rec = {}
         opener, chip_fn = hls.open_hls_stac_items, pipeline.process_tile_chips
@@ -3408,7 +3424,7 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                chip_creator.main([f"--dataframe_path={obs}", f"--output_directory={out[name]}",
+                chip_creator.main([*obs_args[name], f"--output_directory={out[name]}",
                                    *CHIP_CREATOR_FLAGS, f"--device={dev.type}"])
                 wall = time.perf_counter() - t0
                 counts = read_counts()
@@ -3431,6 +3447,8 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
             tiles.clear()
             selections.clear()
             files = _same_trees(out["card"], out["cpu"], "chip_creator")
+            check(os.path.exists(os.path.join(out["cpu"], chip_creator.RECORDS_CACHE)),
+                  f"no {chip_creator.RECORDS_CACHE}")
             clock.lap("compared")
 
             # --- what came out -------------------------------------------------
@@ -3480,9 +3498,10 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                 check(int((seg != -1).sum()) <= len(cells), f"seg map ({cx}, {cy}) labels "
                       f"{int((seg != -1).sum())} px for {len(cells)} points")
             print(f"[chip_creator] {n_points} points, {size}² px tile, T=3: {len(manifest)} "
-                  f"chips of 18x{chip}x{chip} and as many seg maps, {files} files, card = CPU "
-                  f"byte for byte; chips {probe} = the tile's pixels with the cloud bit 0; "
-                  f"launches during chip creation 0", flush=True)
+                  f"chips of 18x{chip}x{chip} and as many seg maps, {files} files, card (CSV "
+                  f"observations) = CPU (Parquet observations) byte for byte, "
+                  f"{chip_creator.RECORDS_CACHE} included; chips {probe} = the tile's pixels "
+                  f"with the cloud bit 0; launches during chip creation 0", flush=True)
             for name, r in runs.items():
                 copied = " (a copy of the card run's)" if r["decode_reused"] else ""
                 print(f"[chip_creator] --device={'cuda' if name == 'card' else 'cpu'}: wall "
@@ -3542,17 +3561,31 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
             with open(bbox_path, "w") as f:
                 json.dump({"bboxes": [[float(blon.min()), float(blat.min()),
                                        float(blon.max()), float(blat.max())]]}, f)
-            raster = {}
+            # The CPU run resumes from the card run's search results: its
+            # dataset JSON and Parquet records, with the search raising.
+            raster, searched = {}, []
+
+            def no_search(self, **kw):
+                searched.append(kw)
+                raise AssertionError("the raster chip creator searched on resume")
+
             for name, dev in (("card", device), ("cpu", cpu)):
                 d = os.path.join(root, f"raster_{name}")
+                if name == "cpu":
+                    os.makedirs(d)
+                    for f in ("hls_dataset.json", raster_chip_creator.RECORDS_CACHE):
+                        shutil.copy(os.path.join(raster["card"]["dir"], f), d)
                 reset_counts()
                 t0 = time.perf_counter()
-                raster_chip_creator.main([f"--bbox_feature_path={bbox_path}",
-                                          f"--output_directory={d}", *RASTER_FLAGS,
-                                          f"--device={dev.type}"])
+                with mock.patch.object(stac.StacClient, "search",
+                                       no_search if name == "cpu" else search):
+                    raster_chip_creator.main([f"--bbox_feature_path={bbox_path}",
+                                              f"--output_directory={d}", *RASTER_FLAGS,
+                                              f"--device={dev.type}"])
                 raster[name] = dict(dir=d, wall_s=time.perf_counter() - t0)
                 check(not any(read_counts().values()), "raster chip creation launched kernels")
                 clock.lap(f"raster_chip_creator --device={dev.type}")
+            check(not searched, f"the raster resume searched {len(searched)} times")
         rfiles = _same_trees(raster["card"]["dir"], raster["cpu"]["dir"], "raster_chip_creator",
                              relative_csv="hls_raster_dataset.csv")
         with open(os.path.join(raster["card"]["dir"], "hls_raster_dataset.csv"),
@@ -3565,9 +3598,24 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                 check((r.count, r.height, r.width) == (18, chip, chip)
                       and r.dtypes[0] == "uint16", f"raster chip {g['Input']}")
         print(f"[chip_creator] raster_chip_creator --is_bbox_feature=true: {len(grid)} grid "
-              f"chips of 18x{chip}x{chip}, {rfiles} files, card = CPU byte for byte; wall "
+              f"chips of 18x{chip}x{chip}, {rfiles} files, card = CPU (resumed from the card "
+              f"run's {raster_chip_creator.RECORDS_CACHE}, no search) byte for byte; wall "
               f"{raster['card']['wall_s']:.3f} s on the card, {raster['cpu']['wall_s']:.3f} s "
               f"on the CPU", flush=True)
+
+        # --- a pandas-written Parquet file, read without pyarrow ---------------
+        fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                               "torch_fixtures", "observations")
+        t0 = time.perf_counter()
+        rows = read_table(fixture + ".parquet")
+        fixture_s = time.perf_counter() - t0
+        with open(fixture + ".json") as f:
+            expected = json.load(f)
+        check(json.loads(json.dumps(rows, default=str)) == expected,
+              "tests/torch_fixtures/observations.parquet reads as other records than its JSON")
+        print(f"[chip_creator] tests/torch_fixtures/observations.parquet (pandas, Snappy, "
+              f"dictionaries): {len(rows)} rows of {list(rows[0])} equal to its JSON, read in "
+              f"{fixture_s:.4f} s", flush=True)
         if keep:
             os.replace(out["card"], os.path.join(keep, "points"))
             os.replace(obs, os.path.join(keep, "observations.csv"))
@@ -4965,6 +5013,17 @@ def main() -> int:
     print(smi, flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    # Imported in a child interpreter: this process stays without them.
+    probe = subprocess.run([sys.executable, "-c", (
+        "import importlib\n"
+        "for m in ('pyarrow', 'pandas'):\n"
+        "    try:\n"
+        "        print(f'{m} {importlib.import_module(m).__version__} imports')\n"
+        "    except ImportError as e:\n"
+        "        print(f'{m} does not import ({e})')\n")],
+        capture_output=True, text=True, timeout=300)
+    print("[host] " + "; ".join(probe.stdout.split("\n")[:2]) + " (the port reads and "
+          "writes Parquet with instageo_tpu_torch/data/parquet.py either way)", flush=True)
 
     t0 = time.perf_counter()
     names = _build.sources()
@@ -5056,12 +5115,15 @@ def main() -> int:
         f"{s} {m['device']:.1f} ms on the card, {m['cpu']:.1f} on the CPU"
         for s, m in chip_ms.items()), flush=True)
     kept = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
     created = chip_creator_phase(device, smi, keep=kept.name)
+    phase_s = time.perf_counter() - t0
     clock.lap("chip_creator")
     card, host = created["runs"]["card"], created["runs"]["cpu"]
-    print(f"[chip_creator] {smi}: {created['chips']} chips; wall {card['wall_s']:.3f} s on the "
-          f"card ({host['wall_s']:.3f} on the CPU), decode {card['decode_s']:.3f} s, "
-          f"process_tile_chips {card['process_tile_chips_s']:.3f} s on the card "
+    print(f"[chip_creator] {smi}: phase wall {phase_s:.3f} s; {created['chips']} chips; wall "
+          f"{card['wall_s']:.3f} s on the card ({host['wall_s']:.3f} on the CPU), decode "
+          f"{card['decode_s']:.3f} s, process_tile_chips "
+          f"{card['process_tile_chips_s']:.3f} s on the card "
           f"({host['process_tile_chips_s']:.3f} on the CPU), peak "
           f"{card['peak_device_bytes'] / 2**30:.3f} GiB; chip_inference "
           f"{created['chip_inference']['wall_s']:.3f} s; raster "

@@ -5,18 +5,17 @@
 
 The port's own copy of ``instageo_tpu/data/chip_creator.py``, with the same
 flags (``data/flags.py``, absl's spellings accepted) and output files: read
-the observations (CSV, or Parquet through pyarrow where it is installed),
-combine date and time, assign MGRS tiles (density filter), search STAC per
-source, cache the granule dataset (``{src}_dataset.json``) and the filtered
-records for resume, then run the chip pipeline, whose chip math runs on
-``--device`` (``cuda`` by default; without a card the CLI raises unless
-``--device=cpu`` is given).
+the observations (CSV, or Parquet with ``--filters``), combine date and
+time, assign MGRS tiles (density filter), search STAC per source, cache the
+granule dataset (``{src}_dataset.json``) and the filtered records
+(``filtered_obsv_records.parquet``) for resume, then run the chip pipeline,
+whose chip math runs on ``--device`` (``cuda`` by default; without a card
+the CLI raises unless ``--device=cpu`` is given).
 
-One deliberate difference: the JAX CLI caches its filtered records as
-Parquet (``filtered_obsv_records.parquet``); this one writes JSON
-(``filtered_obsv_records.json``), so it needs neither pandas nor pyarrow.
-It resumes a directory the JAX CLI started from its Parquet cache where
-pyarrow imports (``data/table.py:load_cached_records``).
+Parquet is read and written by ``data/parquet.py``, without pandas or
+pyarrow, so either package's CLI resumes a directory the other started, on
+any host (a directory whose records the port cached as JSON, before it
+wrote Parquet, resumes too).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from datetime import timedelta
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from instageo_tpu_torch.data import flags as _flags
+from instageo_tpu_torch.data.parquet import read_table, write_records
 from instageo_tpu_torch.data.pipeline import get_tiles
 from instageo_tpu_torch.data.sources import hls, s1, s2
 from instageo_tpu_torch.data.stac import create_records_with_items
@@ -38,13 +38,12 @@ from instageo_tpu_torch.data.table import (
     group_by,
     load_cached_records,
     read_csv,
-    save_records,
     to_datetime,
     to_timedelta,
 )
 from instageo_tpu_torch.device import resolve_device
 
-RECORDS_CACHE = "filtered_obsv_records.json"
+RECORDS_CACHE = "filtered_obsv_records.parquet"
 
 DATA_SOURCE_CONFIG: Dict[str, Dict[str, Any]] = {
     "HLS": {
@@ -77,7 +76,7 @@ DATA_SOURCE_CONFIG: Dict[str, Dict[str, Any]] = {
 
 
 def parse_filters(raw: list) -> list:
-    """col:op:value triplets -> pyarrow filter tuples."""
+    """col:op:value triplets -> ``(column, op, value)`` filter tuples."""
     filters = []
     for spec in raw:
         col, op, value = spec.split(":", 2)
@@ -90,16 +89,12 @@ def parse_filters(raw: list) -> list:
 
 
 def read_observations(path: str, data_format: str, filters: Sequence[str]) -> List[Record]:
-    """The observation records of a CSV file, or of a Parquet file through
-    pyarrow (imported here; where it is missing, Parquet input is refused)."""
+    """The observation records of a CSV file, or of a Parquet file with
+    ``filters`` (``col:op:value``) applied as ``pd.read_parquet`` applies
+    them."""
     if data_format != "parquet":
         return read_csv(path)[0]
-    try:
-        import pyarrow.parquet as pq
-    except ImportError as e:
-        raise ImportError("--data_format=parquet reads through pyarrow, which is not "
-                          "installed; convert the observations to CSV") from e
-    return pq.read_table(path, filters=parse_filters(filters) if filters else None).to_pylist()
+    return read_table(path, filters=parse_filters(filters) if filters else None)
 
 
 def localize_granules(dataset: Dict[str, Any], out_dir: str,
@@ -179,8 +174,8 @@ def process_data_source(
             with_items, granules_field, items_field)
         with open(dataset_file, "w") as f:
             json.dump(dataset, f, indent=4)
-        save_records(records_file, [{k: v for k, v in r.items() if k != "tile_queries"}
-                                    for r in filtered_records])
+        write_records(records_file, [{k: v for k, v in r.items() if k != "tile_queries"}
+                                     for r in filtered_records])
     else:
         logging.info("%s dataset JSON already created", data_source)
         with open(dataset_file) as f:

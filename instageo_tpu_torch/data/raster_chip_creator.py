@@ -11,10 +11,10 @@ same flags and output files (``{src}_dataset.json``, the chips and seg maps,
 names a CSV of label rasters, or with ``--is_bbox_feature`` a JSON of
 bounding boxes (the web-backend path); chips are cut on a fixed grid aligned
 to the label rasters / bboxes and QA-masked on ``--device`` (``cuda`` by
-default). S1 is not supported. The filtered records are cached as JSON
-(``filtered_raster_records.json``) where the JAX CLI writes Parquet; a
-directory the JAX CLI started resumes from its Parquet cache where pyarrow
-imports.
+default). S1 is not supported. The filtered records are cached as
+``filtered_raster_records.parquet`` by ``data/parquet.py`` (no pandas or
+pyarrow), so either package's CLI resumes a directory the other started, on
+any host.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from instageo_tpu_torch.data import flags as _flags
 from instageo_tpu_torch.data.crs import Transformer
 from instageo_tpu_torch.data.geo_utils import create_grid_polygons, get_polygon_tile_ids
 from instageo_tpu_torch.data.geotiff import GeoTiffReader
+from instageo_tpu_torch.data.parquet import write_records
 from instageo_tpu_torch.data.sources import hls, s2
 from instageo_tpu_torch.data.stac import create_records_with_items
 from instageo_tpu_torch.data.table import (
@@ -36,12 +37,11 @@ from instageo_tpu_torch.data.table import (
     explode,
     load_cached_records,
     read_csv,
-    save_records,
     to_datetime,
 )
 from instageo_tpu_torch.device import resolve_device
 
-RECORDS_CACHE = "filtered_raster_records.json"
+RECORDS_CACHE = "filtered_raster_records.parquet"
 
 RASTER_SOURCE_CONFIG = {
     "HLS": {
@@ -140,8 +140,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             with_items, config["granules_field"], config["items_field"])
         with open(dataset_file, "w") as f:
             json.dump(dataset, f, indent=4)
-        save_records(records_file, [{k: v for k, v in r.items() if k != "tile_queries"}
-                                    for r in filtered])
+        write_records(records_file, [{k: v for k, v in r.items() if k != "tile_queries"}
+                                     for r in filtered])
     else:
         with open(dataset_file) as f:
             dataset = json.load(f)

@@ -15,10 +15,11 @@ an output depends on them:
   columns is one empty line);
 * ``group_by`` (keys in sorted order, rows in order), ``drop_duplicates``
   (the first or last row of each key, in row order), ``explode``;
-* ``save_records`` / ``load_records``: the filtered records cached as JSON,
-  with their datetime columns; ``load_cached_records`` also reads the
-  Parquet cache a JAX CLI wrote (``load_parquet_records``, through pyarrow
-  where it imports), so either package resumes the other's directory.
+* ``load_cached_records``: the chip creators' filtered-records cache,
+  ``filtered_*_records.parquet`` as both packages write it (read by
+  ``data/parquet.py``, no pyarrow), else the JSON that the port wrote
+  before it wrote Parquet, so either package resumes the other's directory
+  on any host.
 """
 
 from __future__ import annotations
@@ -26,12 +27,13 @@ from __future__ import annotations
 import csv
 import io
 import json
-import logging
 import math
 import os
 import re
 from datetime import datetime, timedelta
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+from instageo_tpu_torch.data.parquet import read_table
 
 Record = Dict[str, Any]
 
@@ -161,69 +163,24 @@ def explode(rows: Sequence[Record], key: str) -> List[Record]:
     return [{**r, key: v} for r in rows for v in r[key]]
 
 
-def save_records(path: str, rows: Sequence[Record]) -> None:
-    """Records as JSON; datetime values as ISO strings, their columns named."""
-    dt_cols = sorted({k for r in rows for k, v in r.items() if isinstance(v, datetime)})
-    out = [{k: v.isoformat() if isinstance(v, datetime) else v for k, v in r.items()}
-           for r in rows]
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump({"datetime_columns": dt_cols, "records": out}, f)
-    os.replace(tmp, path)
-
-
-def load_records(path: str) -> List[Record]:
-    """What ``save_records`` wrote, with the datetime columns parsed back."""
-    with open(path) as f:
+def load_cached_records(parquet_path: str) -> Optional[List[Record]]:
+    """The filtered records cached at ``parquet_path``, else in the JSON
+    file of the same name (``{"datetime_columns": [...], "records": [...]}``,
+    what the port wrote before it wrote Parquet); None where there is
+    neither."""
+    if os.path.exists(parquet_path):
+        return read_table(parquet_path)
+    json_path = os.path.splitext(parquet_path)[0] + ".json"
+    if not os.path.exists(json_path):
+        return None
+    with open(json_path) as f:
         payload = json.load(f)
-    dt_cols = payload["datetime_columns"]
     rows = payload["records"]
     for r in rows:
-        for c in dt_cols:
+        for c in payload["datetime_columns"]:
             if r.get(c) is not None:
                 r[c] = datetime.fromisoformat(r[c])
     return rows
-
-
-def load_parquet_records(path: str) -> List[Record]:
-    """The records of a DataFrame that ``to_parquet`` wrote, read through
-    pyarrow (imported here), as ``load_records`` gives them: the saved
-    index left out, timestamps as ``datetime``, lists as lists, a missing
-    float as NaN (Parquet keeps pandas' NaN as a null)."""
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
-    table = pq.read_table(path)
-    index = [c for c in (table.schema.pandas_metadata or {}).get("index_columns", [])
-             if isinstance(c, str)]
-    table = table.drop_columns(index)
-    floats = {f.name for f in table.schema if pa.types.is_floating(f.type)}
-    rows = table.to_pylist()
-    for r in rows:
-        for k, v in r.items():
-            if v is None and k in floats:
-                r[k] = math.nan
-            elif hasattr(v, "to_pydatetime"):
-                r[k] = v.to_pydatetime()
-    return rows
-
-
-def load_cached_records(json_path: str) -> Optional[List[Record]]:
-    """The filtered records cached at ``json_path`` (``save_records``'s
-    JSON), else in the Parquet file of the same name that a JAX CLI wrote,
-    where pyarrow imports; None where there is neither cache to read."""
-    if os.path.exists(json_path):
-        return load_records(json_path)
-    parquet_path = os.path.splitext(json_path)[0] + ".parquet"
-    if not os.path.exists(parquet_path):
-        return None
-    try:
-        import pyarrow  # noqa: F401
-    except ImportError:
-        logging.warning("%s holds the records in Parquet, which is read through pyarrow; "
-                        "it is not installed, so the search runs again", parquet_path)
-        return None
-    return load_parquet_records(parquet_path)
 
 
 def to_datetime(value: Any) -> datetime:

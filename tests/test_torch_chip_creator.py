@@ -7,8 +7,10 @@ of them, observation CSVs or label rasters, 32 px chips, as
 CLI with ``--device=cpu``. Tolerance: every file written is equal: GeoTIFF
 arrays, dtype, transform, CRS and nodata bit for bit; JSON equal; CSV rows
 equal as sets (the raster manifest's absolute paths taken relative to each
-output directory). The records cache is the one deliberate difference
-(Parquet there, JSON here), so it is compared as records.
+output directory); the Parquet records caches equal as the DataFrames
+``pd.read_parquet`` gives (``assert_frame_equal``, dtypes checked, exact).
+Either CLI resumes a directory the other started, the port's with pyarrow
+and pandas unimportable (a host without them).
 
 The STAC search and the asset loads are rate limited per process (10
 searches and 30 loads a minute); these tests call the functions under the
@@ -22,6 +24,7 @@ import csv
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pandas as pd
@@ -38,8 +41,8 @@ from instageo_tpu.data.sources import s2 as jax_s2
 from instageo_tpu_torch.data import chip_creator, downloads, raster_chip_creator, stac
 from instageo_tpu_torch.data.crs import latlon_to_utm, utm_to_latlon
 from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
+from instageo_tpu_torch.data.parquet import read_table
 from instageo_tpu_torch.data.sources import hls, s1, s2
-from instageo_tpu_torch.data.table import load_records
 
 TILE = 64
 CHIP = 32
@@ -143,7 +146,7 @@ def _granules(root, source, when, seed=0):
 POINTS = [(5, 5, 1), (CHIP + 5, CHIP + 7, 0), (6, 8, 1), (CHIP + 20, 3, 1), (50, 40, 0)]
 
 
-def _observations(path, date, time=None, labels=None, fmt="csv"):
+def _observations(path, date, time=None, labels=None, fmt="csv", blank=None):
     rows = []
     for i, (px, py, label) in enumerate(POINTS):
         lon, lat = _lonlat(px + 0.5, py + 0.5)
@@ -151,6 +154,8 @@ def _observations(path, date, time=None, labels=None, fmt="csv"):
                "date": date}
         if time:
             row["time"] = time
+        if blank:  # a column the user left empty
+            row[blank] = None
         rows.append(row)
     df = pd.DataFrame(rows)
     if fmt == "parquet":
@@ -194,8 +199,7 @@ def assert_same_outputs(jax_dir, port_dir, index_column=False):
         return sorted(os.path.relpath(os.path.join(r, f), d)
                       for r, _, fs in os.walk(d) for f in fs)
 
-    jf = [f for f in files(jax_dir) if not f.endswith(".parquet")]
-    pf = [f for f in files(port_dir) if not f.startswith("filtered_")]
+    jf, pf = files(jax_dir), files(port_dir)
     assert jf == pf
     for rel in jf:
         a, b = os.path.join(jax_dir, rel), os.path.join(port_dir, rel)
@@ -214,22 +218,12 @@ def assert_same_outputs(jax_dir, port_dir, index_column=False):
             assert ha == hb and ra_ == rb_, rel
             if index_column:
                 assert ha[0] == ""
+        elif rel.endswith(".parquet"):
+            pd.testing.assert_frame_equal(pd.read_parquet(a), pd.read_parquet(b),
+                                          check_exact=True, obj=rel)
         else:
             with open(a, "rb") as fa, open(b, "rb") as fb:
                 assert fa.read() == fb.read(), rel
-    # The records cache: Parquet on the JAX side, JSON here.
-    caches = [f for f in os.listdir(jax_dir) if f.endswith(".parquet")]
-    for name in caches:
-        jrec = pd.read_parquet(os.path.join(jax_dir, name)).to_dict("records")
-        prec = load_records(os.path.join(port_dir, name.replace(".parquet", ".json")))
-        assert len(jrec) == len(prec)
-        for j, p in zip(jrec, prec):
-            assert set(j) == set(p)
-            for k in j:
-                jv = j[k].to_pydatetime() if isinstance(j[k], pd.Timestamp) else j[k]
-                jv = list(jv) if isinstance(jv, np.ndarray) else jv
-                pv = list(p[k]) if isinstance(p[k], (list, tuple)) else p[k]
-                assert jv == pv, (name, k)
     return jf
 
 
@@ -261,6 +255,19 @@ CASES = {
         args=["--data_source=S1", "--chip_size=32", "--min_count=1",
               "--shift_to_month_start=false", "--is_time_series_task=false",
               "--task_type=reg", "--window_size=2"]),
+    # A user's CSV with an unused column whose cells are all blank.
+    "hls_points_blank_column": dict(
+        source="HLS", when=["2022-05-25T10:00:00Z"], date="2022-05-25", blank="notes",
+        args=["--data_source=HLS", "--chip_size=32", "--min_count=1",
+              "--shift_to_month_start=false", "--is_time_series_task=false"]),
+    "hls_points_utc_date": dict(
+        source="HLS", when=["2022-05-25T10:00:00Z"], date="2022-05-25T08:00:00Z",
+        args=["--data_source=HLS", "--chip_size=32", "--min_count=1",
+              "--shift_to_month_start=false", "--is_time_series_task=false"]),
+    "hls_points_offset_date": dict(
+        source="HLS", when=["2022-05-25T10:00:00Z"], date="2022-05-25T08:00:00+02:00",
+        args=["--data_source=HLS", "--chip_size=32", "--min_count=1",
+              "--shift_to_month_start=false", "--is_time_series_task=false"]),
     "hls_parquet_filters": dict(
         source="HLS", when=["2022-05-25T10:00:00Z"], date="2022-05-25", fmt="parquet",
         args=["--data_source=HLS", "--data_format=parquet", "--filters=label:==:1",
@@ -276,7 +283,7 @@ def test_point_chip_creator_equals_jax(tmp_path, monkeypatch, case):
     _search_returns(monkeypatch, items)
     fmt = spec.get("fmt", "csv")
     obs = _observations(str(tmp_path / f"obs.{fmt}"), spec["date"], spec.get("time"),
-                        spec.get("labels"), fmt)
+                        spec.get("labels"), fmt, spec.get("blank"))
     jdir, pdir = _run_both(tmp_path, (jax_cc, chip_creator),
                            spec["args"] + [f"--dataframe_path={obs}"])
     files = assert_same_outputs(jdir, pdir)
@@ -421,61 +428,132 @@ def test_raster_chip_creator_equals_jax(tmp_path, monkeypatch, variant):
     assert len(labels) == (0 if variant == "bbox_feature" else len(chips))
 
 
-@pytest.mark.parametrize("creator", ["points", "raster"])
-def test_port_resumes_a_directory_the_jax_cli_started(tmp_path, monkeypatch, creator):
-    """The JAX CLI searches and writes its Parquet records cache; the port's
-    CLI, run on that directory with the STAC search raising, reads the
-    cache (pyarrow is installed here) and writes the chips, seg maps and
-    manifest the JAX run wrote, file for file, and no JSON cache."""
-    items = _granules(str(tmp_path), "HLS", ["2022-05-25T10:00:00Z"])
-    _search_returns(monkeypatch, items)
+def _without_pyarrow(m):
+    """Within the monkeypatch context ``m``, pyarrow and pandas cannot be
+    imported (a host without them)."""
+    for name in list(sys.modules):
+        if name.split(".")[0] in ("pyarrow", "pandas"):
+            m.setitem(sys.modules, name, None)
+    m.setitem(sys.modules, "pyarrow", None)
+    m.setitem(sys.modules, "pandas", None)
+
+
+def _resume_case(tmp_path, creator):
+    """The flags and (JAX, port) modules of a resume test's run."""
     if creator == "points":
         spec = CASES["hls_points_cloud"]
         obs = _observations(str(tmp_path / "obs.csv"), spec["date"])
-        args = spec["args"] + [f"--dataframe_path={obs}"]
-        modules = (jax_cc, chip_creator)
-    else:
-        args = ["--data_source=HLS", "--chip_size=32", "--num_steps=1", "--mask_types=cloud",
-                "--temporal_tolerance=3", f"--records_file={_label_rasters(str(tmp_path))}",
-                f"--raster_path={tmp_path}"]
-        modules = (jax_rcc, raster_chip_creator)
-    jdir, pdir = str(tmp_path / "out_jax"), str(tmp_path / "out_port")
-    modules[0].FLAGS.unparse_flags()
-    modules[0].FLAGS(["prog"] + args + [f"--output_directory={jdir}"])
-    modules[0].main(None)
-    shutil.copytree(jdir, pdir)
-    for name in os.listdir(pdir):  # the search's results stay; the chips go
-        if not (name.endswith("_dataset.json") or name.endswith(".parquet")):
-            path = os.path.join(pdir, name)
+        return spec["args"] + [f"--dataframe_path={obs}"], (jax_cc, chip_creator)
+    args = ["--data_source=HLS", "--chip_size=32", "--num_steps=1", "--mask_types=cloud",
+            "--temporal_tolerance=3", f"--records_file={_label_rasters(str(tmp_path))}",
+            f"--raster_path={tmp_path}"]
+    return args, (jax_rcc, raster_chip_creator)
+
+
+def _run_jax(module, args, out_dir):
+    module.FLAGS.unparse_flags()
+    module.FLAGS(["prog"] + args + [f"--output_directory={out_dir}"])
+    module.main(None)
+
+
+def _keep_search_results(src, dst):
+    """``dst``: a copy of the output directory ``src`` with only what the
+    search left (the dataset JSON and the records cache); the chips go."""
+    shutil.copytree(src, dst)
+    for name in os.listdir(dst):
+        if not (name.endswith("_dataset.json") or name.startswith("filtered_")):
+            path = os.path.join(dst, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
 
-    def no_search(self, **kw):
-        raise AssertionError("the STAC search ran on resume")
 
-    monkeypatch.setattr(stac.StacClient, "search", no_search)
-    modules[1].main(args + [f"--output_directory={pdir}", "--device=cpu"])
+def _no_search(self, **kw):
+    raise AssertionError("the STAC search ran on resume")
 
-    def files(d):
-        return sorted(os.path.relpath(os.path.join(r, f), d)
-                      for r, _, fs in os.walk(d) for f in fs)
 
-    assert files(jdir) == files(pdir)
-    chips = [f for f in files(jdir) if f.startswith("chips/")]
-    assert chips and not any(f.startswith("filtered_") and f.endswith(".json")
-                             for f in files(pdir))
-    for rel in files(jdir):
-        a, b = os.path.join(jdir, rel), os.path.join(pdir, rel)
-        if rel.endswith(".tif"):
-            with JaxGeoTiffReader(a) as ra, JaxGeoTiffReader(b) as rb:
-                assert np.array_equal(ra.read(), rb.read(), equal_nan=True), rel
-                assert ra.read().dtype == rb.read().dtype, rel
-                assert ra.transform.to_gdal() == rb.transform.to_gdal(), rel
-                assert (ra.crs, ra.nodata) == (rb.crs, rb.nodata), rel
-        elif rel.endswith(".csv"):
-            assert _csv_rows(a, jdir) == _csv_rows(b, pdir), rel
-        else:
-            with open(a, "rb") as fa, open(b, "rb") as fb:
-                assert fa.read() == fb.read(), rel
+RESUME = [("points", False), ("raster", False), ("points", True), ("raster", True)]
+
+
+@pytest.mark.parametrize("creator,blocked", RESUME,
+                         ids=[c + ("-no-pyarrow" if b else "") for c, b in RESUME])
+def test_port_resumes_a_directory_the_jax_cli_started(tmp_path, monkeypatch, creator,
+                                                      blocked):
+    """The JAX CLI searches and writes its Parquet records cache; the port's
+    CLI, run on that directory with the STAC search raising (and, with
+    ``blocked``, with pyarrow and pandas unimportable), reads the cache and
+    writes the chips, seg maps and manifest the JAX run wrote, file for
+    file, and no JSON cache."""
+    items = _granules(str(tmp_path), "HLS", ["2022-05-25T10:00:00Z"])
+    _search_returns(monkeypatch, items)
+    args, modules = _resume_case(tmp_path, creator)
+    jdir, pdir = str(tmp_path / "out_jax"), str(tmp_path / "out_port")
+    _run_jax(modules[0], args, jdir)
+    _keep_search_results(jdir, pdir)
+    cache = [f for f in os.listdir(pdir) if f.startswith("filtered_")]
+    assert len(cache) == 1 and cache[0].endswith("_records.parquet")
+    with open(os.path.join(pdir, cache[0]), "rb") as f:
+        jax_cache = f.read()
+
+    monkeypatch.setattr(stac.StacClient, "search", _no_search)
+    with monkeypatch.context() as m:
+        if blocked:
+            _without_pyarrow(m)
+        modules[1].main(args + [f"--output_directory={pdir}", "--device=cpu"])
+
+    files = assert_same_outputs(jdir, pdir, index_column=creator == "raster")
+    assert [f for f in files if f.startswith("chips/")]
+    assert not any(f.endswith("records.json") for f in files)
+    with open(os.path.join(pdir, cache[0]), "rb") as f:
+        assert f.read() == jax_cache  # read, not rewritten
+
+
+@pytest.mark.parametrize("creator", ["points", "raster"])
+def test_jax_cli_resumes_a_directory_the_port_started(tmp_path, monkeypatch, creator):
+    """The port's CLI, with pyarrow and pandas unimportable (a host
+    without them), searches and writes its Parquet records cache; the JAX
+    CLI, run on that directory with its STAC search raising, reads the cache
+    and writes the chips, seg maps and manifest that a JAX run from the
+    start writes, file for file."""
+    items = _granules(str(tmp_path), "HLS", ["2022-05-25T10:00:00Z"])
+    _search_returns(monkeypatch, items)
+    args, modules = _resume_case(tmp_path, creator)
+    jdir, port_dir = str(tmp_path / "out_jax"), str(tmp_path / "out_port")
+    resumed = str(tmp_path / "out_resumed")
+    _run_jax(modules[0], args, jdir)
+    with monkeypatch.context() as m:
+        _without_pyarrow(m)
+        modules[1].main(args + [f"--output_directory={port_dir}", "--device=cpu"])
+    assert os.path.exists(os.path.join(port_dir, modules[1].RECORDS_CACHE))
+    _keep_search_results(port_dir, resumed)
+
+    monkeypatch.setattr(jax_stac.StacClient, "search", _no_search)
+    _run_jax(modules[0], args, resumed)
+    files = assert_same_outputs(jdir, resumed, index_column=creator == "raster")
+    assert [f for f in files if f.startswith("chips/")]
+
+
+def test_port_resumes_its_json_cache(tmp_path, monkeypatch):
+    """A directory the port started before it wrote Parquet (its records
+    cached as ``filtered_obsv_records.json``) resumes without a search."""
+    items = _granules(str(tmp_path), "HLS", ["2022-05-25T10:00:00Z"])
+    _search_returns(monkeypatch, items)
+    args, _ = _resume_case(tmp_path, "points")
+    first, resumed = str(tmp_path / "out_first"), str(tmp_path / "out_resumed")
+    chip_creator.main(args + [f"--output_directory={first}", "--device=cpu"])
+    _keep_search_results(first, resumed)
+    cache = os.path.join(resumed, chip_creator.RECORDS_CACHE)
+    rows = read_table(cache)
+    dt_cols = sorted({k for r in rows for k, v in r.items() if hasattr(v, "isoformat")})
+    with open(cache[:-len(".parquet")] + ".json", "w") as f:
+        json.dump({"datetime_columns": dt_cols,
+                   "records": [{k: v.isoformat() if k in dt_cols else v for k, v in r.items()}
+                               for r in rows]}, f)
+    os.remove(cache)
+    monkeypatch.setattr(stac.StacClient, "search", _no_search)
+    chip_creator.main(args + [f"--output_directory={resumed}", "--device=cpu"])
+    os.remove(os.path.join(resumed, "filtered_obsv_records.json"))
+    os.remove(os.path.join(first, chip_creator.RECORDS_CACHE))
+    files = assert_same_outputs(first, resumed)
+    assert [f for f in files if f.startswith("chips/")]
 
 
 def test_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
@@ -493,17 +571,18 @@ def test_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
         hls.HLSPointsPipeline(output_directory=str(tmp_path / "out"))
 
 
-def test_parquet_input_needs_pyarrow(tmp_path, monkeypatch):
-    """Without pyarrow, Parquet input is refused with an error naming it."""
-    import builtins
+def test_parquet_input_reads_without_pyarrow(tmp_path, monkeypatch):
+    """Parquet observations written by pandas, read with ``--filters``
+    while pyarrow and pandas cannot be imported (a host without them):
+    the records pyarrow reads with the same filters."""
+    import pyarrow.parquet as pq
 
-    real_import = builtins.__import__
-
-    def no_pyarrow(name, *a, **k):
-        if name.split(".")[0] == "pyarrow":
-            raise ImportError("No module named 'pyarrow'")
-        return real_import(name, *a, **k)
-
-    monkeypatch.setattr(builtins, "__import__", no_pyarrow)
-    with pytest.raises(ImportError, match="pyarrow"):
-        chip_creator.read_observations(str(tmp_path / "obs.parquet"), "parquet", [])
+    obs = _observations(str(tmp_path / "obs.parquet"), "2022-05-25", fmt="parquet")
+    flags = ["label:==:1", "x:>:14.99"]
+    want = pq.read_table(obs, filters=chip_creator.parse_filters(flags)).to_pylist()
+    with monkeypatch.context() as m:
+        _without_pyarrow(m)
+        with pytest.raises(ImportError):
+            import pyarrow  # noqa: F401
+        got = chip_creator.read_observations(obs, "parquet", flags)
+    assert got == want and 0 < len(got) < len(POINTS)

@@ -5,9 +5,10 @@ Each demo of ``instageo_tpu_torch/examples/`` runs in a fresh interpreter
 ran in another one (``tests/data_tests/test_example_demos.py``'s way) in the
 same directory: the port's run prints the JAX demo's marker, and every file
 it writes equals the JAX run's byte for byte (absolute paths inside the
-files included, hence the one directory). The one file that differs by
-design is the chip creators' filtered-records cache, JSON in the port and
-Parquet in JAX (``data/table.py``). The US CDL records utility of
+files included, hence the one directory), but the chip creators'
+filtered-records caches: Parquet in both, written by different writers
+(pandas there, ``data/parquet.py`` here), they are held equal as the
+DataFrames ``pd.read_parquet`` gives. The US CDL records utility of
 ``instageo_tpu_torch/experiments/utils/`` likewise against its twin.
 """
 
@@ -18,6 +19,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pandas as pd
 import pytest
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -76,8 +78,14 @@ def test_demo_equals_the_jax_demo(name, marker, device, tmp_path):
     files = _tree(out)
     assert sorted(files) == sorted(jax_files)
     assert [f for f in files if files[f] != jax_files[f]] == []
-    caches = [f for d, _, fs in os.walk(out) for f in fs if f.startswith(RECORDS_CACHE)]
-    assert all(f.endswith(".json") for f in caches)
+    caches = [os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out)
+              for f in fs if f.startswith(RECORDS_CACHE)]
+    assert all(f.endswith(".parquet") for f in caches)
+    assert caches or name == "data_splitter_demo"
+    for rel in caches:
+        pd.testing.assert_frame_equal(pd.read_parquet(os.path.join(out, rel)),
+                                      pd.read_parquet(os.path.join(tmp_path, "jax", rel)),
+                                      check_exact=True, obj=rel)
 
 
 def test_demo_without_a_card_refuses_cuda(tmp_path):

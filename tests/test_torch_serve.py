@@ -185,7 +185,7 @@ def test_port_imports_nothing_of_jax():
                 "data.stac", "data.remote_io", "data.settings", "data.pipeline",
                 "data.sources.hls", "data.sources.s1", "data.sources.s2",
                 "utils.ratelimit", "data.crs", "data.geo_utils", "data.table",
-                "data.flags", "data.downloads", "data.chip_creator",
+                "data.flags", "data.downloads", "data.chip_creator", "data.parquet",
                 "data.raster_chip_creator", "webapp.settings", "webapp.db", "webapp.queue",
                 "webapp.tasks", "webapp.data_processor", "webapp.cog", "webapp.png",
                 "webapp.tiler", "webapp.auth", "webapp.docs", "webapp.web", "webapp.main",

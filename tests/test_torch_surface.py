@@ -107,6 +107,7 @@ PORT_ONLY_FILES = {
     "ops/_build.py": "nvcc at first use, launch counters, CUDA graphs",
     "ops/csrc/*": "the Hopper kernels' CUDA sources",
     "data/table.py": "records without pandas",
+    "data/parquet.py": "Parquet without pyarrow",
     "data/jp2.py": "libopenjp2 by ctypes in place of OpenCV",
     "webapp/png.py": "a PNG encoder in place of PIL",
     "webapp/web.py": "the small aiohttp stand-in",
