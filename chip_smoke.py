@@ -1751,7 +1751,8 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
     counts set to 0 just before it and read just after, replays included.
     Checks the loss, the launches of each mode, eval against the saved
     epoch's validation metrics, and the CLI's predictions against
-    ``ModelServer.chip_inference_from_paths`` on the same checkpoint.
+    ``ModelServer.chip_inference_from_paths`` on the same checkpoint; then
+    ``checkpoint_step``.
     ``extra``: more overrides (a tiny model for a CPU rehearsal)."""
     import torch
 
@@ -1908,12 +1909,148 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
         del model
         if on_card:
             torch.cuda.empty_cache()
+        ckpt_out = checkpoint_step(device, cfg, root, batch)
         return dict(counts=counts, graphs=graphs, wall_s=wall, chips_per_s=rates,
                     eval_gap=eval_gap,
                     agreement=agree, train_loss=hist["train_loss"],
-                    epoch_s=hist["epoch_time_s"], loader_s=loader_s)
+                    epoch_s=hist["epoch_time_s"], loader_s=loader_s, checkpoint=ckpt_out)
     finally:
         tmp.cleanup()
+
+
+CKPT_FIXTURE = "tests/torch_fixtures/orbax_jax"  # tools/gen_torch_orbax_fixture.py
+
+
+def _tree_leaves(node, path=()):
+    """(key path joined with "/", leaf) of a checkpoint tree."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _tree_leaves(v, path + (str(k),))
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _tree_leaves(v, path + (str(i),))
+    else:
+        yield "/".join(path), node
+
+
+def checkpoint_step(device, cfg, root: str, batch: int) -> dict:
+    """The run phase's checkpoint step, on the checkpoint format both
+    packages share (``train/checkpointing.py``): the JAX package's
+    committed orbax fixture read on this host (OCDBT, zstd through the
+    system's libzstd) against its expected arrays; then the run's config at
+    full width: two train steps, the trainer's state saved by
+    ``BestCheckpointer``; the directory reloaded through
+    ``factory.load_finetuned`` (predictions bit for bit against the model
+    in the process); a fresh trainer restored from it taking a third step
+    (loss and parameters bit for bit against an unbroken three-step run,
+    the dropout stream handed over with the generator's state). Prints the
+    save, load and restore seconds and the directory's bytes against 12
+    bytes per parameter (float32 weights and two AdamW moments)."""
+    import torch
+
+    from instageo_tpu_torch.train import factory
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.orbax_dir import read_tree, zstd_path
+    from instageo_tpu_torch.train.trainer import Trainer
+
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # --- the JAX package's fixture, on this host -------------------------
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), CKPT_FIXTURE)
+    t0 = time.perf_counter()
+    got = dict(_tree_leaves(read_tree(fixture)))
+    fixture_s = time.perf_counter() - t0
+    want = np.load(fixture + ".npz")
+    nones = set(want["__none__"].tolist())
+    arrays = {k for k in want.files if k != "__none__"}
+    check({k for k, v in got.items() if v is None} == nones
+          and {k for k, v in got.items() if v is not None} == arrays,
+          f"fixture: leaves {sorted(got)} vs expected {sorted(arrays | nones)}")
+    unequal = [k for k in sorted(arrays) if not (
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and np.array_equal(got[k], want[k]))]
+    check(not unequal, f"fixture: arrays differ from the expected: {unequal[:5]}")
+    libzstd = zstd_path()
+    print(f"[checkpoint] libzstd: {libzstd}; the JAX fixture ({len(arrays)} arrays, "
+          f"{len(nones)} None leaves) read in {fixture_s:.3f} s, equal to its .npz",
+          flush=True)
+
+    # --- save, reload, resume at full width ------------------------------
+    dl = cfg.dataloader
+    data = dict(mean=list(dl.mean), std=list(dl.std), bands=list(dl.bands))
+    x, y = _crop_batch(3 * batch, int(dl.temporal_dim), int(dl.img_size),
+                       int(cfg.model.num_classes), seed=5, data=data)
+
+    def trainer(seed):
+        return Trainer(cfg, factory.build_model(cfg, device, training=True, seed=seed),
+                       device=device)
+
+    def steps(tr, gen, which):
+        out = []
+        for i in which:
+            xb, yb = tr.prepare_batch(x[i * batch:(i + 1) * batch],
+                                      y[i * batch:(i + 1) * batch], batch)
+            out.append(tr.train_step(xb, yb, gen))
+        return out
+
+    straight = trainer(0)
+    losses = steps(straight, torch.Generator().manual_seed(3), range(3))
+    want_params = {k: v.detach().clone() for k, v in straight.model.state_dict().items()}
+    del straight
+
+    first = trainer(0)
+    gen = torch.Generator().manual_seed(3)
+    steps(first, gen, range(2))
+    handed_over = gen.get_state()
+    sync()
+    t0 = time.perf_counter()
+    path = BestCheckpointer(os.path.join(root, "checkpoint_run")).save(first.state_dict())
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    n_params = sum(p.numel() for p in first.model.parameters())
+    xe, _ = first.prepare_batch(x[:batch], y[:batch], batch)
+    with torch.no_grad():
+        ref = first.model.eval()(xe)
+    sync()
+    t0 = time.perf_counter()
+    reloaded = factory.load_finetuned(path, factory.build_model(cfg, device, training=True,
+                                                                seed=9))
+    sync()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        served = reloaded.eval()(xe)
+    check(torch.equal(served, ref), "load_finetuned: predictions differ from the saved model's "
+          f"(max |diff| {float((served.float() - ref.float()).abs().max())})")
+    del first, reloaded, ref, served
+
+    resumed = trainer(7)
+    t0 = time.perf_counter()
+    resumed.restore(path)
+    sync()
+    restore_s = time.perf_counter() - t0
+    check(resumed.step == 2, f"restored step {resumed.step}, expected 2")
+    gen = torch.Generator()
+    gen.set_state(handed_over)
+    (third,) = steps(resumed, gen, [2])
+    check(torch.equal(third, losses[2]),
+          f"resumed step 3 loss {float(third)} vs unbroken {float(losses[2])}")
+    differ = [k for k, v in resumed.model.state_dict().items()
+              if not torch.equal(v, want_params[k])]
+    check(not differ, f"resumed parameters differ from the unbroken run's: {differ[:5]}")
+    print(f"[checkpoint] {cfg.model.model_name} ({n_params} parameters) after 2 steps at "
+          f"batch {batch}: save {save_s:.3f} s, load_finetuned {load_s:.3f} s, restore "
+          f"{restore_s:.3f} s; {nbytes} bytes = {nbytes / (12 * n_params):.6f} x 12 bytes x "
+          f"{n_params} parameters; reloaded predictions bit for bit; resumed step 3 loss "
+          f"{float(third):.6f} = unbroken, parameters bit for bit", flush=True)
+    del resumed, want_params
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(libzstd=libzstd, fixture_s=fixture_s, save_s=save_s, load_s=load_s,
+                restore_s=restore_s, bytes=nbytes, params=n_params)
 
 
 def replica_phase(device, smi: str, extra=(), n_train: int = 128, n_val: int = 16,
@@ -2269,7 +2406,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     from instageo_tpu_torch.serve.pipeline import EvaluationPipeline
     from instageo_tpu_torch.serve.server import ModelServer
     from instageo_tpu_torch.train import run
-    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
     from instageo_tpu_torch.train.factory import model_channels
     from instageo_tpu_torch.train.trainer import Trainer
 
@@ -2436,7 +2573,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
         size, classes = int(dl.img_size), int(cfg.model.num_classes)
         paths = _write_dataset(root, 0, n_chips, len(dl.bands), size, classes)
         ckpt = BestCheckpointer(os.path.join(root, "run")).save(
-            {"model": fast_server.model.state_dict()})
+            model_variables(fast_server.model))
         pcfg = config(**{"model.head_impl": "fast", "root_dir": root,
                          "test_filepath": f"{root}/val.csv", "checkpoint_path": ckpt})
         pipe = EvaluationPipeline(pcfg)
@@ -2910,7 +3047,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
     from instageo_tpu_torch.data.settings import DATA_PIPELINE_SETTINGS
     from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
     from instageo_tpu_torch.serve import granule
-    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
     from instageo_tpu_torch.train.factory import create_model
 
     check(DATA_PIPELINE_SETTINGS.COG_DOWNLOAD_RATELIMIT >= 100,
@@ -2928,7 +3065,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
             base.append("device=cpu")
         cfg = load_config_from_argv(base)
         model = create_model(cfg, seed=0, device=device)
-        ckpt = BestCheckpointer(os.path.join(root, "run")).save({"model": model.state_dict()})
+        ckpt = BestCheckpointer(os.path.join(root, "run")).save(model_variables(model))
         base.append(f"checkpoint_path={ckpt}")
         dl = cfg.dataloader
         depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
@@ -3315,7 +3452,7 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
     from instageo_tpu_torch.data.sources import hls
     from instageo_tpu_torch.data.table import read_csv
     from instageo_tpu_torch.train import run
-    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
     from instageo_tpu_torch.train.factory import create_model
 
     check(DATA_PIPELINE_SETTINGS.COG_DOWNLOAD_RATELIMIT >= 100,
@@ -3520,7 +3657,7 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                 base.append("device=cpu")
             cfg = load_config_from_argv(base)
             model = create_model(cfg, seed=0, device=device)
-            ckpt = BestCheckpointer(os.path.join(root, "run")).save({"model": model.state_dict()})
+            ckpt = BestCheckpointer(os.path.join(root, "run")).save(model_variables(model))
             depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
             batch = int(cfg.train.batch_size)
             del model
@@ -4067,7 +4204,7 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
     from instageo_tpu_torch.configs.config import load_config, save_config
     from instageo_tpu_torch.data.crs import utm_to_latlon
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
-    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
     from instageo_tpu_torch.train.factory import create_model
 
     on_card = device.type == "cuda"
@@ -4101,7 +4238,7 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
             **(overrides or {})})
         save_config(cfg, run_dir)
         model = create_model(cfg, seed=0, device=device)
-        BestCheckpointer(run_dir).save({"model": model.state_dict()})
+        BestCheckpointer(run_dir).save(model_variables(model))
         depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
         batch, dl = int(cfg.train.batch_size), cfg.dataloader
         del model

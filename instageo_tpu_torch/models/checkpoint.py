@@ -6,7 +6,15 @@
   reference/timm state-dict layout that ``PrithviSeg.load_state_dict(...,
   strict=True)`` takes; either head, the ``_tl`` encoders' scales, and the
   blocks in the loop layout (``blocks_{i}``) or stacked (one ``blocks``
-  subtree with a leading depth axis, ``tpu.block_layout: scan``);
+  subtree with a leading depth axis, ``tpu.block_layout: scan``); the
+  attention's qkv head-structured ``(D, 3, H, Dh)`` or in the legacy flat
+  ``(D, 3·H·Dh)`` layout, which are the same memory order;
+* ``seg_variables_from_torch``: its inverse, leaf for leaf: the port's
+  state dict (or a reference Lightning one, ``net.``-prefixed) becomes the
+  tree the JAX package's ``PrithviSeg`` of the same variant holds, for
+  either head, the ``_tl`` encoders and either block layout, qkv
+  head-structured. A dict of some parameters only (an optimizer's
+  moments) gives the part of the tree they hold;
 * ``export_torch_checkpoint``: the port's weights as the reference's
   Lightning ``.ckpt`` (``{"state_dict": ...}``, keys prefixed ``net.``) or
   an ``.npz``, what the JAX package's function of that name writes;
@@ -27,7 +35,10 @@ from instageo_tpu_torch.models.registry import PRETRAINED_BANDS, PrithviArch
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    a = np.asarray(x, np.float32)
+    if any(stride < 0 for stride in a.strides):  # a flipped kernel
+        a = np.ascontiguousarray(a)
+    return torch.from_numpy(a).contiguous()  # torch lays out a transpose on all threads
 
 
 def _linear(sd: Dict, prefix: str, p: Mapping) -> None:
@@ -138,6 +149,138 @@ def seg_state_dict_from_jax(variables: Mapping, arch: PrithviArch,
     sd[f"{head}.weight"] = _t(np.asarray(params[head_src]["kernel"]).transpose(3, 2, 0, 1))
     sd[f"{head}.bias"] = _t(params[head_src]["bias"])
     return sd
+
+
+def _f32(v) -> torch.Tensor:
+    """A tensor (on its own device) or an array as a float32 tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().float()
+    return torch.tensor(np.asarray(v, np.float32))
+
+
+def _host(t: torch.Tensor):
+    """A leaf of the JAX tree: contiguous float32 numpy on the host, laid
+    out on the tensor's device first (a card transposes faster than the
+    host); a ``meta`` tensor stays one (a tree of shapes only)."""
+    return t if t.device.type == "meta" else t.contiguous().cpu().numpy()
+
+
+def stack_block_params(encoder_params: Mapping) -> Dict:
+    """A loop-layout encoder tree (``blocks_0`` ...) in the stacked layout:
+    one ``blocks`` subtree whose leaves carry a leading depth axis. The
+    port's numpy copy of ``instageo_tpu/models/prithvi.py:stack_block_params``."""
+    names = sorted((k for k in encoder_params if k.startswith("blocks_")),
+                   key=lambda k: int(k.split("_")[1]))
+    if not names:
+        return dict(encoder_params)
+    out = {k: v for k, v in encoder_params.items() if not k.startswith("blocks_")}
+
+    def stack(trees):
+        if isinstance(trees[0], Mapping):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        if isinstance(trees[0], torch.Tensor):
+            return torch.stack(trees)
+        return np.stack([np.asarray(t) for t in trees])
+
+    out["blocks"] = stack([encoder_params[n] for n in names])
+    return out
+
+
+# (port layer index within an UpscalingBlock) -> JAX submodule.
+_UP_LAYERS = {0: "convt", 2: "conv", 3: "bn"}
+
+
+def _put(tree: Dict, path: Sequence[str], leaf: torch.Tensor) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = _host(leaf)
+
+
+def _encoder_leaf(key: str, a: torch.Tensor, arch: PrithviArch):
+    """One encoder state-dict entry -> (path under ``prithvi_encoder``, leaf)."""
+    parts = key.split(".")
+    if key == "patch_embed.proj.weight":  # (D, C, pt, ph, pw) -> (C·p, D)
+        return ("patch_embed", "proj", "kernel"), a.reshape(a.shape[0], -1).t()
+    if key == "patch_embed.proj.bias":
+        return ("patch_embed", "proj", "bias"), a
+    if key == "cls_token":
+        return ("cls_token",), a
+    if parts[0] == "norm":
+        return ("norm", {"weight": "scale", "bias": "bias"}[parts[1]]), a
+    if parts[0] in ("temporal_embed_enc", "location_embed_enc") and parts[1] == "scale":
+        return (parts[0], "scale"), a
+    if parts[0] == "blocks" and len(parts) >= 4:
+        block = f"blocks_{int(parts[1])}"
+        if parts[2] in ("norm1", "norm2"):
+            return (block, parts[2], {"weight": "scale", "bias": "bias"}[parts[3]]), a
+        sub, leaf = parts[2:4], parts[-1]
+        if sub[0] == "attn" and sub[1] == "qkv":
+            heads = arch.num_heads
+            if leaf == "weight":  # fused Linear (3D, D) -> (D, 3, H, Dh)
+                return (block, "attn", "qkv", "kernel"), a.t().reshape(a.shape[1], 3, heads, -1)
+            return (block, "attn", "qkv", "bias"), a.reshape(3, heads, -1)
+        if (sub[0], sub[1]) in (("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")):
+            return ((block, sub[0], sub[1], "kernel"), a.t()) if leaf == "weight" \
+                else ((block, sub[0], sub[1], "bias"), a)
+    raise KeyError(f"prithvi_encoder.{key}: no place in the JAX tree")
+
+
+def seg_variables_from_torch(state_dict: Mapping, arch: PrithviArch, *,
+                             num_up_blocks: int = 4, prefix: str = "net.",
+                             block_layout: str = "loop") -> Dict:
+    """The port's ``PrithviSeg`` state dict (or a reference Lightning
+    checkpoint's, keys prefixed ``prefix``) -> the JAX package's variables
+    ``{"params", "batch_stats"}`` as float32 numpy, leaf for leaf: the
+    inverse of :func:`seg_state_dict_from_jax`. The torch head's blocks are
+    ``up_{i}`` and its classifier ``head_conv``, the fast head keeps its
+    names; the qkv is head-structured (``arch.num_heads``); the blocks are
+    ``blocks_{i}`` under ``block_layout: loop``, else stacked, as the JAX
+    model holds them under ``scan`` and ``pipeline``. BatchNorm's
+    ``num_batches_tracked`` counters have no place in the JAX tree. The
+    layouts change on the tensors' device; ``meta`` tensors give a tree of
+    ``meta`` tensors (shapes only)."""
+    sd = _unwrap_state_dict(state_dict)
+    if prefix and any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    params: Dict = {}
+    stats: Dict = {}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        a = _f32(value)
+        parts = key.split(".")
+        if parts[0] == "prithvi_encoder":
+            path, leaf = _encoder_leaf(key[len("prithvi_encoder."):], a, arch)
+            _put(params, ("prithvi_encoder",) + tuple(path), leaf)
+            continue
+        if parts[0] == "segmentation_head" and int(parts[1]) < num_up_blocks:
+            block, layer, leaf = f"up_{parts[1]}", int(parts[2]), parts[3]
+        elif parts[0].startswith("fast_up_"):
+            block, layer, leaf = parts[0], int(parts[1]), parts[2]
+        elif (parts[0] == "segmentation_head" and int(parts[1]) == num_up_blocks + 1) \
+                or parts[0] == "fast_head_conv":
+            head = "head_conv" if parts[0] == "segmentation_head" else "fast_head_conv"
+            _put(params, (head, "kernel" if parts[-1] == "weight" else "bias"),
+                 a.permute(2, 3, 1, 0) if parts[-1] == "weight" else a)
+            continue
+        else:
+            raise KeyError(f"{key}: no place in the JAX tree")
+        sub = _UP_LAYERS.get(layer)
+        if sub == "convt":  # ConvTranspose2d (I, O, kh, kw) -> flipped HWIO
+            _put(params, (block, sub, "kernel" if leaf == "weight" else "bias"),
+                 a.permute(2, 3, 0, 1).flip(0, 1) if leaf == "weight" else a)
+        elif sub == "conv":  # OIHW -> HWIO
+            _put(params, (block, sub, "kernel" if leaf == "weight" else "bias"),
+                 a.permute(2, 3, 1, 0) if leaf == "weight" else a)
+        elif sub == "bn" and leaf in ("weight", "bias"):
+            _put(params, (block, sub, "scale" if leaf == "weight" else "bias"), a)
+        elif sub == "bn" and leaf in ("running_mean", "running_var"):
+            _put(stats, (block, sub, "mean" if leaf == "running_mean" else "var"), a)
+        else:
+            raise KeyError(f"{key}: no place in the JAX tree")
+    if block_layout != "loop" and "prithvi_encoder" in params:
+        params["prithvi_encoder"] = stack_block_params(params["prithvi_encoder"])
+    return {"params": params, "batch_stats": stats}
 
 
 # ---------------------------------------------------------------------------

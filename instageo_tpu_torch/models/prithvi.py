@@ -30,7 +30,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from instageo_tpu_torch.models.checkpoint import unstack_block_params  # noqa: F401  (JAX's name)
+from instageo_tpu_torch.models.checkpoint import (  # noqa: F401  (JAX's names)
+    stack_block_params,
+    unstack_block_params,
+)
 from instageo_tpu_torch.ops._build import HostCounter
 from instageo_tpu_torch.ops.attention import IMPLS as KERNEL_IMPLS
 from instageo_tpu_torch.ops.attention import flash_attention_blo

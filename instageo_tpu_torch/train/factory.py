@@ -26,7 +26,7 @@ from instageo_tpu_torch.models.checkpoint import (
 )
 from instageo_tpu_torch.models.registry import PRETRAINED_BANDS, get_arch
 from instageo_tpu_torch.models.seg import HEADS, PrithviSeg, create_prithvi_seg
-from instageo_tpu_torch.train.checkpointing import load_checkpoint
+from instageo_tpu_torch.train.checkpointing import load_checkpoint, model_state_dict
 
 log = logging.getLogger(__name__)
 
@@ -207,9 +207,9 @@ def build_model(cfg: Any, device=None, training: bool = False, seed: int = 0) ->
 def create_model(cfg: Any, seed: int = 0, device=None, training: bool = False) -> PrithviSeg:
     """Build the model and load its weights, in this order:
 
-    1. ``cfg.checkpoint_path`` set: the fine-tuned checkpoint (this
-       package's checkpoint directory, or a reference ``.ckpt``/``.pt``/
-       ``.npz``);
+    1. ``cfg.checkpoint_path`` set: the fine-tuned checkpoint (a
+       checkpoint directory of either package, or a reference
+       ``.ckpt``/``.pt``/``.npz``);
     2. else, with ``model.load_pretrained_weights`` and a local pretrained
        file: the encoder from it, with band surgery;
     3. else the fresh init from ``seed``.
@@ -242,11 +242,14 @@ def create_model(cfg: Any, seed: int = 0, device=None, training: bool = False) -
 
 
 def load_finetuned(path: str, model: PrithviSeg) -> PrithviSeg:
-    """Load fine-tuned weights into ``model`` (strict): a checkpoint
-    directory of this package, or a reference ``.ckpt``/``.pt``/``.npz``
-    whose keys may carry a Lightning module prefix (``net.``)."""
+    """Load fine-tuned weights into ``model`` (strict): an orbax checkpoint
+    directory that either package's ``BestCheckpointer`` wrote (either
+    layout, either block layout, a legacy flat qkv reshaped as the JAX
+    loader reshapes it), the port's earlier ``state.pt`` directory, or a
+    reference ``.ckpt``/``.pt``/``.npz`` whose keys may carry a Lightning
+    module prefix (``net.``)."""
     if os.path.isdir(path):
-        state = load_checkpoint(path)["model"]
+        state = model_state_dict(load_checkpoint(path, ("params", "batch_stats")), model)
     else:
         state = seg_state_dict_from_torch(load_torch_file(path))
     model.load_state_dict(state, strict=True)

@@ -50,8 +50,9 @@ the epoch's accumulators are summed over the data axis
 under ``tpu.remat``, the k steps of a group run eagerly (the same math):
 FSDP2 and NCCL inside one CUDA graph are not something to count on. The
 choice is made here from the configuration and logged; the graph counters
-(``ops/_build.py:graph_replays``) show it. A checkpoint holds the
-single-card run's keys and files (the full state gathered; rank 0 writes).
+(``ops/_build.py:graph_replays``) show it. A checkpoint is the JAX
+trainer's tree of the single-card run (the full state gathered; rank 0
+writes), so either package resumes it.
 """
 
 from __future__ import annotations
@@ -79,7 +80,12 @@ from instageo_tpu_torch.ops._build import CapturedGraph
 from instageo_tpu_torch.parallel import mesh as pmesh
 from instageo_tpu_torch.parallel.mesh import DATA_AXIS, pad_batch
 from instageo_tpu_torch.parallel.multihost import aggregate_metrics, host_local_to_global
-from instageo_tpu_torch.train.checkpointing import load_best_metric, load_checkpoint
+from instageo_tpu_torch.train.checkpointing import (
+    checkpoint_tree,
+    load_best_metric,
+    load_checkpoint,
+    trainer_state,
+)
 from instageo_tpu_torch.train.factory import check_tpu_config, steps_per_call
 from instageo_tpu_torch.train.losses import (
     kl_distillation_loss,
@@ -824,10 +830,32 @@ class Trainer:
         return self.run_eval_epoch(test_loader(), batch_size, "test")
 
     def state_dict(self) -> Dict[str, Any]:
-        """What a checkpoint holds: model, optimizer, step and epoch, with
-        the keys of a single-card run. Under a mesh this is collective: the
-        model's full state (FSDP2's shards and the tensor-parallel shards
-        gathered, each block from its pipeline stage) and the optimizer's
+        """What a checkpoint holds, in the JAX package's layout
+        (``checkpointing.checkpoint_tree``): ``step``, ``params``,
+        ``batch_stats`` and ``opt_state`` as the JAX trainer of the same
+        config holds them, and the port's ``epoch``. Under a mesh this is
+        collective (``_single_card_state``)."""
+        freeze = bool(_get(self.cfg, "model", "freeze_backbone", False))
+        state = self._single_card_state()
+        # After the gather: FSDP2 holds its sharded parameters (the
+        # optimizer's) again only once its state dict is taken.
+        return checkpoint_tree(state, self.model.arch, self._single_card_names(),
+                               block_layout=self._block_layout(),
+                               scheduler=self.schedule is not None, freeze_backbone=freeze)
+
+    def _block_layout(self) -> str:
+        """The JAX model's block layout for this config: stacked under
+        ``scan``, ``pipeline`` and ``tpu.pp`` > 1."""
+        tpu_cfg = self.cfg.get("tpu") or {}
+        if int(tpu_cfg.get("pp", 1)) > 1:
+            return "pipeline"
+        return str(tpu_cfg.get("block_layout", "loop"))
+
+    def _single_card_state(self) -> Dict[str, Any]:
+        """Model, optimizer, step and epoch, with the keys of a single-card
+        run. Under a mesh this is collective: the model's full state
+        (FSDP2's shards and the tensor-parallel shards gathered, each block
+        from its pipeline stage) and the optimizer's
         (``_full_optimizer_state``; FSDP2 gathers its own), on the CPU."""
         state = {"step": self.step, "epoch": self.epoch}
         if self.mode == "single":
@@ -916,9 +944,16 @@ class Trainer:
             state[i] = {"step": torch.tensor(float(buf[0])),
                         "exp_avg": moments[0].to("cpu", copy=True),
                         "exp_avg_sq": moments[1].to("cpu", copy=True)}
+        return {"state": state,
+                "param_groups": [dict(self._group_settings(), params=list(range(len(names))))]}
+
+    def _group_settings(self) -> Dict[str, Any]:
+        """The AdamW group's settings as a single-card ``state_dict`` holds
+        them (the rate a float)."""
+        inner = getattr(self.optimizer, "optim", self.optimizer)  # ZeRO-1's local AdamW
         group = {k: v for k, v in inner.param_groups[0].items() if k != "params"}
         group["lr"] = float(group["lr"])
-        return {"state": state, "param_groups": [dict(group, params=list(range(len(names))))]}
+        return group
 
     def _load_full_optimizer_state(self, full: Dict[str, Any]) -> None:
         """This rank's part of a single-card optimizer state: the moments of
@@ -964,12 +999,18 @@ class Trainer:
         self.model.load_state_dict(full, strict=True)
 
     def restore(self, ckpt_path: str) -> None:
-        """Resume from a checkpoint directory written by ``BestCheckpointer``:
-        step, epoch, parameters, BatchNorm statistics, AdamW moments, and
+        """Resume from a checkpoint directory of either package's
+        ``BestCheckpointer`` (or the port's earlier ``state.pt``): step,
+        epoch (0 from a JAX run, as the JAX trainer's resume starts),
+        parameters, BatchNorm statistics, AdamW moments, and
         ``best_metric`` from the sidecar, so that a worse epoch after the
         resume does not overwrite the better checkpoint. The schedule goes
         on from the restored step."""
         state = load_checkpoint(ckpt_path)
+        jax_layout = "model" not in state
+        if jax_layout:
+            state = trainer_state(state, self.model.arch, self._single_card_names(),
+                                  self._group_settings())
         self.load_model_state(state["model"])
         if "optimizer" not in state:
             log.warning("%s holds no optimizer state: AdamW starts afresh", ckpt_path)
@@ -992,6 +1033,12 @@ class Trainer:
         self._groups.clear()  # graphs hold the replaced optimizer state
         self.step = int(state.get("step", 0))
         self.epoch = int(state.get("epoch", 0))
+        if jax_layout:
+            # The JAX tree has no BatchNorm counters: each counts the train
+            # forwards, grad_accum per step (they weigh nothing: momentum 0.1).
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.num_batches_tracked.fill_(self.step * self.grad_accum)
         best = load_best_metric(ckpt_path, self.monitor)
         if best is not None:
             self.best_metric = best

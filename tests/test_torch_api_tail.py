@@ -66,7 +66,7 @@ from instageo_tpu_torch.models.seg import create_prithvi_seg
 from instageo_tpu_torch.ops import attention as tattn
 from instageo_tpu_torch.ops.dropout import supports_fused_dropout
 from instageo_tpu_torch.train import metrics as tm
-from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
 from instageo_tpu_torch.train.trainer import EpochMetrics
 from instageo_tpu_torch.utils import compile_cache, telemetry
 from tests.torch_parity import random_seg_variables
@@ -217,15 +217,14 @@ def test_best_checkpointer_restore_equals_jax(seg_weights, tmp_path):
     jax_ckpt.save(types.SimpleNamespace(step=np.int32(7), params=variables["params"],
                                         batch_stats=variables["batch_stats"],
                                         opt_state=None))
-    restored = jax_ckpt.restore()
+    restored = jax.tree.map(np.asarray, jax_ckpt.restore())
     ckpt = BestCheckpointer(str(tmp_path / "port"))
-    ckpt.save({"model": port.state_dict(), "step": 7}, metrics={"val_IoU": 0.5})
+    ckpt.save({**model_variables(port), "step": 7}, metrics={"val_IoU": 0.5})
     ours = ckpt.restore()
-    assert int(restored["step"]) == ours["step"] == 7
-    arch = get_arch("prithvi_eo_tiny", in_chans=6, num_frames=1, img_size=32, depth=2)
-    from_jax = seg_state_dict_from_jax(jax.tree.map(np.asarray, restored), arch)
-    for k, v in from_jax.items():
-        assert torch.equal(ours["model"][k], v), k
+    assert int(restored["step"]) == int(ours["step"]) == 7
+    # The same tree, leaf for leaf and bit for bit.
+    assert jax.tree.structure(ours) == jax.tree.structure(restored)
+    jax.tree.map(np.testing.assert_array_equal, ours, restored)
 
 
 def test_get_carbon_info_returns_the_trackers_results():

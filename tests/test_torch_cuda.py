@@ -699,7 +699,7 @@ def _web_tasks(tmp_path, monkeypatch, precision):
     from instageo_tpu_torch.models import prithvi
     from instageo_tpu_torch.ops.preprocess import preprocess_chips, raw_to_device
     from instageo_tpu_torch.serve.server import ModelServer
-    from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+    from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
     from instageo_tpu_torch.train.factory import create_model
     from instageo_tpu_torch.webapp import queue, settings
     from instageo_tpu_torch.webapp.tasks import Task
@@ -709,7 +709,7 @@ def _web_tasks(tmp_path, monkeypatch, precision):
     cfg = load_config("config", overrides={**helpers.model_overrides(),
                                            "tpu.precision": precision})
     ckpt = BestCheckpointer(str(tmp_path / "run")).save(
-        {"model": create_model(cfg, seed=0, device="cpu").state_dict()})
+        model_variables(create_model(cfg, seed=0, device="cpu")))
     registry, models = helpers.write_model(str(tmp_path), cfg.to_yaml(), ckpt)
     monkeypatch.setenv("MODELS_REGISTRY_PATH", registry)
     monkeypatch.setenv("MODELS_PATH", models)

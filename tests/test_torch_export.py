@@ -29,7 +29,7 @@ from instageo_tpu_torch.models.seg import create_prithvi_seg
 from instageo_tpu_torch.serve.export import export_predict, load_predict
 from instageo_tpu_torch.serve.infer import make_predict_fn
 from instageo_tpu_torch.serve.server import ModelServer
-from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
 from tests.torch_parity import random_seg_variables
 
 torch.set_num_threads(1)
@@ -139,7 +139,7 @@ def test_export_regression_output(tmp_path):
 
 def test_model_server_export_artifact(models, tmp_path):
     _, _, port = models
-    ckpt = BestCheckpointer(str(tmp_path / "run")).save({"model": port.state_dict()})
+    ckpt = BestCheckpointer(str(tmp_path / "run")).save(model_variables(port))
     cfg = load_config("config", overrides={
         "device": "cpu", "checkpoint_path": ckpt, "dataloader.img_size": 32,
         "dataloader.bands": [0, 1, 2, 3, 4, 5], "model.model_name": "prithvi_eo_tiny",

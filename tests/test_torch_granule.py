@@ -13,7 +13,8 @@ seeded weights on both sides (``seg_state_dict_from_jax``), on the CPU.
   with nesting and non-nesting planes) on local GeoTIFFs, and ``HttpFile``
   through a fake session: arrays, transforms and CRSs equal;
 * ``mode=sliding_inference device=cpu`` from a dataset JSON with local
-  hrefs against JAX ``granule_inference_to_file`` with the same weights.
+  hrefs against JAX ``granule_inference_to_file`` with the same weights,
+  from a checkpoint the port wrote and from one the JAX package wrote.
 
 Asset loads are rate limited per process at import (30 a minute by
 default); this module loads more than that, so it raises the port's limit
@@ -23,6 +24,7 @@ the JAX openers it compares with load without their limit.
 
 import json
 import os
+import types
 
 os.environ.setdefault("INSTAGEO_COG_RATELIMIT", "1000")
 
@@ -40,6 +42,7 @@ from instageo_tpu.data.sources import s2 as jax_s2  # noqa: E402
 from instageo_tpu.models.seg import create_prithvi_seg as jax_create_prithvi_seg  # noqa: E402
 from instageo_tpu.ops.preprocess import preprocess_chips as jax_preprocess_chips  # noqa: E402
 from instageo_tpu.serve import granule as jax_granule  # noqa: E402
+from instageo_tpu.train.checkpointing import BestCheckpointer as JaxBestCheckpointer  # noqa: E402
 from instageo_tpu_torch.data import remote_io, stac  # noqa: E402
 from instageo_tpu_torch.data.geotiff import Affine, GeoTiffReader, write_geotiff  # noqa: E402
 from instageo_tpu_torch.data.sources import hls, s1, s2  # noqa: E402
@@ -396,6 +399,21 @@ def test_open_s2_and_s1_stac_items(tmp_path):
 def test_sliding_inference_cli_matches_jax(models, tmp_path, capsys):
     """``mode=sliding_inference device=cpu`` over a dataset JSON of two
     HLS entries (local hrefs), against JAX ``granule_inference_to_file``."""
+    _sliding_inference_matches_jax(models, tmp_path, capsys,
+                                   BestCheckpointer(str(tmp_path / "run")).save(models[1]))
+
+
+def test_sliding_inference_reads_a_jax_checkpoint(models, tmp_path, capsys):
+    """The same run on a directory the JAX package's ``BestCheckpointer``
+    wrote (OCDBT, zstd)."""
+    variables = models[1]
+    ckpt = JaxBestCheckpointer(str(tmp_path / "jax_run"))
+    ckpt.save(types.SimpleNamespace(step=np.int32(3), params=variables["params"],
+                                    batch_stats=variables["batch_stats"], opt_state=None))
+    _sliding_inference_matches_jax(models, tmp_path, capsys, ckpt.path)
+
+
+def _sliding_inference_matches_jax(models, tmp_path, capsys, ckpt):
     jax_model, variables, _ = models
     rng = np.random.default_rng(8)
     s30 = ["B02", "B03", "B04", "B8A", "B11", "B12"]
@@ -413,9 +431,6 @@ def test_sliding_inference_cli_matches_jax(models, tmp_path, capsys):
         _write(path, arr)
     json_path = tmp_path / "dataset.json"
     json_path.write_text(json.dumps(dataset))
-    arch = get_arch("prithvi_eo_tiny", in_chans=6, num_frames=1, img_size=32, depth=2)
-    ckpt = BestCheckpointer(str(tmp_path / "run")).save(
-        {"model": seg_state_dict_from_jax(variables, arch)})
     over = {"root_dir": str(tmp_path), "test_filepath": str(json_path),
             "checkpoint_path": ckpt, "model.model_name": "prithvi_eo_tiny",
             "model.depth": 2, "model.num_classes": 3, "model.load_pretrained_weights": False,

@@ -61,6 +61,7 @@ from instageo_tpu_torch.parallel.multihost import host_local_to_global
 from instageo_tpu_torch.parallel.pp import pp_specs
 from instageo_tpu_torch.parallel.tp import tp_spec_for_path
 from instageo_tpu_torch.train import factory
+from instageo_tpu_torch.train.checkpointing import load_checkpoint
 from instageo_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -79,7 +80,7 @@ from instageo_tpu_torch.configs.config import load_config
 from instageo_tpu_torch.models.seg import Dropout
 from instageo_tpu_torch.parallel import mesh as pmesh
 from instageo_tpu_torch.parallel.multihost import initialize_multihost
-from instageo_tpu_torch.train.checkpointing import BestCheckpointer, load_checkpoint
+from instageo_tpu_torch.train.checkpointing import BestCheckpointer, load_checkpoint, trainer_state
 from instageo_tpu_torch.train.factory import build_model
 from instageo_tpu_torch.train.trainer import EpochMetrics, Trainer
 
@@ -131,11 +132,15 @@ def run_mode(name: str, spec: dict, case: dict, root: str) -> dict:
         out["train_counts"], _ = _counts_over_world()
     if spec.get("checkpoint"):
         state = trainer.state_dict()
+        names = trainer._single_card_names()
         with torch.no_grad():
             out["probe_logits"] = model.eval()(case["probe"])
         if dist.get_rank() == 0:
             path = BestCheckpointer(root, name).save(state)
-            out["optimizer"] = load_checkpoint(path)["optimizer"]
+            # The saved optax moments in the single-card AdamW's format.
+            group = {"lr": float(trainer.optimizer.param_groups[0]["lr"])}
+            out["optimizer"] = trainer_state(load_checkpoint(path), model.arch, names,
+                                             group)["optimizer"]
         dist.barrier()
         # The run resumed from its checkpoint takes the step the run takes.
         _, resumed = make_trainer(spec, case)
@@ -354,14 +359,12 @@ def test_world2_equals_world1_with_dropout(world2, case):
 
 def test_checkpoint_from_world2_loads_at_world1(world2, case, tmp_path):
     results, base = world2
-    path = next(base.glob("parallel*/world2/fsdp/state.pt"))
-    state = torch.load(path, weights_only=True)
+    path = next(base.glob("parallel*/world2/fsdp"))
     cfg = load_config("config", overrides=OVERRIDES)
     model = factory.build_model(cfg, device="cpu", training=True)
-    model.load_state_dict(state["model"], strict=True)
     trainer = Trainer(cfg, model, device="cpu")
-    trainer.optimizer.load_state_dict(state["optimizer"])  # the single-card format
-    assert state["step"] == 2
+    trainer.restore(str(path))  # the single-card run's tree
+    assert trainer.step == 2 and len(trainer.optimizer.state) == len(list(model.parameters()))
     with torch.no_grad():
         logits = model.eval()(case["probe"])
     torch.testing.assert_close(logits, results["fsdp"]["probe_logits"], rtol=1e-5, atol=1e-5)
@@ -553,12 +556,9 @@ def test_run_cli_under_torchrun_equals_one_process(tmp_path):
     np.testing.assert_allclose(two["train_step_losses"], one["train_step_losses"],
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(last["train_loss"], one["train_loss"], rtol=LOSS_RTOL)
-    assert (tmp_path / "two" / "instageo_best_checkpoint" / "state.pt").exists()
-    state = torch.load(tmp_path / "two" / "instageo_best_checkpoint" / "state.pt",
-                       weights_only=True)
-    assert set(state["model"]) == set(torch.load(
-        tmp_path / "one" / "instageo_best_checkpoint" / "state.pt",
-        weights_only=True)["model"])
+    two = load_checkpoint(str(tmp_path / "two" / "instageo_best_checkpoint"))
+    one = load_checkpoint(str(tmp_path / "one" / "instageo_best_checkpoint"))
+    assert jax.tree.structure(two) == jax.tree.structure(one)
     # chip_inference at world 2: each rank writes its rows; the last line
     # counts the chips of both.
     proc = subprocess.run(

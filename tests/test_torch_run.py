@@ -44,7 +44,7 @@ from instageo_tpu_torch.data.geotiff import Affine, write_geotiff
 from instageo_tpu_torch.models.checkpoint import seg_state_dict_from_jax
 from instageo_tpu_torch.models.registry import get_arch
 from instageo_tpu_torch.train import factory, run
-from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+from instageo_tpu_torch.train.checkpointing import BestCheckpointer, load_checkpoint
 from tests.torch_parity import random_seg_variables
 
 torch.set_num_threads(1)
@@ -108,7 +108,7 @@ def test_train_resume_and_chip_inference(chip_dir, tmp_path, capsys):
     assert np.isfinite(hist["train_loss"]) and printed["val_IoU"] == hist["val_IoU"]
     ckpt = run_dir / "instageo_best_checkpoint"
     sidecar = json.loads((run_dir / "instageo_best_checkpoint.metrics.json").read_text())
-    assert (ckpt / "state.pt").exists() and sidecar["val_IoU"] == hist["val_IoU"]
+    assert load_checkpoint(str(ckpt))["step"] == 2 and sidecar["val_IoU"] == hist["val_IoU"]
     saved = load_config("config.yaml", str(run_dir / ".hydra"))
     assert saved.train.batch_size == 4 and saved.device == "cpu"
     assert (run_dir / "metrics.jsonl").read_text().count("\n") == 2  # epoch + complexity
@@ -133,9 +133,8 @@ def test_eval_matches_jax_run_eval_epoch(chip_dir, tmp_path):
     jax_cfg = jax_load_config_from_argv(["mode=eval"] + _overrides(chip_dir, tmp_path))
     model = jax_factory.build_model(jax_cfg)
     variables = random_seg_variables(model, 1, 32, seed=3)
-    arch = get_arch("prithvi_eo_tiny", in_chans=6, num_frames=1, img_size=32, depth=2)
     ckpt = BestCheckpointer(str(tmp_path))
-    ckpt.save({"model": seg_state_dict_from_jax(variables, arch)})
+    ckpt.save(variables)  # the JAX tree is the checkpoint's layout
 
     ours = run.main(["mode=eval", "device=cpu", f"checkpoint_path={ckpt.path}"]
                     + _overrides(chip_dir, tmp_path))

@@ -31,7 +31,7 @@ from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
 from instageo_tpu_torch.serve.batching import DynamicBatcher
 from instageo_tpu_torch.serve.infer import make_predict_fn
 from instageo_tpu_torch.serve.server import ModelServer
-from instageo_tpu_torch.train.checkpointing import BestCheckpointer
+from instageo_tpu_torch.train.checkpointing import BestCheckpointer, model_variables
 from tests.torch_parity import random_seg_variables
 
 torch.set_num_threads(1)
@@ -119,7 +119,7 @@ def test_dynamic_batcher_concurrent_submits():
 def _server_cfg(port, tmp_path):
     """A config whose checkpoint holds ``port``'s weights and whose
     dataloader section is ``PRE`` (the tiny model, float32, on the CPU)."""
-    ckpt = BestCheckpointer(str(tmp_path / "run")).save({"model": port.state_dict()})
+    ckpt = BestCheckpointer(str(tmp_path / "run")).save(model_variables(port))
     return load_config("config", overrides={
         "device": "cpu", "checkpoint_path": ckpt, "model.model_name": "prithvi_eo_tiny",
         "model.depth": KW["depth"], "model.num_classes": KW["num_classes"],

@@ -52,9 +52,6 @@ JAX_ONLY = {
         "is the conversion"),
     ("models/checkpoint.py", "vit_params_to_torch"): (
         None, "the port's encoder state dict is already in the reference's layout"),
-    ("models/checkpoint.py", "seg_variables_from_torch"): (
-        "models/checkpoint.py:seg_state_dict_from_torch",
-        "builds flax variables; the port strips the Lightning prefix"),
     ("models/checkpoint.py", "seg_variables_to_torch"): (
         "models/checkpoint.py:seg_state_dict_from_jax",
         "maps the JAX tree to the reference's keys; the port reads JAX trees with it"),
@@ -63,8 +60,6 @@ JAX_ONLY = {
     ("models/prithvi.py", "QKVProj"): (
         "torch.nn.Linear", "head-structured (D, 3, H, Dh) flax kernel; the port keeps the "
         "reference's fused Linear"),
-    ("models/prithvi.py", "stack_block_params"): (
-        None, "stacks blocks for lax.scan; the port keeps the loop layout"),
     ("models/seg.py", "ConvTranspose2dTorch"): (
         "torch.nn.ConvTranspose2d", "flax emulation of torch's ConvTranspose2d"),
     ("models/seg.py", "PrithviSeg.setup"): (
@@ -92,8 +87,6 @@ JAX_ONLY = {
     ("parallel/tp.py", "tp_specs"): (
         "parallel/tp.py:tp_place", "PartitionSpecs; parallel/tp.py places by DTensor and "
         "local shards"),
-    ("train/checkpointing.py", "migrate_param_tree"): (
-        None, "reshapes orbax trees the port never reads"),
     ("train/factory.py", "init_variables"): (
         "train/factory.py:create_model", "flax init; a torch module holds its parameters "
         "from construction"),
@@ -109,6 +102,7 @@ PORT_ONLY_FILES = {
     "data/table.py": "records without pandas",
     "data/parquet.py": "Parquet without pyarrow",
     "data/jp2.py": "libopenjp2 by ctypes in place of OpenCV",
+    "train/orbax_dir.py": "orbax checkpoint directories without orbax or tensorstore",
     "webapp/png.py": "a PNG encoder in place of PIL",
     "webapp/web.py": "the small aiohttp stand-in",
 }
