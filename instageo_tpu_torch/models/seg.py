@@ -45,6 +45,7 @@ from instageo_tpu_torch.models.registry import (
 )
 from instageo_tpu_torch.ops.dropout import IMPLS as DROPOUT_IMPLS
 from instageo_tpu_torch.ops.dropout import fused_dropout
+from instageo_tpu_torch.utils.telemetry import span
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -225,7 +226,9 @@ class PrithviSeg(nn.Module):
     ``forward`` takes (B, C, T, H, W) imagery, and the ``_tl`` variants'
     optional coords, and returns float32 logits, NCHW, or NHWC with
     ``channels_last``. With kernel sizes 3 (and always with the fast head)
-    the output matches the input resolution.
+    the output matches the input resolution. The encoder and the head run
+    inside the profiler's ranges ``instageo.model.encoder`` and
+    ``instageo.model.head`` (``utils/telemetry.py:span``).
     """
 
     def __init__(
@@ -294,33 +297,35 @@ class PrithviSeg(nn.Module):
                 channels_last: bool = False,
                 temporal_coords: Optional[torch.Tensor] = None,
                 location_coords: Optional[torch.Tensor] = None):
-        tokens = self.prithvi_encoder(img, temporal_coords, location_coords)
-        feats = tokens[:, 1:, :]  # drop the cls token
-        b, l, d = feats.shape
-        t = self.temporal_step
-        side = int((l // t) ** 0.5)
-        # Tokens are ordered (t, h, w); channels are ordered c = d·T + t.
-        x = feats.reshape(b, t, side, side, d).permute(0, 4, 1, 2, 3)
-        x = x.reshape(b, d * t, side, side)
-        feature_map = x
-        x = x.to(self.dtype)
-        if self.head_impl == "fast":
-            for i in range(3):
-                x = getattr(self, f"fast_up_{i}")(x)
-            dropout, conv = self.head_dropout, self.fast_head_conv
-        else:
-            head = self.segmentation_head
-            for block in head[:-2]:
-                x = block(x)
-            dropout, conv = head[-2], head[-1]
-        logits = F.conv2d(dropout(x), conv.weight.to(self.dtype),
-                          conv.bias.to(self.dtype)).float()
-        if self.head_impl == "fast":
-            # The classifier ran at half resolution.
-            logits = resize_logits(logits, img.shape[-2:])
-        if channels_last:
-            logits = logits.permute(0, 2, 3, 1)
-            feature_map = feature_map.permute(0, 2, 3, 1)
+        with span("instageo.model.encoder"):
+            tokens = self.prithvi_encoder(img, temporal_coords, location_coords)
+        with span("instageo.model.head"):
+            feats = tokens[:, 1:, :]  # drop the cls token
+            b, l, d = feats.shape
+            t = self.temporal_step
+            side = int((l // t) ** 0.5)
+            # Tokens are ordered (t, h, w); channels are ordered c = d·T + t.
+            x = feats.reshape(b, t, side, side, d).permute(0, 4, 1, 2, 3)
+            x = x.reshape(b, d * t, side, side)
+            feature_map = x
+            x = x.to(self.dtype)
+            if self.head_impl == "fast":
+                for i in range(3):
+                    x = getattr(self, f"fast_up_{i}")(x)
+                dropout, conv = self.head_dropout, self.fast_head_conv
+            else:
+                head = self.segmentation_head
+                for block in head[:-2]:
+                    x = block(x)
+                dropout, conv = head[-2], head[-1]
+            logits = F.conv2d(dropout(x), conv.weight.to(self.dtype),
+                              conv.bias.to(self.dtype)).float()
+            if self.head_impl == "fast":
+                # The classifier ran at half resolution.
+                logits = resize_logits(logits, img.shape[-2:])
+            if channels_last:
+                logits = logits.permute(0, 2, 3, 1)
+                feature_map = feature_map.permute(0, 2, 3, 1)
         if return_features:
             return logits, feature_map.float()
         return logits

@@ -3,7 +3,10 @@
 Counterpart of ``instageo_tpu/ops/preprocess.py``: chips cross to the device
 as raw integers (uint16 is half the bytes of host-normalised float32), and
 band select → constant multiply → per-band normalise → centre crop →
-(B, C, T, H, W) runs on the device.
+(B, C, T, H, W) runs on the device. The fused predict's phases are the
+profiler's ranges ``instageo.serve.upload``, ``instageo.serve.preprocess``
+and ``instageo.serve.argmax`` (``utils/telemetry.py:span``); the model
+adds ``instageo.model.encoder`` and ``instageo.model.head``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 from torch import nn
+
+from instageo_tpu_torch.utils.telemetry import span
 
 
 def raw_to_device(raw: Union[np.ndarray, torch.Tensor],
@@ -83,13 +88,16 @@ def make_fused_predict_fn(model: nn.Module, mean, std, *,
 
     @torch.inference_mode()
     def predict(raw):
-        x = preprocess_chips(raw_to_device(raw, device), mean_t, std_t,
-                             temporal_size=temporal_size, bands=bands_t,
-                             constant_multiplier=constant_multiplier,
-                             img_size=img_size)
+        with span("instageo.serve.upload"):
+            x = raw_to_device(raw, device)
+        with span("instageo.serve.preprocess"):
+            x = preprocess_chips(x, mean_t, std_t, temporal_size=temporal_size,
+                                 bands=bands_t, constant_multiplier=constant_multiplier,
+                                 img_size=img_size)
         logits = model(x, channels_last=True)
-        if is_reg_task:
-            return logits[..., 0].float()
-        return logits.argmax(dim=-1).to(torch.int8)
+        with span("instageo.serve.argmax"):
+            if is_reg_task:
+                return logits[..., 0].float()
+            return logits.argmax(dim=-1).to(torch.int8)
 
     return predict

@@ -24,7 +24,14 @@ as ordinary steps, which warms up the libraries and AdamW's state before
 the capture. On the CPU the same grouped code runs without a graph. A tail
 group smaller than k, and eval epochs that collect outputs, run step by
 step. Either way the run is the one-step run: the same batches, seeds and
-rates in the same order.
+rates in the same order. Each phase of a train epoch is a range of the
+profiler's trace (``utils/telemetry.py:span``): ``instageo.train.host_batch``
+(a group's host batches), ``instageo.train.seeds`` (its seeds and rates to
+the device), ``instageo.train.stage`` (``_stage``), ``instageo.train.replay``
+(the graph's replay, or the CPU's grouped steps), ``instageo.train.capture``
+(the first full group's plain steps and the capture),
+``instageo.train.plain_step`` (one step outside a group) and
+``instageo.train.finalize`` (the epoch's read-back).
 
 The configuration is a nested mapping with the JAX config's keys
 (``train.*``, ``model.*``, ``is_reg_task``, ``tpu.steps_per_call``).
@@ -103,7 +110,7 @@ from instageo_tpu_torch.train.optim import (
     restore_capturable,
     set_learning_rate,
 )
-from instageo_tpu_torch.utils.telemetry import kernel_launches
+from instageo_tpu_torch.utils.telemetry import kernel_launches, span
 
 log = logging.getLogger(__name__)
 
@@ -587,28 +594,33 @@ class Trainer:
                          metrics: EpochMetrics, losses: Optional[list]) -> None:
         """k host batches as one group: staged and replayed (or, on the CPU,
         run) with the seeds and rates the one-step loop would take."""
-        host = [self._host_batch(x, y, batch_size) for x, y in batches]
+        with span("instageo.train.host_batch"):
+            host = [self._host_batch(x, y, batch_size) for x, y in batches]
         group = self._group_for("train", len(batches), *host[0], self._seeds_per_step())
         if not group.warm:  # the card's first full group: plain steps, then capture
-            self._run_train_steps(batches, generator, batch_size, metrics, losses)
-            group.warm = True
-            group.graph = CapturedGraph(lambda: self._train_group_body(group))
-            set_dropout_generator(self.model, None)
+            with span("instageo.train.capture"):
+                self._run_train_steps(batches, generator, batch_size, metrics, losses)
+                group.warm = True
+                group.graph = CapturedGraph(lambda: self._train_group_body(group))
+                set_dropout_generator(self.model, None)
             return
-        seeds = []
-        for j in range(group.k):
-            step_gen = torch.Generator().manual_seed(draw_seed(generator))
-            seeds += [draw_seed(step_gen) for _ in range(group.seeds_per_step)]
-            if self.schedule is not None:
-                group.lr_values[j] = self.schedule(self.step + j)
-        self._to_device(group.seeds.buffer, torch.tensor(seeds, dtype=torch.int64))
-        if self.schedule is not None and self.device.type == "cuda":
-            self._to_device(group.lrs, torch.tensor(group.lr_values, dtype=torch.float32))
-        self._stage(group, host)
-        if group.graph is not None:
-            group.graph.replay()
-        else:
-            self._train_group_body(group)
+        with span("instageo.train.seeds"):
+            seeds = []
+            for j in range(group.k):
+                step_gen = torch.Generator().manual_seed(draw_seed(generator))
+                seeds += [draw_seed(step_gen) for _ in range(group.seeds_per_step)]
+                if self.schedule is not None:
+                    group.lr_values[j] = self.schedule(self.step + j)
+            self._to_device(group.seeds.buffer, torch.tensor(seeds, dtype=torch.int64))
+            if self.schedule is not None and self.device.type == "cuda":
+                self._to_device(group.lrs, torch.tensor(group.lr_values, dtype=torch.float32))
+        with span("instageo.train.stage"):
+            self._stage(group, host)
+        with span("instageo.train.replay"):
+            if group.graph is not None:
+                group.graph.replay()
+            else:
+                self._train_group_body(group)
         metrics.batches += group.k * self.grad_accum
         self.step += group.k
         if losses is not None:
@@ -618,9 +630,11 @@ class Trainer:
                          batch_size: int, metrics: EpochMetrics,
                          losses: Optional[list]) -> None:
         for x, y in batches:
-            x, y = self.prepare_batch(x, y, batch_size)
-            loss = self.train_step(x, y, torch.Generator().manual_seed(draw_seed(generator)),
-                                   metrics)
+            with span("instageo.train.plain_step"):
+                x, y = self.prepare_batch(x, y, batch_size)
+                loss = self.train_step(x, y,
+                                       torch.Generator().manual_seed(draw_seed(generator)),
+                                       metrics)
             if losses is not None:
                 losses.append(loss)
 
@@ -636,16 +650,17 @@ class Trainer:
         if k == 1:
             metrics = EpochMetrics(self.num_classes, self.device, self.is_reg)
             self._run_train_steps(batches, generator, batch_size, metrics, losses)
+        else:
+            metrics = self._epoch_metrics("train")
+            pending = []
+            for batch in batches:
+                pending.append(batch)
+                if len(pending) == k:
+                    self._run_train_group(pending, generator, batch_size, metrics, losses)
+                    pending = []
+            self._run_train_steps(pending, generator, batch_size, metrics, losses)  # the tail
+        with span("instageo.train.finalize"):
             return self._finalize(metrics, "train")
-        metrics = self._epoch_metrics("train")
-        pending = []
-        for batch in batches:
-            pending.append(batch)
-            if len(pending) == k:
-                self._run_train_group(pending, generator, batch_size, metrics, losses)
-                pending = []
-        self._run_train_steps(pending, generator, batch_size, metrics, losses)  # the tail
-        return self._finalize(metrics, "train")
 
     def _eval_step(self, x: torch.Tensor, y: torch.Tensor, metrics: EpochMetrics
                    ) -> torch.Tensor:

@@ -7,6 +7,9 @@ Counterpart of ``instageo_tpu/utils/telemetry.py``:
 * ``EmissionsTracker``: energy from wall time × the card's power draw,
   read with ``nvidia-smi --query-gpu=power.draw`` at start and stop;
 * ``profile_trace``: a ``torch.profiler`` trace written to a directory;
+* ``span``: a named range of that trace (``instageo.*``) around one phase
+  of the serving or training path, on the profiler's clock; nothing but a
+  flag read while no profiler runs;
 * ``count_params`` and ``StepTimer``;
 * ``rank_footprint``: what one rank of a run holds and launched: its
   parameter and AdamW-moment bytes (its shards under FSDP, ZeRO-1 or
@@ -143,6 +146,20 @@ def profile_trace(log_dir: str, enabled: bool = True):
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     log.info("Profiler trace written to %s", path)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs, so
+    that the phase's host range, and through it the device operations it
+    launched, carry ``name`` in the trace; else one shared null context.
+    The flag is read at each call: with no profiler running, no profiler
+    op reaches a ``torch.export`` trace or a CUDA graph capture."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class StepTimer:

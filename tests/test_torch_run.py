@@ -12,6 +12,7 @@ writer; the tiny model at depth 2, float32, on the CPU (``device=cpu``).
   to ~1e-5, so an argmax could flip only where the top-2 gap is smaller;
   on these inputs every metric agrees within the bound);
 * ``chip_inference`` writes one int8 prediction per chip;
+* ``tpu.profile`` writes a trace that holds the train epoch's spans;
 * the factory loads a synthetic pretrained encoder (6 and 12 model bands,
   and a band missing from the pretrained set) and a reference ``.ckpt``
   from ``export_torch_checkpoint``; the forward then matches the JAX
@@ -125,6 +126,19 @@ def test_train_resume_and_chip_inference(chip_dir, tmp_path, capsys):
     with JaxGeoTiffReader(str(preds[0])) as r:
         assert r.dtypes[0] == "int8" and r.crs == 32633
         assert set(np.unique(r.read(1))) <= {0, 1}
+
+
+def test_profile_trace_carries_the_train_spans(chip_dir, tmp_path):
+    """``tpu.profile``: the run's trace holds the train epoch's spans, two
+    groups of k = 4 over the 8 chips (staged and run), and the read-back."""
+    run_dir = tmp_path / "run"
+    run.main(["mode=train", "device=cpu", "tpu.profile=true", "tpu.steps_per_call=4"]
+             + _overrides(chip_dir, run_dir, **{"train.batch_size": 1}))
+    events = json.loads((run_dir / "profile" / "trace.json").read_text())["traceEvents"]
+    names = [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
+             if e.get("cat") == "user_annotation" and e["name"].startswith("instageo.train.")]
+    group = ["host_batch", "seeds", "stage", "replay"]
+    assert names == ["instageo.train." + n for n in group + group + ["finalize"]]
 
 
 def test_eval_matches_jax_run_eval_epoch(chip_dir, tmp_path):
