@@ -7,30 +7,132 @@ band select → constant multiply → per-band normalise → centre crop →
 profiler's ranges ``instageo.serve.upload``, ``instageo.serve.preprocess``
 and ``instageo.serve.argmax`` (``utils/telemetry.py:span``); the model
 adds ``instageo.model.encoder`` and ``instageo.model.head``.
+
+On a CUDA device the fused predict uploads host batches through
+``PinnedStaging``: two pinned host slots, each refilled on the host while
+the card works on the batch before, and copied by an asynchronous DMA on
+the current stream. ``raw_to_device`` is the plain copy from pageable
+memory, which CUDA stages through a bounce buffer of its own while the
+host waits. Counters: ``pinned_uploads`` (batches sent through the slots),
+``pageable_uploads`` (host batches ``raw_to_device`` copied to a CUDA
+device), ``upload_slot_waits`` (times the host found a slot's last DMA
+still running).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from instageo_tpu_torch.ops._build import HostCounter
 from instageo_tpu_torch.utils.telemetry import span
+
+pinned_uploads = HostCounter()     # batches sent through PinnedStaging's slots
+pageable_uploads = HostCounter()   # host batches raw_to_device copied to a CUDA device
+upload_slot_waits = HostCounter()  # times a slot's last DMA was still running
+
+
+def _widen(x: torch.Tensor, raw) -> torch.Tensor:
+    """uint16 chips travel as their int16 bit pattern (torch's uint16 has
+    few device ops) and are widened to int32 on the device."""
+    if isinstance(raw, np.ndarray) and raw.dtype == np.uint16:
+        return x.to(torch.int32).bitwise_and_(0xFFFF)
+    return x
 
 
 def raw_to_device(raw: Union[np.ndarray, torch.Tensor],
                   device: torch.device) -> torch.Tensor:
-    """Raw chips onto ``device`` unconverted. uint16 travels as its int16 bit
-    pattern (torch's uint16 has few device ops) and is widened to int32 there."""
+    """Raw chips onto ``device`` unconverted, from pageable memory; uint16
+    widened to int32 there."""
+    if _on_host(raw) and device.type == "cuda":
+        pageable_uploads.add()
     if isinstance(raw, torch.Tensor):
         return raw.to(device)
     raw = np.ascontiguousarray(raw)
-    if raw.dtype == np.uint16:
-        x = torch.from_numpy(raw.view(np.int16)).to(device)
-        return x.to(torch.int32).bitwise_and_(0xFFFF)
-    return torch.from_numpy(raw).to(device)
+    bits = raw.view(np.int16) if raw.dtype == np.uint16 else raw
+    return _widen(torch.from_numpy(bits).to(device), raw)
+
+
+def _on_host(raw) -> bool:
+    return isinstance(raw, np.ndarray) or (isinstance(raw, torch.Tensor)
+                                           and raw.device.type == "cpu")
+
+
+def _pinned_bytes(nbytes: int) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+class PinnedStaging:
+    """Host batches onto a CUDA ``device`` through ``DEPTH`` pinned slots.
+
+    ``upload(raw)`` takes a numpy array or a CPU tensor and returns what
+    ``raw_to_device`` returns for it. It copies ``raw`` on the host into the
+    next slot, straight from its strides, sends the slot with
+    ``non_blocking=True`` on the device's current stream, where the caching
+    allocator reuses blocks in stream order as for any copy, and records
+    the slot's event after it. A slot whose event has not completed is
+    waited for before it is refilled (``upload_slot_waits``): every batch is
+    copied from host memory afresh, and none overwrites a batch still in
+    flight. The slots hold the byte count of the latest batch; a batch of
+    another size replaces the pair, once the old pair's DMAs are done.
+
+    ``alloc`` (bytes -> uint8 host tensor) and ``event`` (-> an object with
+    ``query``, ``synchronize`` and ``record(stream)``) default to pinned
+    memory and ``torch.cuda.Event``."""
+
+    DEPTH = 2  # double buffering
+
+    def __init__(self, device: torch.device, *,
+                 alloc: Callable[[int], torch.Tensor] = _pinned_bytes,
+                 event: Optional[Callable[[], object]] = None) -> None:
+        self.device = device
+        self._alloc = alloc
+        self._event = event or torch.cuda.Event
+        self._lock = threading.Lock()
+        self.slots = []   # [(uint8 host tensor, event after its last DMA)]
+        self._next = 0
+
+    def upload(self, raw: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        nbytes = raw.nbytes if isinstance(raw, np.ndarray) else raw.numel() * raw.element_size()
+        with self._lock:
+            if not self.slots or self.slots[0][0].numel() != nbytes:
+                for _, done in self.slots:
+                    done.synchronize()
+                self.slots = []   # the old pair goes before the new is allocated
+                self.slots = [(self._alloc(nbytes), self._event()) for _ in range(self.DEPTH)]
+                self._next = 0
+            host, done = self.slots[self._next]
+            self._next = (self._next + 1) % self.DEPTH
+            if not done.query():
+                upload_slot_waits.add()
+                done.synchronize()
+            x = _fill(host, raw).to(self.device, non_blocking=True)
+            done.record(_current_stream(self.device))
+            x = _widen(x, raw)
+        pinned_uploads.add()
+        return x
+
+
+def _fill(host: torch.Tensor, raw: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+    """``raw`` copied from its strides into the uint8 ``host`` of its byte
+    count, returned as a tensor of its shape; uint16 as its int16 bits."""
+    if isinstance(raw, torch.Tensor):
+        staged = host.view(raw.dtype).view(raw.shape)
+        staged.copy_(raw)
+        return staged
+    bits = raw.view(np.int16) if raw.dtype == np.uint16 else raw
+    staged = host.numpy().view(bits.dtype).reshape(bits.shape)
+    np.copyto(staged, bits)
+    return torch.from_numpy(staged)
+
+
+def _current_stream(device: torch.device):
+    """The stream a copy to ``device`` runs on (None off CUDA)."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
 
 
 def preprocess_chips(
@@ -78,18 +180,25 @@ def make_fused_predict_fn(model: nn.Module, mean, std, *,
     int8 argmax classes (B, H, W), or float32 channel 0 for regression.
 
     The normalisation constants and band indices go to the device once,
-    here; the model's weights already live there.
+    here; the model's weights already live there. On a CUDA device a host
+    batch (numpy or a CPU tensor) goes through this function's own
+    ``PinnedStaging``; a batch already on the device, and every batch on a
+    CPU device, through ``raw_to_device``.
     """
     device = next(model.parameters()).device
     mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=device)
     std_t = torch.as_tensor(np.asarray(std, np.float32), device=device)
     bands_t = (None if bands is None
                else torch.as_tensor(list(bands), dtype=torch.long, device=device))
+    staging = PinnedStaging(device) if device.type == "cuda" else None
 
     @torch.inference_mode()
     def predict(raw):
         with span("instageo.serve.upload"):
-            x = raw_to_device(raw, device)
+            if staging is not None and _on_host(raw):
+                x = staging.upload(raw)
+            else:
+                x = raw_to_device(raw, device)
         with span("instageo.serve.preprocess"):
             x = preprocess_chips(x, mean_t, std_t, temporal_size=temporal_size,
                                  bands=bands_t, constant_multiplier=constant_multiplier,

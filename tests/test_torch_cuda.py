@@ -26,7 +26,10 @@ pixels), in bf16 through the kernel and in float32 through the "xla"
 attention route with no kernel launched. The int8 (W8A8) model on the card
 against the CPU (``int8_matmul`` bit for bit; logits within 0.05 x max
 |logit|, argmax on at least 0.99 of decided pixels), and ``mode=replica``
-on the card.
+on the card. The fused predict's pinned staging: uint16 edge values from
+contiguous, sliced and reversed arrays and a CPU tensor arrive as the same
+int32 values; 6 unsynchronised predicts equal the pageable path bit for
+bit and reserve no more device memory.
 """
 
 import json
@@ -877,3 +880,67 @@ def test_replica_on_card(cuda, tmp_path):
                        f"run_dir={tmp_path / 'direct'}"])
     for col, key in replica._EVAL_KEYS.items():
         assert abs(report["metrics"]["test"][col] / 100.0 - direct[key]) <= 1e-3, col
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "sliced", "reversed", "cpu_tensor"])
+def test_pinned_staging_round_trip_on_card(cuda, kind):
+    """``PinnedStaging`` on the card: uint16 0, 1, 32767, 32768 and 65535,
+    from contiguous, sliced and reversed arrays and a CPU tensor, arrive as
+    the same int32 values; the slots are pinned."""
+    from instageo_tpu_torch.ops.preprocess import PinnedStaging
+
+    raw = np.random.default_rng(5).integers(0, 1 << 16, (4, 6, 40, 40), dtype=np.uint16)
+    raw[0, 0, 0, :5] = [0, 1, 32767, 32768, 65535]
+    raw = {"contiguous": raw, "sliced": raw[:, ::2], "reversed": raw[:, ::-1],
+           "cpu_tensor": torch.from_numpy(raw.astype(np.int32))}[kind]
+    want = raw if isinstance(raw, torch.Tensor) else torch.from_numpy(raw.astype(np.int32))
+    staging = PinnedStaging(cuda)
+    got = [staging.upload(raw) for _ in range(3)]   # both slots, then the first again
+    assert all(x.device.type == "cuda" and torch.equal(x.cpu(), want) for x in got)
+    assert len(staging.slots) == 2 and all(host.is_pinned() for host, _ in staging.slots)
+
+
+def test_pinned_predicts_equal_the_pageable_path(cuda):
+    """The fused predict on the card: 6 predicts of distinct raw batches of
+    64 uint16 chips, back to back with no synchronise and every output kept,
+    each equal bit for bit to the pageable path (``raw_to_device``, then the
+    same preprocess, model and argmax). Over the 6, no more device memory
+    reserved than the pageable path reserves; 6 pinned uploads counted, and
+    6 pageable ones for the pageable path."""
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+    from instageo_tpu_torch.ops import preprocess as pp
+
+    model = create_prithvi_seg("prithvi_eo_tiny", num_classes=3, image_size=32, num_bands=6,
+                               depth=2, dtype=torch.bfloat16, device=cuda, seed=0).eval()
+    mean, std = [5000.0] * 6, [3000.0] * 6
+    rng = np.random.default_rng(6)
+    raws = [rng.integers(0, 1 << 16, (64, 6, 224, 224), dtype=np.uint16) for _ in range(5)]
+    raws[0][0, 0, 100, 100:105] = [0, 1, 32767, 32768, 65535]
+    raws.append(rng.integers(0, 1 << 16, (64, 12, 224, 224), dtype=np.uint16)[:, ::2])
+    predict = pp.make_fused_predict_fn(model, mean, std, img_size=32)
+    mean_t = torch.tensor(mean, device=cuda)
+    std_t = torch.tensor(std, device=cuda)
+
+    @torch.inference_mode()
+    def pageable(raw):
+        x = pp.preprocess_chips(pp.raw_to_device(raw, cuda), mean_t, std_t, img_size=32)
+        return model(x, channels_last=True).argmax(dim=-1).to(torch.int8)
+
+    def six(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        outs = [fn(raw) for raw in raws]
+        torch.cuda.synchronize()
+        return outs, torch.cuda.max_memory_reserved()
+
+    pageable(raws[0])
+    predict(raws[0])
+    pinned0, pageable0 = pp.pinned_uploads.count, pp.pageable_uploads.count
+    want, want_reserved = six(pageable)
+    got, got_reserved = six(predict)
+    assert pp.pinned_uploads.count - pinned0 == 6
+    assert pp.pageable_uploads.count - pageable0 == 6
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int8 and torch.equal(g, w)
+    assert got_reserved <= want_reserved

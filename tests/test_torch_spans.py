@@ -12,8 +12,9 @@ reading from a Chrome trace (``tools/trace_spans.py``), on the CPU.
   device time of the operations launched inside it (by correlation,
   inclusively, a graph launch owning all its kernels, another thread's
   launches not), credits each idle gap to the innermost span and names the
-  gap by its ``bench.*`` and program span, and gives each cell's coverage
-  of the device-op seconds by its top-level spans.
+  gap by its ``bench.*`` and program span, gives each cell's coverage
+  of the device-op seconds by its top-level spans, and passes on the
+  summary's memcpy seconds by kind.
 * The benchmark's own summary (``h100bench/tracing.py:summarize``) reads
   the same numbers with and without the program's spans in the trace.
 """
@@ -259,8 +260,10 @@ def _training_group():
 @pytest.mark.parametrize("make", [_serving_request, _training_group])
 def test_describe_gives_each_cell_its_coverage(make):
     events, share = make()
-    out = trace_spans.describe(events, tracing.summarize(events))
+    summary = tracing.summarize(events)
+    out = trace_spans.describe(events, summary)
     assert out["coverage"]["share"] == pytest.approx(share)
+    assert out["memcpy"] == summary["memcpy"] and out["memcpy"]
     graph = out["graph_kernel_args"]
     if make is _training_group:
         assert set(out["coverage"]["parts"]) == set(trace_spans.TRAIN_TOP)

@@ -27,8 +27,13 @@ summary (``h100bench/tracing.py:summarize``) does not read:
   ``instageo.train.replay``, ``stage`` and ``seeds``);
 * ``graph_kernel_args``: the argument keys of the kernels launched by a
   ``cudaGraphLaunch``, and how many carry a key naming a graph node;
-* ``idle``, ``busy_s``, ``window_s``: the harness's idle labels, busy and
-  traced seconds on the device, as its summary gives them.
+* ``idle``, ``memcpy``, ``busy_s``, ``window_s``: the harness's idle
+  labels, its memcpy seconds by kind (``Memcpy HtoD (Pinned -> Device)``),
+  busy and traced seconds on the device, as its summary gives them;
+* ``upload_counters``: the serving upload's counters
+  (``ops/preprocess.py``: ``pinned_uploads``, ``pageable_uploads``,
+  ``upload_slot_waits``) over the traced stretch and over the whole
+  process (warm-up included); empty where the program has none.
 
 Run from the root of a checkout (of the program with or without spans);
 on a card only, as ``h100bench/run.py`` is.
@@ -47,6 +52,7 @@ sys.path.insert(0, ROOT)
 
 PROGRAM_PREFIX = "instageo."   # the program's spans
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+UPLOAD_COUNTERS = ("pinned_uploads", "pageable_uploads", "upload_slot_waits")
 SERVE_TOP = ("instageo.serve.upload", "instageo.serve.preprocess", "instageo.model.encoder",
              "instageo.model.head", "instageo.serve.argmax")
 TRAIN_TOP = ("instageo.train.replay", "instageo.train.stage", "instageo.train.seeds")
@@ -181,9 +187,19 @@ def describe(events, summary):
         "graph_kernel_args": {"kernels": len(graph_kernels), "keys": keys,
                               "with_graph_node": with_node},
         "idle": dict(sorted(summary["idle"].items(), key=lambda kv: -kv[1])[:12]),
+        "memcpy": summary["memcpy"],
         "busy_s": summary["busy_s"],
         "window_s": summary["window_s"],
     }
+
+
+def upload_counters() -> Dict[str, int]:
+    """The serving upload's counters now, by name; those the program lacks
+    are left out."""
+    from instageo_tpu_torch.ops import preprocess
+
+    return {f"preprocess.{n}": getattr(preprocess, n).count for n in UPLOAD_COUNTERS
+            if hasattr(preprocess, n)}
 
 
 def main() -> int:
@@ -211,8 +227,24 @@ def main() -> int:
         return summary
 
     tracing.summarize = summarize_and_describe
+    marks = {}
+    start, stop = tracing.Tracer.start, tracing.Tracer.stop
+
+    def start_marked(self):
+        marks["start"] = upload_counters()
+        start(self)
+
+    def stop_marked(self, **units):
+        stop(self, **units)
+        marks["stop"] = upload_counters()
+
+    tracing.Tracer.start, tracing.Tracer.stop = start_marked, stop_marked
     rc = harness.main(["--workload", args.workload, "--seed", str(args.seed),
                        "--seconds", str(args.seconds), "--trace", "1"], t_process=t0)
+    end = upload_counters()
+    found["upload_counters"] = {
+        name: {"stretch": marks["stop"][name] - marks["start"][name] if "stop" in marks else None,
+               "process": n} for name, n in end.items()}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(dict(found, workload=args.workload, seed=args.seed), f, indent=1)
