@@ -38,6 +38,7 @@ from instageo_tpu_torch.ops._build import HostCounter
 from instageo_tpu_torch.ops.attention import IMPLS as KERNEL_IMPLS
 from instageo_tpu_torch.ops.attention import flash_attention_blo
 from instageo_tpu_torch.ops.quant import QUANTS, QuantLinear
+from instageo_tpu_torch.utils.telemetry import span
 
 # ---------------------------------------------------------------------------
 # Sincos positional embeddings (numpy; static per model config)
@@ -139,6 +140,8 @@ GELUS = ("exact", "tanh", "bf16")
 # "kernel" and "plain" run ``FlashAttention``; "xla" runs ``xla_attention``.
 ATTN_IMPLS = KERNEL_IMPLS + ("xla",)
 xla_attn_calls = HostCounter()  # Attention forwards on the "xla" route
+coord_embeds = HostCounter()    # forwards that added a ``_tl`` coords embedding
+coords_missing = HostCounter()  # ``_tl`` forwards with an encoder's coords not given
 
 
 _MATMUL_LAYERS = (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)
@@ -376,15 +379,15 @@ class Block(nn.Module):
 class TemporalEncoder(nn.Module):
     """Year and day-of-year sincos encoding of (B, T, 2) ``temporal_coords``
     (reference pritvhi.py:273-322): half the dims each, times ``scale``
-    (learnable, 0.1 at init, with ``trainable_scale``; else 1), float32."""
+    (learnable, 0.1 at init, with ``trainable_scale``; else 1), (B, T, D)
+    float32, one row per frame."""
 
     def __init__(self, embed_dim: int, trainable_scale: bool = False) -> None:
         super().__init__()
         self.embed_dim = embed_dim
         self.scale = nn.Parameter(torch.full((1,), 0.1)) if trainable_scale else None
 
-    def forward(self, temporal_coords: torch.Tensor,
-                tokens_per_frame: Optional[int] = None) -> torch.Tensor:
+    def forward(self, temporal_coords: torch.Tensor) -> torch.Tensor:
         b, t, _ = temporal_coords.shape
         year_dim = self.embed_dim // 2
         year = _sincos_from_values(year_dim, temporal_coords[:, :, 0]).reshape(b, t, -1)
@@ -393,8 +396,6 @@ class TemporalEncoder(nn.Module):
         emb = torch.cat([year, jday], dim=-1)
         if self.scale is not None:
             emb = self.scale * emb
-        if tokens_per_frame is not None:
-            emb = emb.repeat_interleave(tokens_per_frame, dim=1)
         return emb
 
 
@@ -427,7 +428,9 @@ class PrithviViT(nn.Module):
     encoders (``coords_encoding``) are built, and, as in the reference
     forward, add their embeddings only when coords are passed: the
     temporal one per frame, the location one to every patch token; each in
-    float32, then cast to the token dtype.
+    float32, then cast to the token dtype (``_add_coords``, inside the
+    profiler's range ``instageo.model.coords``). Coords come on the input's
+    device: (B, T, 2) year and day of year, (B, 2) latitude and longitude.
     """
 
     def __init__(
@@ -453,6 +456,7 @@ class PrithviViT(nn.Module):
         self.patch_size = tuple(patch_size)
         self.num_frames = num_frames
         self.embed_dim = embed_dim
+        self.coords_encoding = tuple(coords_encoding)
         self.patch_embed = PatchEmbed3D(self.patch_size, in_chans, embed_dim, dtype)
         if "time" in coords_encoding:
             self.temporal_embed_enc = TemporalEncoder(embed_dim, coords_scale_learn)
@@ -497,17 +501,48 @@ class PrithviViT(nn.Module):
         tokens = self.patch_embed(x)
         pos = self._pos_embed(x.shape[-3:], tokens.device)
         tokens = tokens + pos[:, 1:].to(tokens.dtype)
-        if temporal_coords is not None and hasattr(self, "temporal_embed_enc"):
-            temporal_coords = temporal_coords.to(tokens.device)
-            per_frame = tokens.shape[1] // temporal_coords.shape[1]
-            tokens = tokens + self.temporal_embed_enc(temporal_coords,
-                                                      per_frame).to(tokens.dtype)
-        if location_coords is not None and hasattr(self, "location_embed_enc"):
-            tokens = tokens + self.location_embed_enc(
-                location_coords.to(tokens.device)).to(tokens.dtype)
+        if self.coords_encoding:
+            with span("instageo.model.coords"):
+                tokens = self._add_coords(tokens, temporal_coords, location_coords)
         cls = (self.cls_token + pos[:, :1]).to(tokens.dtype)
         tokens = torch.cat([cls.expand(tokens.shape[0], -1, -1), tokens], dim=1)
         return self.norm(self._blocks(tokens))
+
+    def _add_coords(self, tokens: torch.Tensor, temporal_coords: Optional[torch.Tensor],
+                    location_coords: Optional[torch.Tensor]) -> torch.Tensor:
+        """The patch tokens (B, T·h·w, D) plus the embeddings of the coords
+        given, each computed in float32 and cast to the tokens' dtype: a
+        frame's temporal embedding broadcast over its tokens, the location
+        embedding over every token. The coords are on the tokens' device.
+        Counted: ``coord_embeds`` when an embedding was added,
+        ``coords_missing`` when an encoder got no coords. Coords on another
+        device raise: moving them here would hold the host on a pageable
+        copy (the fused predict stages them with the batch)."""
+        b, n, d = tokens.shape
+        for name, c in (("temporal_coords", temporal_coords),
+                        ("location_coords", location_coords)):
+            if c is not None and c.device != tokens.device:
+                raise ValueError(f"{name} on {c.device}; the model runs on {tokens.device}")
+        added = missing = False
+        if hasattr(self, "temporal_embed_enc"):
+            if temporal_coords is None:
+                missing = True
+            else:
+                t = temporal_coords.shape[1]
+                emb = self.temporal_embed_enc(temporal_coords).to(tokens.dtype)
+                tokens = (tokens.view(b, t, n // t, d) + emb[:, :, None]).view(b, n, d)
+                added = True
+        if hasattr(self, "location_embed_enc"):
+            if location_coords is None:
+                missing = True
+            else:
+                tokens = tokens + self.location_embed_enc(location_coords).to(tokens.dtype)
+                added = True
+        if added:
+            coord_embeds.add()
+        if missing:
+            coords_missing.add()
+        return tokens
 
     def _blocks(self, tokens: torch.Tensor) -> torch.Tensor:
         if self.pipeline is not None:

@@ -224,7 +224,8 @@ class PrithviSeg(nn.Module):
     """Segmentation head over the Prithvi encoder.
 
     ``forward`` takes (B, C, T, H, W) imagery, and the ``_tl`` variants'
-    optional coords, and returns float32 logits, NCHW, or NHWC with
+    optional coords (on the model's device: host coords raise), and
+    returns float32 logits, NCHW, or NHWC with
     ``channels_last``. With kernel sizes 3 (and always with the fast head)
     the output matches the input resolution. The encoder and the head run
     inside the profiler's ranges ``instageo.model.encoder`` and
@@ -292,6 +293,12 @@ class PrithviSeg(nn.Module):
             Dropout(0.1, dropout_impl),
             nn.Conv2d(embed_dims[4], num_classes, kernel_size=1),
         )
+
+    @property
+    def uses_coords(self) -> bool:
+        """Whether the encoder takes each chip's time and location coords
+        (a ``_tl`` variant)."""
+        return bool(self.prithvi_encoder.coords_encoding)
 
     def forward(self, img: torch.Tensor, return_features: bool = False,
                 channels_last: bool = False,

@@ -11,9 +11,11 @@ adds ``instageo.model.encoder`` and ``instageo.model.head``.
 On a CUDA device the fused predict uploads host batches through
 ``PinnedStaging``: two pinned host slots, each refilled on the host while
 the card works on the batch before, and copied by an asynchronous DMA on
-the current stream. ``raw_to_device`` is the plain copy from pageable
+the current stream; a ``_tl`` model's coords travel in the same slot and
+DMA as their batch. ``raw_to_device`` is the plain copy from pageable
 memory, which CUDA stages through a bounce buffer of its own while the
-host waits. Counters: ``pinned_uploads`` (batches sent through the slots),
+host waits. Counters: ``pinned_uploads`` (batches sent through the slots,
+coords included),
 ``pageable_uploads`` (host batches ``raw_to_device`` copied to a CUDA
 device), ``upload_slot_waits`` (times the host found a slot's last DMA
 still running).
@@ -21,8 +23,9 @@ still running).
 
 from __future__ import annotations
 
+import logging
 import threading
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -30,6 +33,8 @@ from torch import nn
 
 from instageo_tpu_torch.ops._build import HostCounter
 from instageo_tpu_torch.utils.telemetry import span
+
+log = logging.getLogger(__name__)
 
 pinned_uploads = HostCounter()     # batches sent through PinnedStaging's slots
 pageable_uploads = HostCounter()   # host batches raw_to_device copied to a CUDA device
@@ -79,12 +84,16 @@ class PinnedStaging:
     copied from host memory afresh, and none overwrites a batch still in
     flight. The slots hold the byte count of the latest batch; a batch of
     another size replaces the pair, once the old pair's DMAs are done.
+    ``upload_all(arrays)`` sends several arrays of one batch (the chips and
+    their coords) in one slot and one DMA, each at an ``ALIGN``-byte offset
+    in the order given, and counts one upload.
 
     ``alloc`` (bytes -> uint8 host tensor) and ``event`` (-> an object with
     ``query``, ``synchronize`` and ``record(stream)``) default to pinned
     memory and ``torch.cuda.Event``."""
 
     DEPTH = 2  # double buffering
+    ALIGN = 16  # bytes: every dtype's view of the device buffer lines up
 
     def __init__(self, device: torch.device, *,
                  alloc: Callable[[int], torch.Tensor] = _pinned_bytes,
@@ -97,7 +106,17 @@ class PinnedStaging:
         self._next = 0
 
     def upload(self, raw: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
-        nbytes = raw.nbytes if isinstance(raw, np.ndarray) else raw.numel() * raw.element_size()
+        return self.upload_all([raw])[0]
+
+    def upload_all(self, arrays: Sequence[Union[np.ndarray, torch.Tensor]]
+                   ) -> List[torch.Tensor]:
+        sizes = [a.nbytes if isinstance(a, np.ndarray) else a.numel() * a.element_size()
+                 for a in arrays]
+        offsets, nbytes = [], 0
+        for n in sizes:
+            nbytes = -(-nbytes // self.ALIGN) * self.ALIGN
+            offsets.append(nbytes)
+            nbytes += n
         with self._lock:
             if not self.slots or self.slots[0][0].numel() != nbytes:
                 for _, done in self.slots:
@@ -110,11 +129,13 @@ class PinnedStaging:
             if not done.query():
                 upload_slot_waits.add()
                 done.synchronize()
-            x = _fill(host, raw).to(self.device, non_blocking=True)
+            staged = [_fill(host[o:o + n], a) for a, o, n in zip(arrays, offsets, sizes)]
+            sent = host.to(self.device, non_blocking=True)
             done.record(_current_stream(self.device))
-            x = _widen(x, raw)
+            out = [_widen(sent[o:o + n].view(st.dtype).view(st.shape), a)
+                   for st, a, o, n in zip(staged, arrays, offsets, sizes)]
         pinned_uploads.add()
-        return x
+        return out
 
 
 def _fill(host: torch.Tensor, raw: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
@@ -175,15 +196,23 @@ def make_fused_predict_fn(model: nn.Module, mean, std, *,
                           constant_multiplier: float = 1.0,
                           is_reg_task: bool = False,
                           img_size: Optional[int] = None
-                          ) -> Callable[[Union[np.ndarray, torch.Tensor]], torch.Tensor]:
-    """raw (B, T·C_raw, H, W) chips -> predictions on the model's device:
-    int8 argmax classes (B, H, W), or float32 channel 0 for regression.
+                          ) -> Callable[..., torch.Tensor]:
+    """``predict(raw, temporal_coords=None, location_coords=None)``: raw
+    (B, T·C_raw, H, W) chips -> predictions on the model's device: int8
+    argmax classes (B, H, W), or float32 channel 0 for regression.
+
+    A ``_tl`` model takes each chip's coords: ``temporal_coords`` (B, T, 2)
+    year and day of year of each frame, ``location_coords`` (B, 2)
+    latitude and longitude, as float32. Called without them it adds no
+    embedding (``models/prithvi.py``'s ``coords_missing`` counts it), and
+    this function logs a warning the first time.
 
     The normalisation constants and band indices go to the device once,
-    here; the model's weights already live there. On a CUDA device a host
-    batch (numpy or a CPU tensor) goes through this function's own
-    ``PinnedStaging``; a batch already on the device, and every batch on a
-    CPU device, through ``raw_to_device``.
+    here; the model's weights already live there. On a CUDA device the host
+    arrays of a call (numpy or CPU tensors: the batch and its coords) go
+    through this function's own ``PinnedStaging`` in one upload; an array
+    already on the device, and every array on a CPU device, through
+    ``raw_to_device``.
     """
     device = next(model.parameters()).device
     mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=device)
@@ -191,22 +220,52 @@ def make_fused_predict_fn(model: nn.Module, mean, std, *,
     bands_t = (None if bands is None
                else torch.as_tensor(list(bands), dtype=torch.long, device=device))
     staging = PinnedStaging(device) if device.type == "cuda" else None
+    wants_coords = getattr(model, "uses_coords", False)
+    warned = []
+
+    def to_device(arrays: List) -> List:
+        staged = ([i for i, a in enumerate(arrays) if a is not None and _on_host(a)]
+                  if staging is not None else [])
+        out = [a if a is None or i in staged else raw_to_device(a, device)
+               for i, a in enumerate(arrays)]
+        if staged:
+            for i, x in zip(staged, staging.upload_all([arrays[i] for i in staged])):
+                out[i] = x
+        return out
 
     @torch.inference_mode()
-    def predict(raw):
+    def predict(raw, temporal_coords=None, location_coords=None):
+        coords = [_coords(temporal_coords, (raw.shape[0], temporal_size, 2), "temporal_coords"),
+                  _coords(location_coords, (raw.shape[0], 2), "location_coords")]
+        if wants_coords and all(c is None for c in coords) and not warned:
+            warned.append(True)
+            log.warning("a _tl model's predict was called without coords: no time or "
+                        "location embedding is added")
         with span("instageo.serve.upload"):
-            if staging is not None and _on_host(raw):
-                x = staging.upload(raw)
-            else:
-                x = raw_to_device(raw, device)
+            x, tc, lc = to_device([raw] + coords)
         with span("instageo.serve.preprocess"):
             x = preprocess_chips(x, mean_t, std_t, temporal_size=temporal_size,
                                  bands=bands_t, constant_multiplier=constant_multiplier,
                                  img_size=img_size)
-        logits = model(x, channels_last=True)
+        if tc is None and lc is None:
+            logits = model(x, channels_last=True)
+        else:
+            logits = model(x, channels_last=True, temporal_coords=tc, location_coords=lc)
         with span("instageo.serve.argmax"):
             if is_reg_task:
                 return logits[..., 0].float()
             return logits.argmax(dim=-1).to(torch.int8)
 
     return predict
+
+
+def _coords(coords, shape, name: str):
+    """``coords`` as float32 (numpy or a tensor where it lies), checked
+    against ``shape``; None stays None."""
+    if coords is None:
+        return None
+    if tuple(coords.shape) != tuple(shape):
+        raise ValueError(f"{name} of shape {tuple(coords.shape)}; expected {tuple(shape)}")
+    if isinstance(coords, torch.Tensor):
+        return coords.float()
+    return np.ascontiguousarray(coords, dtype=np.float32)

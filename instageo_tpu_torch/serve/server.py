@@ -94,6 +94,14 @@ class ModelServer:
         self.requests_served = 0
         log.info("ModelServer ready on %s", self.device)
 
+    @property
+    def uses_coords(self) -> bool:
+        """Whether the model takes each chip's time and location coords (a
+        ``_tl`` variant): its fused predict
+        (``ops/preprocess.py:make_fused_predict_fn``) then wants them, and
+        warns once when called without them."""
+        return self.model.uses_coords
+
     def _served(self) -> None:
         with self._lock:
             self.requests_served += 1

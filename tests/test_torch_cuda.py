@@ -29,7 +29,11 @@ against the CPU (``int8_matmul`` bit for bit; logits within 0.05 x max
 on the card. The fused predict's pinned staging: uint16 edge values from
 contiguous, sliced and reversed arrays and a CPU tensor arrive as the same
 int32 values; 6 unsynchronised predicts equal the pageable path bit for
-bit and reserve no more device memory.
+bit and reserve no more device memory. A ``_tl`` model's coords staged
+with their batch in one pinned upload give the predictions of coords
+already on the card bit for bit; 6 unsynchronised ``_tl`` predicts with
+host coords reserve no more than one predict alone; host coords handed
+to a ``_tl`` model on the card raise.
 """
 
 import json
@@ -944,3 +948,102 @@ def test_pinned_predicts_equal_the_pageable_path(cuda):
     for g, w in zip(got, want):
         assert g.dtype == torch.int8 and torch.equal(g, w)
     assert got_reserved <= want_reserved
+
+
+def _tiny_tl_on_card(cuda, monkeypatch):
+    """A ``_tl`` model at ``prithvi_eo_tiny``'s widths (patch 14, k5/k7
+    head, T=2, 56 px), bf16 on the card."""
+    from instageo_tpu_torch.models import registry
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+
+    arch = registry.PRITHVI_ARCHS["prithvi_eo_tiny"].replace(
+        num_frames=2, patch_size=(1, 14, 14), depth=2, coords_encoding=("time", "location"),
+        coords_scale_learn=True)
+    monkeypatch.setitem(registry.PRITHVI_ARCHS, "tiny_tl", arch)
+    monkeypatch.setitem(registry.SEG_HEAD_KERNEL_SIZES, "tiny_tl", (5, 5, 5, 7))
+    return create_prithvi_seg("tiny_tl", num_classes=5, temporal_step=2, image_size=56,
+                              num_bands=6, dtype=torch.bfloat16, device=cuda, seed=0).eval()
+
+
+def _tl_batches(n, seed=7):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        raw = rng.integers(0, 10000, (64, 12, 224, 224), dtype=np.uint16)
+        temporal = np.stack([rng.integers(2018, 2024, (64, 1)).repeat(2, axis=1),
+                             np.sort(rng.integers(60, 301, (64, 2)), axis=1)],
+                            axis=-1).astype(np.float32)
+        location = np.stack([rng.uniform(25, 49, 64), rng.uniform(-125, -67, 64)],
+                            axis=1).astype(np.float32)
+        out.append((raw, temporal, location))
+    return out
+
+
+def test_pinned_coords_equal_coords_on_card(cuda, monkeypatch):
+    """A ``_tl`` model's fused predict: host coords staged with their raw
+    batch (one pinned upload) give the predictions, bit for bit, of the
+    same coords already on the card and of the whole call on the card (no
+    upload); the coords change the model's logits."""
+    from instageo_tpu_torch.models import prithvi
+    from instageo_tpu_torch.ops import preprocess as pp
+
+    model = _tiny_tl_on_card(cuda, monkeypatch)
+    predict = pp.make_fused_predict_fn(model, [5000.0] * 6, [3000.0] * 6, temporal_size=2,
+                                       img_size=56)
+    raw, temporal, location = _tl_batches(1)[0]
+    on_card = [torch.from_numpy(a).to(cuda) for a in (temporal, location)]
+    predict(raw, temporal, location)
+    pinned, embeds = pp.pinned_uploads.count, prithvi.coord_embeds.count
+    staged = predict(raw, temporal, location)
+    assert pp.pinned_uploads.count == pinned + 1
+    coords_on_card = predict(raw, *on_card)
+    assert pp.pinned_uploads.count == pinned + 2
+    all_on_card = predict(torch.from_numpy(raw.astype(np.int32)).to(cuda), *on_card)
+    assert pp.pinned_uploads.count == pinned + 2
+    assert prithvi.coord_embeds.count == embeds + 3
+    assert torch.equal(staged, coords_on_card) and torch.equal(staged, all_on_card)
+    x = pp.preprocess_chips(pp.raw_to_device(raw, cuda), torch.full((6,), 5000.0, device=cuda),
+                            torch.full((6,), 3000.0, device=cuda), temporal_size=2, img_size=56)
+    with torch.no_grad():
+        assert not torch.equal(model(x, temporal_coords=on_card[0], location_coords=on_card[1]),
+                               model(x))
+
+
+def test_six_tl_predicts_reserve_no_more_than_one(cuda, monkeypatch):
+    """Six predicts of distinct batches with host coords, back to back
+    with no synchronise and every output kept, reserve no more device
+    memory than one predict does alone; each equals its predict alone."""
+    from instageo_tpu_torch.ops import preprocess as pp
+
+    model = _tiny_tl_on_card(cuda, monkeypatch)
+    predict = pp.make_fused_predict_fn(model, [5000.0] * 6, [3000.0] * 6, temporal_size=2,
+                                       img_size=56)
+    batches = _tl_batches(6, seed=8)
+    predict(*batches[0])
+    alone = []
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        alone.append(predict(*b))
+        torch.cuda.synchronize()
+    one = torch.cuda.max_memory_reserved()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    six = [predict(*b) for b in batches]
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_reserved() <= one
+    assert all(torch.equal(a, b) for a, b in zip(alone, six))
+
+
+def test_host_coords_to_a_card_model_raise(cuda, monkeypatch):
+    """A ``_tl`` model on the card called with host coords raises, naming
+    the coords: the encoder makes no copy of its own (the fused predict
+    stages them)."""
+    model = _tiny_tl_on_card(cuda, monkeypatch)
+    _, temporal, location = _tl_batches(1)[0]
+    x = torch.randn(2, 6, 2, 56, 56, device=cuda)
+    on_card = torch.from_numpy(location[:2]).to(cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="temporal_coords on cpu"):
+            model(x, temporal_coords=torch.from_numpy(temporal[:2]), location_coords=on_card)

@@ -7,7 +7,8 @@
 * the resize alone against ``jax.image.resize(..., "bilinear")`` at the
   heads' scales, 2 (p=16) and 1.75 (p=14), square and non-square;
 * ``prithvi_eo_v2_300_tl`` (depth 1): the temporal and location encoders
-  with their learnable scales, without coords and with them;
+  with their learnable scales, without coords and with them, in float32
+  and, with coords, in bf16 compute;
 * the GELU lowerings ``tanh`` and ``bf16``;
 * a stacked-layout (``tpu.block_layout: scan``) JAX tree through the weight
   bridge, which must give the loop-layout tree's state dict;
@@ -17,7 +18,8 @@
 Bounds: fast-head logits 1e-4 abs (float32, three convolution stages where
 the torch head has four, against its 5e-4); resize 1e-6 abs; ``_tl`` logits
 5e-4 abs (``tests/test_torch_models.py``'s bound: a 1024-wide block);
-the bf16 MLP 2e-2 relative (bf16 rounding of the GELU input and output);
+the bf16 MLP 2e-2 relative (bf16 rounding of the GELU input and output),
+and the bf16 ``_tl`` logits 2e-2 in relative norm;
 train step as ``tests/test_torch_train.py``: loss 1e-5 relative, gradients
 1e-4 relative + 1e-6 in norm.
 """
@@ -161,6 +163,33 @@ def test_tl_encoders_match_jax(tl_model):
     assert np.abs(ref_coords - ref_plain).max() > 100 * LOGITS_ATOL
 
 
+def test_tl_forward_in_bf16_matches_jax(tl_model):
+    """The ``_tl`` model with coords in bf16 compute against the JAX model in
+    bf16: the frame's embedding broadcast over its tokens, in float32 and
+    then cast, as JAX adds its repeated rows. The coords move the logits
+    by more than the bf16 gap, so a model that drops them fails."""
+    _, variables = tl_model
+    model = jax_create_prithvi_seg("prithvi_eo_v2_300_tl", temporal_step=2, depth=1,
+                                   image_size=32, num_bands=6, num_classes=3,
+                                   head_impl="fast", dtype=jnp.bfloat16)
+    port = _port("prithvi_eo_v2_300_tl", variables, 2, depth=1, head_impl="fast",
+                 dtype=torch.bfloat16)
+    x = _x(2, 52)
+    temporal = np.array([[[2018.0, 61.0], [2018.0, 299.0]],
+                         [[2023.0, 100.0], [2023.0, 250.0]]], np.float32)
+    location = np.array([[25.5, -124.0], [48.75, -67.5]], np.float32)
+    ref = np.asarray(model.apply(variables, jnp.asarray(x),
+                                 temporal_coords=jnp.asarray(temporal),
+                                 location_coords=jnp.asarray(location))).astype(np.float32)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), temporal_coords=torch.from_numpy(temporal),
+                   location_coords=torch.from_numpy(location)).float().numpy()
+        bare = port(torch.from_numpy(x)).float().numpy()
+    gap = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert gap <= BF16_RTOL
+    assert np.linalg.norm(bare - ref) / np.linalg.norm(ref) > 5 * gap
+
+
 def test_tl_embeddings_match_jax():
     """The encoders alone: float32 embeddings equal the JAX ones within
     float32 rounding of the sin/cos of year-sized arguments."""
@@ -174,9 +203,10 @@ def test_tl_embeddings_match_jax():
         if trainable:
             with torch.no_grad():
                 ours.scale.fill_(0.1)
-        got = ours(torch.from_numpy(temporal), 5).detach()
-        assert got.shape == (1, 15, 64)
-        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+        got = ours(torch.from_numpy(temporal)).detach()
+        assert got.shape == (1, 3, 64)
+        # JAX repeats a frame's row for its tokens; the port broadcasts it.
+        np.testing.assert_allclose(np.repeat(got.numpy(), 5, axis=1), ref, rtol=0, atol=1e-6)
         l_ref = jax_prithvi.LocationEncoder(64, trainable)
         l_vars = l_ref.init(jax.random.PRNGKey(0), jnp.asarray(location))
         ref = np.asarray(l_ref.apply(l_vars, jnp.asarray(location)))

@@ -219,3 +219,27 @@ def test_threads_sharing_one_staging_get_their_own_batches():
     assert not any(th.is_alive() for th in threads)
     assert errors == []
     assert pp.pinned_uploads.count == pinned + n_threads * n_each
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_a_batch_and_its_coords_share_one_slot(kind):
+    """``upload_all``: the raw batch and its (B, T, 2) and (B, 2) float32
+    coords in one slot, each at a 16-byte offset in order, one upload
+    counted; each arrives as ``raw_to_device`` hands it on."""
+    raw = KINDS[kind](_raw(12))
+    temporal = np.random.default_rng(1).uniform(0, 2024, (2, 3, 2)).astype(np.float32)
+    location = torch.tensor([[25.5, -124.0], [48.75, -67.25]])
+    st = _staging()
+    pinned = pp.pinned_uploads.count
+    got = st.upload_all([raw, temporal, location])
+    assert pp.pinned_uploads.count == pinned + 1
+    for x, a in zip(got, (raw, temporal, location)):
+        want = pp.raw_to_device(a, CPU)
+        assert x.dtype == want.dtype and torch.equal(x, want)
+    raw_bytes = _int32(raw).numel() * (4 if kind == "cpu_tensor" else 2)
+    first = -(-raw_bytes // st.ALIGN) * st.ALIGN
+    second = -(-(first + temporal.nbytes) // st.ALIGN) * st.ALIGN
+    host = st.slots[0][0]
+    assert host.numel() == second + location.numel() * 4
+    assert np.array_equal(host[first:first + temporal.nbytes].numpy(),
+                          temporal.view(np.uint8).ravel())

@@ -30,10 +30,12 @@ summary (``h100bench/tracing.py:summarize``) does not read:
 * ``idle``, ``memcpy``, ``busy_s``, ``window_s``: the harness's idle
   labels, its memcpy seconds by kind (``Memcpy HtoD (Pinned -> Device)``),
   busy and traced seconds on the device, as its summary gives them;
-* ``upload_counters``: the serving upload's counters
-  (``ops/preprocess.py``: ``pinned_uploads``, ``pageable_uploads``,
-  ``upload_slot_waits``) over the traced stretch and over the whole
-  process (warm-up included); empty where the program has none.
+* ``upload_counters``: the program's host counters of serving, over the
+  traced stretch and over the whole process (warm-up included): the
+  upload's (``ops/preprocess.py``: ``pinned_uploads``,
+  ``pageable_uploads``, ``upload_slot_waits``) and the ``_tl`` coords'
+  (``models/prithvi.py``: ``coord_embeds``, ``coords_missing``); those the
+  program lacks are left out.
 
 Run from the root of a checkout (of the program with or without spans);
 on a card only, as ``h100bench/run.py`` is.
@@ -52,7 +54,8 @@ sys.path.insert(0, ROOT)
 
 PROGRAM_PREFIX = "instageo."   # the program's spans
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-UPLOAD_COUNTERS = ("pinned_uploads", "pageable_uploads", "upload_slot_waits")
+COUNTERS = {"ops.preprocess": ("pinned_uploads", "pageable_uploads", "upload_slot_waits"),
+            "models.prithvi": ("coord_embeds", "coords_missing")}
 SERVE_TOP = ("instageo.serve.upload", "instageo.serve.preprocess", "instageo.model.encoder",
              "instageo.model.head", "instageo.serve.argmax")
 TRAIN_TOP = ("instageo.train.replay", "instageo.train.stage", "instageo.train.seeds")
@@ -194,12 +197,16 @@ def describe(events, summary):
 
 
 def upload_counters() -> Dict[str, int]:
-    """The serving upload's counters now, by name; those the program lacks
-    are left out."""
-    from instageo_tpu_torch.ops import preprocess
+    """The serving counters now, by ``module.name``; those the program
+    lacks are left out."""
+    import importlib
 
-    return {f"preprocess.{n}": getattr(preprocess, n).count for n in UPLOAD_COUNTERS
-            if hasattr(preprocess, n)}
+    out = {}
+    for module, names in COUNTERS.items():
+        mod = importlib.import_module(f"instageo_tpu_torch.{module}")
+        short = module.split(".")[-1]
+        out.update({f"{short}.{n}": getattr(mod, n).count for n in names if hasattr(mod, n)})
+    return out
 
 
 def main() -> int:
