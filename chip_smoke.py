@@ -21,7 +21,12 @@ Phases, one line each (any failure raises and exits non-zero):
    dropout's mask equal to the plain Philox stream bit for bit, with its
    seed by value and from device memory, the two timed in turns; under
    deterministic mode the backward on its default (wgmma) route, two calls
-   bit-equal;
+   bit-equal; the encoder's LayerNorm kernels forward and backward at the
+   cells' rows and widths against the float32 round trip, timed beside it
+   and beside ``F.layer_norm`` on bf16; ``F.gelu`` on bf16 (the blocks'
+   exact GELU on a card) bit for bit the float32 round trip, timed beside
+   it. Every later phase counts the LayerNorm kernels' launches on its own
+   path beside the other kernels' (``_counters``);
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
    8 threads through the dynamic batcher and one batch run over synthetic
@@ -98,8 +103,9 @@ Phases, one line each (any failure raises and exits non-zero):
     and the kernel vs plain there too; decode, host-to-device, device,
     first-batch and wall seconds per granule, chips/s, peak device memory;
     then the CLI at batch 8 in two fresh interpreters on one
-    ``INSTAGEO_COMPILE_CACHE_DIR``, one that builds the forward kernel there
-    at its first launch and one that loads it from there with ``nvcc``
+    ``INSTAGEO_COMPILE_CACHE_DIR``, one that builds the attention forward
+    and LayerNorm kernels there at their first launch and one that loads
+    them from there with ``nvcc``
     barred: the cold cost a user's first and later runs pay; the second
     first runs serve_models' and quant's export artifacts (one interpreter
     for the three);
@@ -169,7 +175,9 @@ Phases, one line each (any failure raises and exits non-zero):
     data parallelism's; with one card, the tensor-parallel placement named
     as needing two), the raster chip creator demo on the card and on the
     CPU (every file equal byte for byte);
-16. one JSON line ``{"kernels": [...]}``;
+16. one JSON line ``{"kernels": [...], "norm_act": [...]}``: the kernels'
+    table (the LayerNorm kernels #7 and #8 last) and the LayerNorm and
+    GELU timings;
 17. last line: ``{"ok": true, "device": {...}}``.
 
 The model and data settings come from the port's
@@ -249,6 +257,13 @@ BWD_SHAPES = [
 # four upscaling blocks' ConvTranspose outputs and the head's last dropout.
 DROPOUT_SHAPES = [(8, 1152, 28, 28), (8, 576, 56, 56), (8, 288, 112, 112),
                   (8, 144, 224, 224), (8, 144, 224, 224)]
+# (name, rows, width) of the encoder's LayerNorm rows and GELU inputs in the
+# cells: crop serving (64 x 589 tokens, D 768), TL serving (64 x 769, D 1280),
+# the 600M micro-batch (64 x 257, D 1280), crop training (8 x 589, D 768);
+# the GELU's width is 4 D. The backward runs only in the training cells.
+NORM_ACT_SHAPES = [("crop_serve", 37696, 768), ("tl_serve", 49216, 1280),
+                   ("600m_train", 16448, 1280), ("crop_train", 4712, 768)]
+NORM_ACT_BWD = ("600m_train", "crop_train")
 O_TOL = 3e-2    # bf16 output, atol = rtol (the JAX package's bf16 attention test)
 LSE_TOL = 1e-3  # float32 row statistics, other summation order
 # Backward kernel vs plain: both round dS and P to bf16 at the TPU kernel's
@@ -749,13 +764,125 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
     return results
 
 
+def _ulps_off(got, ref) -> int:
+    """Elements of ``got`` more than one bf16 ulp from ``ref``, the ulp taken
+    at no less than 2^-12 of ref's root mean square (float32 paths that sum
+    in other orders differ by ~1e-7 of the terms' size)."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(ref.abs(), 2.0**-12 * ref.pow(2).mean().sqrt())
+    return int(((got - ref).abs() > torch.exp2(torch.floor(torch.log2(mag)) - 7)).sum())
+
+
+def norm_act_phase(device, shapes=NORM_ACT_SHAPES, iters: int = 20) -> list:
+    """Hold the encoder's LayerNorm kernels (``ops/norm_act.py``) to their
+    plain versions (the float32 round trip) at the cells' shapes: outputs
+    within one bf16 ulp (``_ulps_off``), the statistics within 1e-6, dweight
+    and dbias within 1e-5, the backward twice bit for bit. Times each kernel
+    (wrapper ms by CUDA events, device ms by the profiler), its plain
+    version, and as yardstick ``F.layer_norm`` and its backward on bf16
+    (weights in bf16 too; never called by the port), beside the bytes bound
+    at 3.35 TB/s. The blocks' exact GELU, ``F.gelu`` on the bf16 tensor,
+    equals the float32 round trip bit for bit, forward and backward, and is
+    timed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from instageo_tpu_torch.ops import norm_act as na
+
+    on_card = device.type == "cuda"
+    rows_out = []
+
+    def timed(kind, name, shape, nbytes, new, plain, library, symbol, **extra):
+        row = dict(kernel=kind, cell=name, shape=list(shape), **extra)
+        row["ms"] = time_ms(new, device, iters)
+        row["device_ms"] = device_ms(new, iters, match=symbol) if on_card else None
+        row["plain_ms"] = time_ms(plain, device, max(2, iters // 4))
+        if library is not None:
+            row["library_ms"] = time_ms(library, device, iters)
+            row["library_device_ms"] = device_ms(library, iters) if on_card else None
+        row["bound_ms"], row["bound_by"] = _bound(0.0, nbytes)
+        print("[kernels] norm_act " + json.dumps(row), flush=True)
+        rows_out.append(row)
+
+    def gelu_round_trip(t):
+        return F.gelu(t.float()).to(t.dtype)
+
+    def gelu_bwd_round_trip(dt, t):
+        return torch.ops.aten.gelu_backward(dt.float(), t.float()).to(t.dtype)
+
+    for i, (name, rows, d) in enumerate(shapes):
+        g = torch.Generator(device=device).manual_seed(300 + i)
+        x = (0.5 + 2.0 * torch.randn((rows, d), generator=g, device=device)).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(d, generator=g, device=device)
+        b = 0.1 * torch.randn(d, generator=g, device=device)
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        y, mean, rstd = na.ln_rows_fwd_op(x, w, b, 1e-5)
+        ry, rmean, rrstd = na.ln_rows_fwd_plain(x, w, b, 1e-5)
+        off = _ulps_off(y, ry)
+        check(off == 0, f"LayerNorm kernel: {off} elements over one bf16 ulp at {name}")
+        check(bool(((mean - rmean).abs() <= 1e-6 * (rmean.abs() + 1 / rrstd)).all()
+                   and ((rstd - rrstd).abs() <= 1e-6 * rrstd).all()),
+              f"LayerNorm statistics at {name}")
+        timed("ln_rows_bf16_fwd", name, (rows, d), 4.0 * rows * d + 8.0 * rows + 8.0 * d,
+              lambda: na.ln_rows_fwd_op(x, w, b, 1e-5),
+              lambda: na.ln_rows_fwd_plain(x, w, b, 1e-5),
+              lambda: F.layer_norm(x, (d,), w16, b16, 1e-5), "ln_rows_bf16_fwd",
+              max_abs_err=(y.float() - ry.float()).abs().max().item())
+        h = (3.0 * torch.randn((rows, 4 * d), generator=g, device=device)).to(torch.bfloat16)
+        check(torch.equal(F.gelu(h), gelu_round_trip(h)),
+              f"F.gelu on bf16 is not the float32 round trip bit for bit at {name}")
+        timed("gelu_bf16_library", name, (rows, 4 * d), 4.0 * h.numel(), lambda: F.gelu(h),
+              lambda: gelu_round_trip(h), None, None)
+        if name in NORM_ACT_BWD:
+            dy = torch.randn((rows, d), generator=g, device=device).to(torch.bfloat16)
+            dx, dw, db = na.ln_rows_bwd_op(dy, x, mean, rstd, w)
+            rdx, rdw, rdb = na.ln_rows_bwd_plain(dy, x, rmean, rrstd, w)
+            off = _ulps_off(dx, rdx)
+            worst = max(((a - r).abs().max() / r.abs().max()).item()
+                        for a, r in ((dw, rdw), (db, rdb)))
+            check(off == 0 and worst <= 1e-5,
+                  f"LayerNorm backward at {name}: {off} dx over one ulp, dw/db {worst:.2e}")
+            check(all(torch.equal(a, c) for a, c in
+                      zip((dx, dw, db), na.ln_rows_bwd_op(dy, x, mean, rstd, w))),
+                  f"LayerNorm backward differs from one call to the next at {name}")
+            mask = [True, True, True]
+            _, lmean, lrstd = torch.native_layer_norm(x, (d,), w16, b16, 1e-5)
+            timed("ln_rows_bf16_bwd", name, (rows, d), 6.0 * rows * d + 8.0 * rows + 12.0 * d,
+                  lambda: na.ln_rows_bwd_op(dy, x, mean, rstd, w),
+                  lambda: na.ln_rows_bwd_plain(dy, x, rmean, rrstd, w),
+                  lambda: torch.ops.aten.native_layer_norm_backward(
+                      dy, x, (d,), lmean, lrstd, w16, b16, mask),
+                  None, worst_dw_db_rel=worst,
+                  max_abs_err=(dx.float() - rdx.float()).abs().max().item())
+            dh = torch.randn(h.shape, generator=g, device=device).to(torch.bfloat16)
+            check(torch.equal(torch.ops.aten.gelu_backward(dh, h), gelu_bwd_round_trip(dh, h)),
+                  f"GELU's backward on bf16 is not the float32 round trip's at {name}")
+            timed("gelu_bf16_library_bwd", name, tuple(h.shape), 6.0 * h.numel(),
+                  lambda: torch.ops.aten.gelu_backward(dh, h),
+                  lambda: gelu_bwd_round_trip(dh, h), None, None)
+            del dy, dx, rdx, dh
+        del x, y, ry, h
+    return rows_out
+
+
 def _counters() -> dict:
     from instageo_tpu_torch.ops import attention as tattn
     from instageo_tpu_torch.ops import dropout as tdrop
+    from instageo_tpu_torch.ops import norm_act as tnorm
 
     return {"flash_attn_fwd": tattn.launches, "flash_attn_fwd_mma": tattn.fwd_mma_launches,
             "flash_attn_bwd": tattn.bwd_launches, "flash_attn_bwd_mma": tattn.bwd_mma_launches,
-            "fused_dropout": tdrop.launches}
+            "fused_dropout": tdrop.launches, "ln_rows_bf16_fwd": tnorm.ln_launches,
+            "ln_rows_bf16_bwd": tnorm.ln_bwd_launches}
+
+
+def with_norms(want: dict, fwd: int, bwd: int = 0) -> dict:
+    """``want`` with the LayerNorm kernels' launches of ``fwd`` block
+    forwards and ``bwd`` block backwards: each bf16 block's norm1 and norm2
+    (a backward counts once for its two kernels)."""
+    return dict(want, ln_rows_bf16_fwd=2 * fwd, ln_rows_bf16_bwd=2 * bwd)
 
 
 def reset_counts() -> None:
@@ -972,6 +1099,10 @@ def slice_phase(device, cfg, model_kw: dict, data: dict, n_requests: int = 24,
               f"serving launched training kernels: {others}")
         check(others["flash_attn_fwd_mma"] == 0,
               f"serving took the mma.sync forward: {others}")
+        check(others["ln_rows_bf16_fwd"] == 2 * depth * forwards
+              and others["ln_rows_bf16_bwd"] == 0,
+              f"serving: {others['ln_rows_bf16_fwd']} LayerNorm launches for {forwards} "
+              f"forwards of {depth} blocks, {others['ln_rows_bf16_bwd']} backward")
         print(f"[slice] served {n_requests} online requests from {n_threads} threads in "
               f"{batcher.batches_run} batches ({online_s:.3f} s) and {n_files} chip files "
               f"({run['chips_per_sec']:.2f} chips/s incl. decode+write); "
@@ -1150,8 +1281,9 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
     check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     per_step = {name: n / fixed_steps for name, n in counts.items()}
-    expected = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
-                "flash_attn_bwd_mma": 0, "fused_dropout": 5}
+    expected = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0,
+                           "flash_attn_bwd": depth, "flash_attn_bwd_mma": 0,
+                           "fused_dropout": 5}, depth, depth)
     if device.type == "cuda":
         check(per_step == expected, f"launches per step {per_step}, expected {expected}")
     print(f"[train] {fixed_steps} steps at batch {batch} on one batch: losses "
@@ -1269,8 +1401,9 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
     def four_runs():
         """Eager, captured, captured, eager: each run's launches per step
         (every attention launch on the wgmma route)."""
-        expected = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
-                    "flash_attn_bwd_mma": 0, "fused_dropout": 5}
+        expected = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0,
+                               "flash_attn_bwd": depth, "flash_attn_bwd_mma": 0,
+                               "fused_dropout": 5}, depth, depth)
         runs = {}
         for name, spc in (("eager", 1), ("captured", "auto"), ("captured_2", "auto"),
                           ("eager_2", 1)):
@@ -1330,7 +1463,8 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
           f"{json.dumps(det_per_step)}; ops without a deterministic CUDA version in the "
           f"step: {json.dumps(ops) if ops else 'none'}", flush=True)
     if on_card:
-        check(det_per_step["flash_attn_bwd"] == depth and det_per_step["flash_attn_bwd_mma"] == 0,
+        check(det_per_step["flash_attn_bwd"] == depth and det_per_step["flash_attn_bwd_mma"] == 0
+              and det_per_step["ln_rows_bf16_bwd"] == 2 * depth,
               f"deterministic mode: backward launches per step {det_per_step}")
     check(det_parted is None, f"captured vs eager differ under deterministic mode: "
           f"{det_parted} (ops that warned: {ops or 'none'})")
@@ -1469,7 +1603,8 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
           flush=True)
     check(max(eval_gap, auc_gap) <= GRAPH_EVAL_TOL, f"captured eval differs by {eval_gap}")
     if on_card:
-        check(evals["captured"]["counts"]["flash_attn_fwd"] == 2 * depth * n_batches,
+        check(evals["captured"]["counts"]["flash_attn_fwd"] == 2 * depth * n_batches
+              and evals["captured"]["counts"]["ln_rows_bf16_fwd"] == 4 * depth * n_batches,
               f"eval launches {evals['captured']['counts']}")
     # ms per eval batch, eager vs captured, in turns (host clock, synchronised
     # by the epoch's metrics; both graphs of the val epoch are captured).
@@ -1814,12 +1949,16 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
               f"{hist['val_loss']:.6f}; the epoch (train + validation) took "
               f"{hist['epoch_time_s']:.3f} s of the mode's {wall['train']:.3f} s wall", flush=True)
         steps, val_batches = -(-n_train // batch), -(-n_val // batch)
+        # The train mode's FLOP count is one more forward, its attention on
+        # the plain route (``get_model_complexity``).
         expected = {
-            "train": {"flash_attn_fwd": depth * (steps + val_batches), "flash_attn_fwd_mma": 0,
-                      "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": 0,
-                      "fused_dropout": 5 * steps},
-            "eval": {"flash_attn_fwd": depth * val_batches, "flash_attn_fwd_mma": 0,
-                     "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0},
+            "train": with_norms({"flash_attn_fwd": depth * (steps + val_batches),
+                                 "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth * steps,
+                                 "flash_attn_bwd_mma": 0, "fused_dropout": 5 * steps},
+                                depth * (steps + val_batches + 1), depth * steps),
+            "eval": with_norms({"flash_attn_fwd": depth * val_batches, "flash_attn_fwd_mma": 0,
+                                "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0,
+                                "fused_dropout": 0}, depth * val_batches),
         }
         expected["chip_inference"] = expected["eval"]
         if on_card:
@@ -2129,14 +2268,17 @@ def replica_phase(device, smi: str, extra=(), n_train: int = 128, n_val: int = 1
 
         steps, val_batches = -(-n_train // batch), -(-n_val // batch)
         test_batches = -(-n_test // batch)
-        none = {"flash_attn_fwd": 0, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
-                "flash_attn_bwd_mma": 0, "fused_dropout": 0}
-        expected = {
+        none = with_norms({"flash_attn_fwd": 0, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
+                           "flash_attn_bwd_mma": 0, "fused_dropout": 0}, 0)
+        expected = {  # the train stage's FLOP count: one more forward's norms
             "stats": none,
-            "train": dict(none, flash_attn_fwd=depth * (steps + val_batches),
-                          flash_attn_bwd=depth * steps, fused_dropout=5 * steps),
-            "eval_val": dict(none, flash_attn_fwd=depth * val_batches),
-            "eval_test": dict(none, flash_attn_fwd=depth * test_batches),
+            "train": with_norms(dict(none, flash_attn_fwd=depth * (steps + val_batches),
+                                     flash_attn_bwd=depth * steps, fused_dropout=5 * steps),
+                                depth * (steps + val_batches + 1), depth * steps),
+            "eval_val": with_norms(dict(none, flash_attn_fwd=depth * val_batches),
+                                   depth * val_batches),
+            "eval_test": with_norms(dict(none, flash_attn_fwd=depth * test_batches),
+                                    depth * test_batches),
         }
         if on_card:
             for name, want in expected.items():
@@ -2198,12 +2340,13 @@ def _predict_turns(predicts: dict, raw, turns: int, iters: int) -> dict:
 
 def _predict_launches(predict, raw, depth: int, tag: str, on_card: bool) -> dict:
     """Launch counts of one fused predict, from 0: on the card ``depth``
-    forward launches, all on the wgmma route, nothing else."""
+    attention forward launches, all on the wgmma route, ``2 depth``
+    LayerNorm forward launches, nothing else."""
     reset_counts()
     predict(raw).cpu()
     counts = read_counts()
-    want = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+    want = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
+                       "flash_attn_bwd_mma": 0, "fused_dropout": 0}, depth)
     if on_card:
         check(counts == want, f"{tag}: launches per predict {counts}, expected {want}")
     return counts
@@ -2253,7 +2396,7 @@ def _artifact_child(jobs: list) -> dict:
     of the port's model modules the interpreter imported (none may be)."""
     import torch
 
-    from instageo_tpu_torch.ops import attention
+    from instageo_tpu_torch.ops import attention, norm_act
     from instageo_tpu_torch.serve.export import load_predict
 
     recs = []
@@ -2262,13 +2405,15 @@ def _artifact_child(jobs: list) -> dict:
         predict, meta = load_predict(job["path"])
         state = torch.load(job["state"], weights_only=True)
         x = torch.load(job["x"], weights_only=True)
-        launches = {}
+        launches, ln_launches = {}, {}
         for b in job["batches"]:
-            before = attention.launches.count
+            before = attention.launches.count, norm_act.ln_launches.count
             y = predict(state, x[:b])
-            launches[b] = attention.launches.count - before
+            launches[b] = attention.launches.count - before[0]
+            ln_launches[b] = norm_act.ln_launches.count - before[1]
             torch.save(y.cpu(), f"{job['out']}.{b}.pt")
-        recs.append(dict(launches=launches, meta=meta, seconds=time.perf_counter() - t0))
+        recs.append(dict(launches=launches, ln_launches=ln_launches, meta=meta,
+                         seconds=time.perf_counter() - t0))
     return dict(artifacts=recs, models_imported=[
         m for m in sys.modules if m.startswith("instageo_tpu_torch.models")])
 
@@ -2294,8 +2439,8 @@ def _artifact_fresh(jobs: list, root: str) -> dict:
 def _artifact_verify(job: dict, child: dict, models_imported: list) -> dict:
     """A job's artifact as the fresh interpreter ran it: no model module
     imported, class ids equal to the server's on decided pixels
-    (>= ARTIFACT_AGREEMENT), ``depth`` forward launches per call on the
-    card."""
+    (>= ARTIFACT_AGREEMENT), ``depth`` attention and ``2 depth`` LayerNorm
+    forward launches per call on the card."""
     import torch
 
     check(not models_imported, f"load_predict imported {models_imported}")
@@ -2310,6 +2455,8 @@ def _artifact_verify(job: dict, child: dict, models_imported: list) -> dict:
         if job["on_card"]:
             check(child["launches"][str(b)] == job["depth"],
                   f"artifact at batch {b}: {child['launches'][str(b)]} forward launches")
+            check(child["ln_launches"][str(b)] == 2 * job["depth"],
+                  f"artifact at batch {b}: {child['ln_launches'][str(b)]} LayerNorm launches")
     return dict(bytes=job["bytes"], params=job["params"], agreement=agreement,
                 export_s=job["export_s"], fresh_interpreter_s=child["seconds"], child=child)
 
@@ -2479,8 +2626,8 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     reset_counts()
     losses = [float(trainer.train_step(xb, yb, gen)) for _ in range(fixed_steps)]
     counts = {k: v / fixed_steps for k, v in read_counts().items()}
-    want = {"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
-            "flash_attn_bwd_mma": 0, "fused_dropout": 4}
+    want = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
+                       "flash_attn_bwd_mma": 0, "fused_dropout": 4}, depth, depth)
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
           f"fast-head train steps: losses {losses}")
     if on_card:
@@ -2520,6 +2667,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
                    head_dim=enc.embed_dim // heads, depth=vdepth,
                    fwd_launches_per_predict=counts["flash_attn_fwd"],
                    mma_sync_launches=counts["flash_attn_fwd_mma"],
+                   ln_launches_per_predict=counts["ln_rows_bf16_fwd"],
                    no_coords={k: v for k, v in plain.items() if k != "logits"},
                    no_coords_features={k: v for k, v in feats.items() if k != "features"})
         if variant.endswith("_600_tl"):
@@ -3085,8 +3233,10 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         pred_path = os.path.join(root, "predictions", "prediction_T33TUN_2023152.tif")
 
         def expected_launches(batch: int, chips: int = n) -> dict:
-            return {"flash_attn_fwd": depth * -(-chips // batch), "flash_attn_fwd_mma": 0,
-                    "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+            return with_norms({"flash_attn_fwd": depth * -(-chips // batch),
+                               "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
+                               "flash_attn_bwd_mma": 0, "fused_dropout": 0},
+                              depth * -(-chips // batch))
 
         runs, preds = {}, {}
         for batch in batches:
@@ -3261,7 +3411,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
                       f"fresh interpreter ({name}): nodata or kernel vs plain {f_agree}")
                 check(rec["lib"].startswith(cache) and os.path.exists(rec["lib"])
                       and sorted(rec["build_s"]) == ([] if name == "built"
-                                                     else ["flash_attn_fwd_sm90"])
+                                                     else ["flash_attn_fwd_sm90", "norm_act"])
                       and rec["lib"] == fresh.get("first_build", rec)["lib"],
                       f"fresh interpreter ({name}): kernel builds {rec['build_s']}, "
                       f"library {rec['lib']} (the compile cache {cache})")
@@ -3678,8 +3828,9 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                     pred = r.read(1)
                 check(pred.dtype == np.int8 and bool(((pred >= 0) & (pred < classes)).all()),
                       f"prediction {p}: {pred.dtype}, classes {np.unique(pred)[:8]}")
-            want = {"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
-                    "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+            want = with_norms({"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
+                               "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0},
+                              depth * -(-n // batch))
             if on_card:
                 check(infer_counts == want, f"chip_inference launches {infer_counts}, "
                       f"expected {want}")
@@ -4352,8 +4503,9 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
         check(len(os.listdir(os.path.join(task_dir, "predictions"))) == n,
               "one prediction per chip")
         stage2 = parts["process_model_prediction_with_task"]
-        want = {"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
-                "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0}
+        want = with_norms({"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
+                           "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0},
+                          depth * -(-n // batch))
         if on_card:
             check(stage2.get("launches") == want,
                   f"stage 2 in its job process launched {stage2.get('launches')}, expected {want}")
@@ -4490,7 +4642,10 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
         if on_card:
             check(inproc["kernel"]["launches"] == want,
                   f"in-process stage 2 launched {inproc['kernel']['launches']}, expected {want}")
-        check(not any(inproc["plain"]["launches"].values()),
+        # Plain attention: the blocks' LayerNorms are still the kernel's.
+        check(not on_card or inproc["plain"]["launches"] == dict(want, flash_attn_fwd=0),
+              f"the plain run launched {inproc['plain']['launches']}")
+        check(on_card or not any(inproc["plain"]["launches"].values()),
               f"the plain run launched {inproc['plain']['launches']}")
         worker_pred = read_cog(os.path.join(task_dir, f"{task_id}_predictions.tif"))
         check(np.array_equal(inproc["kernel"]["pred"], worker_pred),
@@ -4681,8 +4836,9 @@ def _remat_check(device, model_kw: dict, cfg: dict, data: dict, batch: int, step
     depth = len([k for k in plain["params"] if k.endswith("attn.qkv.weight")])
     if on_card:
         for name, fwd in (("plain", 1), ("remat", 2)):
-            want = {"flash_attn_fwd": fwd * depth * steps, "flash_attn_fwd_mma": 0,
-                    "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": 0}
+            want = with_norms({"flash_attn_fwd": fwd * depth * steps, "flash_attn_fwd_mma": 0,
+                               "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": 0},
+                              fwd * depth * steps, depth * steps)
             got = {k: runs[name]["counts"][k] for k in want}
             check(got == want, f"{name}: launches {got} over {steps} steps, expected {want}")
     difference = _first_difference(remat, plain)
@@ -4836,6 +4992,9 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
                       "forward and backward on the sm90 route")
                 check(c["fused_dropout"] == drops * accum,
                       f"{name} rank {r}: {c['fused_dropout']} dropout launches per step")
+                check(c["ln_rows_bf16_fwd"] == c["ln_rows_bf16_bwd"] == 2 * depth * accum,
+                      f"{name} rank {r}: launches per step {c}, expected {2 * depth * accum} "
+                      "LayerNorm forward and backward")
     check(out["recipe"]["placement"] == ("fsdp" if nproc else "single")
           and out["twin"]["placement"] == "single",
           f"placements {out['recipe']['placement']}, {out['twin']['placement']}")
@@ -5044,9 +5203,12 @@ def examples_phase(device, smi: str, nproc=None) -> dict:
                 check(launches["flash_attn_fwd_sm90"] == 4 * forwards
                       and launches["flash_attn_bwd_sm90"] == 4 * steps
                       and launches["fused_dropout"] == 5 * steps
-                      and launches["flash_attn_fwd"] == 0 and launches["flash_attn_bwd"] == 0,
+                      and launches["flash_attn_fwd"] == 0 and launches["flash_attn_bwd"] == 0
+                      and launches["ln_rows_bf16_fwd"] == 8 * (forwards + 1)
+                      and launches["ln_rows_bf16_bwd"] == 8 * steps,
                       f"the {name}'s launches {launches}: #1 4 per forward over {forwards} "
-                      f"forwards, #3 4 per step and #6 5 per step (the head's dropouts) over "
+                      f"forwards, #7 8 per forward over them and the FLOP count's, #8 8 "
+                      f"per step, #3 4 per step and #6 5 per step (the head's dropouts) over "
                       f"{steps} steps, all on wgmma, none on mma.sync")
             out[name] = dict(wall_s=seconds, launches=launches, steps=steps,
                              test_metrics=res["test_metrics"],
@@ -5070,7 +5232,8 @@ def examples_phase(device, smi: str, nproc=None) -> dict:
         mc_steps = sum(len(p["step_losses"]) for p in placed.values())
         check(dev != "cuda" or mres["launches"] == {
             "flash_attn_fwd_sm90": 0, "flash_attn_fwd": 0, "flash_attn_bwd_sm90": 0,
-            "flash_attn_bwd": 0, "fused_dropout": 5 * mc_steps},
+            "flash_attn_bwd": 0, "fused_dropout": 5 * mc_steps, "ln_rows_bf16_fwd": 0,
+            "ln_rows_bf16_bwd": 0},
               f"the float32 walkthrough's launches {mres['launches']}: no attention kernel "
               f"(the xla route), #6 5 per step over {mc_steps} steps (the head's dropouts)")
         check(len(placed) + len(mres["skipped"]) == 4, f"placements {list(placed)}")
@@ -5180,6 +5343,7 @@ def main() -> int:
     bwd_rows = bwd_kernel_phase(device, BWD_SHAPES)
     deterministic_bwd_phase(device)
     drop_rows = dropout_phase(device, DROPOUT_SHAPES)
+    ln_rows = norm_act_phase(device)
     clock.lap("kernels")
     crop_cfg, crop_model, crop_train_cfg, crop_data = crop_setup()
     served = slice_phase(device, crop_cfg, crop_model, crop_data)
@@ -5317,6 +5481,15 @@ def main() -> int:
     drop = at(drop_rows, DROPOUT_SHAPES[-1])
     drop_launches = {"serve": served["other_launches"]["fused_dropout"],
                      "train": trained["launches"]["fused_dropout"]}
+    # The LayerNorm kernels replace no TPU kernel: the JAX package leaves
+    # LayerNorm to XLA. Their rows are at the crop training step's shape.
+    ln_by_kernel = {n: [r for r in ln_rows if r["kernel"] == n]
+                    for n in ("ln_rows_bf16_fwd", "ln_rows_bf16_bwd")}
+    ln_kernels = [
+        _kernel_row(n, csrc + "norm_act.cu", "none: XLA's LayerNorm", None,
+                    next(r for r in rs if r["cell"] == "crop_train"),
+                    {"serve": served["other_launches"][n], "train": trained["launches"][n]}, rs)
+        for n, rs in ln_by_kernel.items()]
     bwd_replaces = ("instageo_tpu/ops/attention.py:260",
                     ["instageo_tpu/ops/attention.py:187", "instageo_tpu/ops/attention.py:390"])
     kernels = [
@@ -5337,19 +5510,24 @@ def main() -> int:
                     prev(bwd_wgmma_rows)),
         _kernel_row("fused_dropout", csrc + "dropout.cu", "instageo_tpu/ops/dropout.py:33",
                     None, drop, drop_launches, drop_rows),
+        *ln_kernels,
     ]
     by_shape = ("shape", "device_ms", "prev_device_ms", "library_device_ms", "ms", "prev_ms",
                 "library_ms", "bound_ms", "seed_ptr_ms", "seed_ptr_device_ms",
                 "seed_value_turns_ms", "seed_value_turns_device_ms")
-    for k, rs in ((kernels[0], wgmma_rows), (kernels[2], bwd_wgmma_rows), (kernels[4], drop_rows)):
-        k["by_shape"] = [{key: r.get(key) for key in by_shape + ("inputs", "entry")
+    for k, rs in ((kernels[0], wgmma_rows), (kernels[2], bwd_wgmma_rows), (kernels[4], drop_rows),
+                  (kernels[5], ln_by_kernel["ln_rows_bf16_fwd"]),
+                  (kernels[6], ln_by_kernel["ln_rows_bf16_bwd"])):
+        k["by_shape"] = [{key: r.get(key) for key in by_shape + ("inputs", "entry", "cell")
                           if key in r} for r in rs]
     # The run CLI's launches, by mode and kernel (the same counters).
     by_route = {"flash_attn_fwd_sm90": lambda c: c["flash_attn_fwd"] - c["flash_attn_fwd_mma"],
                 "flash_attn_fwd": lambda c: c["flash_attn_fwd_mma"],
                 "flash_attn_bwd_sm90": lambda c: c["flash_attn_bwd"] - c["flash_attn_bwd_mma"],
                 "flash_attn_bwd": lambda c: c["flash_attn_bwd_mma"],
-                "fused_dropout": lambda c: c["fused_dropout"]}
+                "fused_dropout": lambda c: c["fused_dropout"],
+                "ln_rows_bf16_fwd": lambda c: c["ln_rows_bf16_fwd"],
+                "ln_rows_bf16_bwd": lambda c: c["ln_rows_bf16_bwd"]}
     graph_by_route = {k["name"]: by_route[k["name"]](graphed["launches"]) for k in kernels}
     for k in kernels:
         k["card"] = smi
@@ -5384,8 +5562,9 @@ def main() -> int:
             k["launches_by_path"][f"serve_{variant}"] = (
                 row["fwd_launches_per_predict"] - row["mma_sync_launches"]
                 if k["name"] == "flash_attn_fwd_sm90" else
-                row["mma_sync_launches"] if k["name"] == "flash_attn_fwd" else 0)
-    print(json.dumps({"kernels": kernels}), flush=True)
+                row["mma_sync_launches"] if k["name"] == "flash_attn_fwd" else
+                row["ln_launches_per_predict"] if k["name"] == "ln_rows_bf16_fwd" else 0)
+    print(json.dumps({"kernels": kernels, "norm_act": ln_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,12 +9,17 @@ stacks the same blocks' parameters; here every layout builds the same
 modules (the weight bridge unstacks a stacked tree).
 
 Compute types follow the JAX ``dtype`` field: matmuls in the compute dtype
-``dtype`` (bf16 in serving and training), LayerNorm statistics and output in
-float32 (the caller casts), softmax statistics in float32, GELU as
-``gelu`` says (``GELUS``), the residual stream in the compute dtype. The compute dtype is separate from the
-parameters' dtype, as the JAX model's ``param_dtype=float32`` is: weights are
-cast to ``dtype`` where they are used, and the cast is differentiable, so
-float32 parameters get float32 gradients. Serving may store the matmul
+``dtype`` (bf16 in serving and training), LayerNorm statistics and affine
+in float32 (the blocks' norms rounded once to the compute dtype, the final
+norm's output float32), softmax statistics in float32, GELU as ``gelu``
+says (``GELUS``), the residual stream in the compute dtype. On a card, the
+blocks' bf16 LayerNorms run ``ops/norm_act.py``'s kernels, and their exact
+GELUs PyTorch's bf16 GELU; both compute in float32 and round where the
+float32 round trip does. The
+compute dtype is separate from the parameters' dtype, as the JAX model's
+``param_dtype=float32`` is: weights are cast to ``dtype`` where they are
+used, and the cast is differentiable, so float32 parameters get float32
+gradients. Serving may store the matmul
 weights in the compute dtype (``cast_matmul_weights``); the cast is then a
 no-op.
 """
@@ -34,6 +39,7 @@ from instageo_tpu_torch.models.checkpoint import (  # noqa: F401  (JAX's names)
     stack_block_params,
     unstack_block_params,
 )
+from instageo_tpu_torch.ops import norm_act
 from instageo_tpu_torch.ops._build import HostCounter
 from instageo_tpu_torch.ops.attention import IMPLS as KERNEL_IMPLS
 from instageo_tpu_torch.ops.attention import flash_attention_blo
@@ -216,7 +222,8 @@ class PatchEmbed3D(nn.Module):
 
 
 class LayerNormF32(nn.LayerNorm):
-    """LayerNorm computed in float32, returning float32 (eps 1e-5)."""
+    """LayerNorm computed in float32, returning float32 (eps 1e-5);
+    ``rounded`` returns it rounded once to the input's dtype."""
 
     def __init__(self, dim: int) -> None:
         super().__init__(dim, eps=1e-5)
@@ -224,6 +231,11 @@ class LayerNormF32(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
                             self.eps)
+
+    def rounded(self, x: torch.Tensor) -> torch.Tensor:
+        """``forward(x)`` rounded to x's dtype: one kernel pass for a bf16
+        tensor on a card (``norm_act.layer_norm``)."""
+        return norm_act.layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Attention(nn.Module):
@@ -286,7 +298,8 @@ class Attention(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> fc2. ``gelu`` is the JAX ``tpu.gelu`` lowering:
-    ``exact`` (erf in float32, timm's), ``tanh`` (the tanh approximation in
+    ``exact`` (erf in float32, timm's; on a card the same bits as ``bf16``),
+    ``tanh`` (the tanh approximation in
     float32) or ``bf16`` (erf in the compute dtype, no float32 round trip);
     the result is in the compute dtype either way. ``quant="int8"``: both
     layers are ``QuantLinear``."""
@@ -305,7 +318,9 @@ class Mlp(nn.Module):
 
     def _hidden(self, x: torch.Tensor) -> torch.Tensor:
         y = _linear(x, self.fc1, self.dtype)
-        if self.gelu == "bf16":
+        if self.gelu == "bf16" or (self.gelu == "exact" and y.is_cuda):
+            # CUDA's GELU computes in float32 and rounds once: on a card,
+            # ``exact`` is the float32 round trip's bits without its casts.
             return F.gelu(y)
         approximate = "tanh" if self.gelu == "tanh" else "none"
         return F.gelu(y.float(), approximate=approximate).to(y.dtype)
@@ -363,16 +378,16 @@ class Block(nn.Module):
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.sp_group is not None:
             return self._forward_sp(x)
-        x = x + self.attn(self.norm1(x).to(x.dtype))
-        return x + self.mlp(self.norm2(x).to(x.dtype))
+        x = x + self.attn(self.norm1.rounded(x))
+        return x + self.mlp(self.norm2.rounded(x))
 
     def _forward_sp(self, x: torch.Tensor) -> torch.Tensor:
         from instageo_tpu_torch.parallel.tp import gather_tokens, scatter_tokens
 
         g, dt = self.sp_group, x.dtype
-        y = gather_tokens(self.norm1(x).to(dt), g, self.length)
+        y = gather_tokens(self.norm1.rounded(x), g, self.length)
         x = x + scatter_tokens(self.attn.partial(y), g) + self.attn.proj.bias.to(dt)
-        y = gather_tokens(self.norm2(x).to(dt), g, self.length)
+        y = gather_tokens(self.norm2.rounded(x), g, self.length)
         return x + scatter_tokens(self.mlp.partial(y), g) + self.mlp.fc2.bias.to(dt)
 
 

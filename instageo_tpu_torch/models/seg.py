@@ -313,9 +313,13 @@ class PrithviSeg(nn.Module):
             side = int((l // t) ** 0.5)
             # Tokens are ordered (t, h, w); channels are ordered c = d·T + t.
             x = feats.reshape(b, t, side, side, d).permute(0, 4, 1, 2, 3)
-            x = x.reshape(b, d * t, side, side)
-            feature_map = x
-            x = x.to(self.dtype)
+            feature_map = x.reshape(b, d * t, side, side)
+            # The encoder's float32 output, and the feature map unless it is
+            # returned, are not held through the head's larger stages.
+            del tokens, feats, x
+            x = feature_map.to(self.dtype)
+            if not return_features:
+                feature_map = None
             if self.head_impl == "fast":
                 for i in range(3):
                     x = getattr(self, f"fast_up_{i}")(x)
@@ -332,7 +336,8 @@ class PrithviSeg(nn.Module):
                 logits = resize_logits(logits, img.shape[-2:])
             if channels_last:
                 logits = logits.permute(0, 2, 3, 1)
-                feature_map = feature_map.permute(0, 2, 3, 1)
+                if return_features:
+                    feature_map = feature_map.permute(0, 2, 3, 1)
         if return_features:
             return logits, feature_map.float()
         return logits

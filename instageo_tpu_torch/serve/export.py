@@ -8,9 +8,11 @@ the artifact stays small and one artifact serves every fine-tune of the
 architecture. The batch dimension is symbolic unless ``batch_size`` pins it.
 
 The attention forward is the custom op ``instageo_tpu_torch::flash_attn_fwd``
-(``ops/attention.py``): the exported graph holds that op, and running the
-artifact runs the port's kernel on a CUDA device (its plain version on the
-CPU). ``load_predict`` imports that op's registration, which is kernel code,
+(``ops/attention.py``), and on a CUDA device the blocks' LayerNorms are
+``instageo_tpu_torch::ln_rows_fwd`` (``ops/norm_act.py``): the exported
+graph holds those ops, and running the
+artifact runs the port's kernels on a CUDA device (the plain versions on the
+CPU). ``load_predict`` imports the ops' registrations, which are kernel code,
 and nothing of the port's models. An artifact runs on the device type it was
 exported on.
 """
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 ARTIFACT_VERSION = 1
-CUSTOM_OPS = ("instageo_tpu_torch::flash_attn_fwd",)
+OPS_NAMESPACE = "instageo_tpu_torch"
 
 
 class _Predict(nn.Module):
@@ -76,6 +78,9 @@ def export_predict(model: nn.Module, path: str, *, num_bands: int, img_size: int
         dynamic = ({k: None for k in state}, {0: batch} if batch is not None else None)
         exported = torch.export.export(predict, (state, x), dynamic_shapes=dynamic,
                                        strict=False)
+    custom_ops = sorted({f"{OPS_NAMESPACE}::{n.target._opname}"
+                         for n in exported.graph.nodes if n.op == "call_function"
+                         and getattr(n.target, "namespace", None) == OPS_NAMESPACE})
     # The example inputs would carry the weights into the file.
     exported.example_inputs = None
     torch.export.save(exported, path)
@@ -87,7 +92,7 @@ def export_predict(model: nn.Module, path: str, *, num_bands: int, img_size: int
         "output": ("regression" if is_reg_task
                    else "probabilities" if probabilities else "class_ids"),
         "device": device.type,
-        "custom_ops": list(CUSTOM_OPS),
+        "custom_ops": custom_ops,
         "torch_version": torch.__version__,
     }
     with open(path + ".json", "w") as f:
@@ -103,7 +108,7 @@ def load_predict(path: str) -> Tuple[Callable[[Dict[str, torch.Tensor], Any], to
     device and returns the program's output there. Needs no model code;
     raises when the ``.json`` sidecar is missing (it names the device) or
     the artifact was exported for a device type this process cannot run."""
-    from instageo_tpu_torch.ops import attention  # noqa: F401  (registers the ops)
+    from instageo_tpu_torch.ops import attention, norm_act  # noqa: F401  (registers the ops)
 
     if not os.path.exists(path + ".json"):
         raise FileNotFoundError(

@@ -33,7 +33,13 @@ bit and reserve no more device memory. A ``_tl`` model's coords staged
 with their batch in one pinned upload give the predictions of coords
 already on the card bit for bit; 6 unsynchronised ``_tl`` predicts with
 host coords reserve no more than one predict alone; host coords handed
-to a ``_tl`` model on the card raise.
+to a ``_tl`` model on the card raise. The LayerNorm kernels
+(``ops/norm_act.py``) at the cells' row counts and widths against their
+plain versions (the float32 round trip): outputs within one bf16 ulp, the
+statistics within 1e-6, dweight and dbias within 1e-5; ``F.gelu`` on bf16
+(the blocks' exact GELU) bit for bit the float32 round trip, forward and
+backward; run vs rerun and captured vs eager bit for bit; the wrappers'
+refusals; the launches per block of the tiny model and of its artifact.
 """
 
 import json
@@ -46,6 +52,7 @@ import torch
 from instageo_tpu_torch.ops import _build
 from instageo_tpu_torch.ops import attention as tattn
 from instageo_tpu_torch.ops import dropout as tdrop
+from instageo_tpu_torch.ops import norm_act as tnorm
 
 BWD_REL_TOL = 1e-2
 
@@ -554,7 +561,8 @@ def test_custom_op_is_the_kernel_call(cuda, layout, d):
 
 def test_exported_artifact_launches_the_kernel(cuda, tmp_path):
     """The tiny model exported on the card: the artifact's predict launches
-    the forward kernel once per block and gives the live predict's class ids
+    the attention forward once per block and the LayerNorm twice, and gives
+    the live predict's class ids
     (the same kernel on the same inputs)."""
     from instageo_tpu_torch.models.seg import create_prithvi_seg
     from instageo_tpu_torch.serve.export import export_predict, load_predict
@@ -565,11 +573,15 @@ def test_exported_artifact_launches_the_kernel(cuda, tmp_path):
     path = export_predict(model, str(tmp_path / "p.pt2"), num_bands=6, img_size=32)
     predict, meta = load_predict(path)
     assert meta["device"] == "cuda"
+    assert meta["custom_ops"] == ["instageo_tpu_torch::flash_attn_fwd",
+                                  "instageo_tpu_torch::ln_rows_fwd"]
     x = torch.randn(5, 6, 1, 32, 32, generator=torch.Generator().manual_seed(1))
     before = tattn.launches.count
+    ln_before = tnorm.ln_launches.count
     got = predict(model.state_dict(), x)
     torch.cuda.synchronize()
     assert tattn.launches.count == before + 2
+    assert tnorm.ln_launches.count == ln_before + 4
     assert got.device.type == "cuda" and got.shape == (5, 32, 32)
     assert torch.equal(got, make_predict_fn(model)(x))
 
@@ -1047,3 +1059,160 @@ def test_host_coords_to_a_card_model_raise(cuda, monkeypatch):
     with torch.no_grad():
         with pytest.raises(ValueError, match="temporal_coords on cpu"):
             model(x, temporal_coords=torch.from_numpy(temporal[:2]), location_coords=on_card)
+
+
+# --- LayerNorm and GELU (ops/norm_act.py) -------------------------------------
+# Rows of the cells: crop serving 64 x 589, TL serving 64 x 769, the 600M
+# micro-batch 64 x 257, crop training 8 x 589; and a ragged count.
+NORM_ROWS = (37696, 49216, 16448, 4712, 1001)
+
+
+def _within_bf16_ulp(got, ref):
+    """|got - ref| within one bf16 ulp of |ref|, the ulp taken at no less
+    than 2^-12 of ref's root mean square: float32 paths that sum in other
+    orders differ by ~1e-7 of the terms' size, which near a cancellation is
+    more than an ulp of the (small) result."""
+    got, ref = got.float(), ref.float()
+    mag = torch.maximum(ref.abs(), 2.0**-12 * ref.pow(2).mean().sqrt())
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bad = (got - ref).abs() > ulp
+    return int(bad.sum()), (got - ref).abs().max().item()
+
+
+def _ln_inputs(rows, d, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (0.5 + 2.0 * torch.randn((rows, d), generator=g, device=device)).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(d, generator=g, device=device)
+    b = 0.1 * torch.randn(d, generator=g, device=device)
+    dy = torch.randn((rows, d), generator=g, device=device).to(torch.bfloat16)
+    return x, w, b, dy
+
+
+@pytest.mark.parametrize("d,rows", [(d, r) for d in (768, 1280) for r in NORM_ROWS]
+                         + [(256, 4712), (1024, 4712), (256, 3), (1280, 1)])
+def test_ln_kernel_matches_plain(cuda, d, rows):
+    """y within one bf16 ulp of the float32 round trip's; mean within 1e-6
+    of the row's scale, rstd within 1e-6 relative."""
+    x, w, b, _ = _ln_inputs(rows, d, cuda, seed=d + rows)
+    before = tnorm.ln_launches.count
+    y, mean, rstd = tnorm.ln_rows_fwd_op(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert tnorm.ln_launches.count == before + 1
+    ry, rmean, rrstd = tnorm.ln_rows_fwd_plain(x, w, b, 1e-5)
+    assert y.dtype == torch.bfloat16 and mean.shape == rstd.shape == (rows,)
+    assert _within_bf16_ulp(y, ry)[0] == 0, _within_bf16_ulp(y, ry)
+    assert ((mean - rmean).abs() <= 1e-6 * (rmean.abs() + 1 / rrstd)).all()
+    assert ((rstd - rrstd).abs() <= 1e-6 * rrstd).all()
+
+
+@pytest.mark.parametrize("d,rows", [(768, 4712), (1280, 16448), (768, 37696), (1280, 1001),
+                                    (256, 333), (1024, 517)])
+def test_ln_bwd_kernel_matches_plain(cuda, d, rows):
+    """dx within one bf16 ulp of the float32 round trip's backward; dweight
+    and dbias within 1e-5 of it (relative to their largest element); a
+    second call gives the same bits."""
+    x, w, b, dy = _ln_inputs(rows, d, cuda, seed=d * rows)
+    _, mean, rstd = tnorm.ln_rows_fwd_op(x, w, b, 1e-5)
+    before = tnorm.ln_bwd_launches.count
+    dx, dw, db = tnorm.ln_rows_bwd_op(dy, x, mean, rstd, w)
+    torch.cuda.synchronize()
+    assert tnorm.ln_bwd_launches.count == before + 1
+    _, rmean, rrstd = tnorm.ln_rows_fwd_plain(x, w, b, 1e-5)
+    rdx, rdw, rdb = tnorm.ln_rows_bwd_plain(dy, x, rmean, rrstd, w)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == db.dtype == torch.float32
+    assert _within_bf16_ulp(dx, rdx)[0] == 0, _within_bf16_ulp(dx, rdx)
+    for got, ref in ((dw, rdw), (db, rdb)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+    again = tnorm.ln_rows_bwd_op(dy, x, mean, rstd, w)
+    assert all(torch.equal(a, c) for a, c in zip((dx, dw, db), again))
+
+
+@pytest.mark.parametrize("shape", [(4712, 3072), (16448, 5120), (3, 7, 5120), (1001, 3072),
+                                   (5, 3)])
+def test_gelu_kernel_matches_plain(cuda, shape):
+    """The blocks' exact GELU on a card, PyTorch's GELU on the bf16 tensor,
+    equals the float32 round trip bit for bit, forward and backward (the
+    same float32 formula, one rounding), through autograd as ``Mlp`` runs
+    it."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(len(shape) + shape[-1])
+    x = (3.0 * torch.randn(shape, generator=g, device=cuda)).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    y = F.gelu(xs[0])
+    ref = F.gelu(xs[1].float()).to(torch.bfloat16)
+    y.backward(dy)
+    ref.backward(dy)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, ref)
+    assert xs[0].grad.dtype == torch.bfloat16 and torch.equal(xs[0].grad, xs[1].grad)
+
+
+def test_captured_norm_act_equals_eager(cuda):
+    """LayerNorm and GELU forward and backward at the crop model's training
+    shape, captured alone: each replay's outputs and gradients equal an
+    eager call's bit for bit, with and without deterministic mode."""
+    x, w, b, dy = _ln_inputs(4712, 768, cuda, seed=3)
+    x, w, b = (t.requires_grad_() for t in (x, w, b))
+
+    def fwd_bwd():
+        y = tnorm.layer_norm(x, w, b, 1e-5)
+        h = torch.nn.functional.gelu(y)
+        return (h.detach(),) + torch.autograd.grad(h, (x, w, b), dy)
+
+    for deterministic in (False, True):
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            eager = fwd_bwd()
+            graph = _build.CapturedGraph(fwd_bwd)
+            assert graph.launches == {tnorm.ln_launches: 1, tnorm.ln_bwd_launches: 1}
+            for _ in range(3):
+                graph.replay()
+                assert all(torch.equal(a, c) for a, c in zip(graph.outputs, eager))
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def test_norm_act_wrappers_refuse_what_they_do_not_take(cuda):
+    x, w, b, dy = _ln_inputs(64, 768, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tnorm.ln_rows_fwd_op(x.half(), w, b, 1e-5)
+    with pytest.raises(ValueError, match="last dim"):
+        tnorm.ln_rows_fwd_op(x.t(), w[:64], b[:64], 1e-5)
+    for d in (12, 2056):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tnorm.ln_rows_fwd_op(x[:, :1].expand(64, d).contiguous(), w[:1].expand(d).contiguous(),
+                              b[:1].expand(d).contiguous(), 1e-5)
+    with pytest.raises(ValueError, match="float32"):
+        tnorm.ln_rows_fwd_op(x, w.to(torch.bfloat16), b, 1e-5)
+    _, mean, rstd = tnorm.ln_rows_fwd_op(x, w, b, 1e-5)
+    with pytest.raises(ValueError, match="statistics"):
+        tnorm.ln_rows_bwd_op(dy, x, mean[:10], rstd, w)
+
+
+def test_model_launches_norm_act_per_block(cuda):
+    """The tiny model in bf16 on the card: 2 LayerNorm launches per block
+    in a forward, as many backward launches in a training step;
+    its final norm stays float32 (no launch). Kernel logits against the
+    same model on the CPU (the float32 round trip there) within 3e-2."""
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+
+    kw = dict(num_classes=3, image_size=32, num_bands=6, depth=2, dtype=torch.bfloat16, seed=0)
+    model = create_prithvi_seg("prithvi_eo_tiny", device=cuda, **kw)
+    counters = (tnorm.ln_launches, tnorm.ln_bwd_launches)
+    x = torch.randn(4, 6, 1, 32, 32, generator=torch.Generator().manual_seed(2))
+    before = [c.count for c in counters]
+    with torch.no_grad():
+        logits = model(x.to(cuda))
+    torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [4, 0]
+    cpu = create_prithvi_seg("prithvi_eo_tiny", device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu(x)
+    torch.testing.assert_close(logits.float().cpu(), ref.float(),
+                               atol=3e-2 * ref.abs().max().item(), rtol=0)
+    before = [c.count for c in counters]
+    model(x.to(cuda)).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [4, 4]

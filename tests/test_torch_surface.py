@@ -99,6 +99,7 @@ PORT_ONLY_FILES = {
     "device.py": "resolve_device: cuda unless the caller asks for the CPU",
     "ops/_build.py": "nvcc at first use, launch counters, CUDA graphs",
     "ops/csrc/*": "the Hopper kernels' CUDA sources",
+    "ops/norm_act.py": "the encoder's bf16 LayerNorm and GELU kernels; JAX leaves both to XLA",
     "data/table.py": "records without pandas",
     "data/parquet.py": "Parquet without pyarrow",
     "data/jp2.py": "libopenjp2 by ctypes in place of OpenCV",

@@ -35,7 +35,10 @@ summary (``h100bench/tracing.py:summarize``) does not read:
   upload's (``ops/preprocess.py``: ``pinned_uploads``,
   ``pageable_uploads``, ``upload_slot_waits``) and the ``_tl`` coords'
   (``models/prithvi.py``: ``coord_embeds``, ``coords_missing``); those the
-  program lacks are left out.
+  program lacks are left out;
+* ``launch_counters``: the same for the encoder's LayerNorm kernels
+  (``ops/norm_act.py``: ``ln_launches``, ``ln_bwd_launches``), graph
+  replays included; also printed.
 
 Run from the root of a checkout (of the program with or without spans);
 on a card only, as ``h100bench/run.py`` is.
@@ -56,6 +59,8 @@ PROGRAM_PREFIX = "instageo."   # the program's spans
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 COUNTERS = {"ops.preprocess": ("pinned_uploads", "pageable_uploads", "upload_slot_waits"),
             "models.prithvi": ("coord_embeds", "coords_missing")}
+LAUNCH_COUNTERS = {"ops.norm_act": ("ln_launches", "ln_bwd_launches")}
+COUNTER_GROUPS = {"upload_counters": COUNTERS, "launch_counters": LAUNCH_COUNTERS}
 SERVE_TOP = ("instageo.serve.upload", "instageo.serve.preprocess", "instageo.model.encoder",
              "instageo.model.head", "instageo.serve.argmax")
 TRAIN_TOP = ("instageo.train.replay", "instageo.train.stage", "instageo.train.seeds")
@@ -196,16 +201,23 @@ def describe(events, summary):
     }
 
 
-def upload_counters() -> Dict[str, int]:
-    """The serving counters now, by ``module.name``; those the program
-    lacks are left out."""
+def counters_now(counters: Dict[str, Tuple[str, ...]]) -> Dict[str, int]:
+    """The program's ``counters`` now, by ``module.name``: a launch
+    counter's total (graph replays included), a host counter's count; those
+    the program lacks are left out."""
     import importlib
 
     out = {}
-    for module, names in COUNTERS.items():
-        mod = importlib.import_module(f"instageo_tpu_torch.{module}")
+    for module, names in counters.items():
+        try:
+            mod = importlib.import_module(f"instageo_tpu_torch.{module}")
+        except ModuleNotFoundError:
+            continue
         short = module.split(".")[-1]
-        out.update({f"{short}.{n}": getattr(mod, n).count for n in names if hasattr(mod, n)})
+        for n in names:
+            c = getattr(mod, n, None)
+            if c is not None:
+                out[f"{short}.{n}"] = c.total() if hasattr(c, "total") else c.count
     return out
 
 
@@ -238,20 +250,22 @@ def main() -> int:
     start, stop = tracing.Tracer.start, tracing.Tracer.stop
 
     def start_marked(self):
-        marks["start"] = upload_counters()
+        marks["start"] = {k: counters_now(c) for k, c in COUNTER_GROUPS.items()}
         start(self)
 
     def stop_marked(self, **units):
         stop(self, **units)
-        marks["stop"] = upload_counters()
+        marks["stop"] = {k: counters_now(c) for k, c in COUNTER_GROUPS.items()}
 
     tracing.Tracer.start, tracing.Tracer.stop = start_marked, stop_marked
     rc = harness.main(["--workload", args.workload, "--seed", str(args.seed),
                        "--seconds", str(args.seconds), "--trace", "1"], t_process=t0)
-    end = upload_counters()
-    found["upload_counters"] = {
-        name: {"stretch": marks["stop"][name] - marks["start"][name] if "stop" in marks else None,
-               "process": n} for name, n in end.items()}
+    for key, counters in COUNTER_GROUPS.items():
+        found[key] = {
+            name: {"stretch": (marks["stop"][key][name] - marks["start"][key][name]
+                               if "stop" in marks else None),
+                   "process": n} for name, n in counters_now(counters).items()}
+    print("launch_counters " + json.dumps(found["launch_counters"]), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(dict(found, workload=args.workload, seed=args.seed), f, indent=1)
