@@ -25,8 +25,7 @@ Phases, one line each (any failure raises and exits non-zero):
    cells' rows and widths against the float32 round trip, timed beside it
    and beside ``F.layer_norm`` on bf16; ``F.gelu`` on bf16 (the blocks'
    exact GELU on a card) bit for bit the float32 round trip, timed beside
-   it. Every later phase counts the LayerNorm kernels' launches on its own
-   path beside the other kernels' (``_counters``);
+   it;
 4. slice: Prithvi-V1-100M at full width (T=3, 224 px, 13 classes, bf16,
    random weights from a seed) behind ``ModelServer``: online requests from
    8 threads through the dynamic batcher and one batch run over synthetic
@@ -185,6 +184,8 @@ The model and data settings come from the port's
 
 Each path runs with every launch count set to 0 just before it and read
 just after it; a launch that a CUDA graph replays counts once per replay.
+The counts are each kernel's of ``instageo_tpu_torch/ops:kernels()``, and
+each path is held to what ``expected_launches`` reads from its model.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -207,11 +208,11 @@ from unittest import mock
 
 import numpy as np
 
-# Card peaks for the bound (H100 SXM data sheet, dense): bf16 and int8
-# tensor-core rates and HBM3 bandwidth.
-PEAK_BF16_FLOPS = 989e12
+from h100bench import counts as yardstick
+
+# The int8 tensor-core rate (H100 SXM data sheet, dense), beside the bf16
+# and HBM peaks of ``h100bench/counts.py`` (``yardstick``).
 PEAK_INT8_OPS = 1979e12
-PEAK_BYTES_PER_S = 3.35e12
 
 # The configuration every path runs, from the port's config files.
 CROP_CONFIG = "multitemporal_crop_classification"
@@ -237,8 +238,7 @@ KERNEL_SHAPES = [
 ]
 # The forward kernels' symbols, by route, as the profiler names them.
 FWD_KERNEL_SYMBOL = {"wgmma": "flash_attn_fwd_sm90_kernel", "mma_sync": "flash_attn_fwd_kernel"}
-# The dropout kernel's symbol (tools/profile_dropout_designs.py times the
-# earlier design's beside it).
+# The dropout kernel's symbol.
 DROPOUT_SYMBOL = "fused_dropout_kernel"
 # (B, H, L, Dh, entry) of the backward: the training step at batch 8 and 32,
 # T=1, the 600M shapes heads-first (L=1025 trains on the card), and the
@@ -389,27 +389,12 @@ def device_ms(fn, iters: int = 20, warmup: int = 2, match=None, attempts: int = 
                        f"in {attempts} attempts")
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(work: tuple) -> tuple:
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    ``work``, (FLOPs, bytes) as ``h100bench/counts.py`` counts them, and
+    which of the two sets it."""
+    t_ops, t_bytes = yardstick.bound_s(work[0], 0.0), yardstick.bound_s(0.0, work[1])
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def attention_bound(b: int, h: int, l: int, d: int):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
-    flops = 4.0 * b * h * l * l * d
-    nbytes = 4.0 * b * h * l * d * 2 + b * h * l * 4  # q, k, v, O bf16; lse f32
-    return _bound(flops, nbytes)
-
-
-def attention_bwd_bound(b: int, h: int, l: int, d: int):
-    """The TPU backward kernel's work: five L x L x Dh products (S, dP, dq,
-    dk, dv); q, k, v, O, dO read and dq, dk, dv written in bf16, lse f32."""
-    return _bound(10.0 * b * h * l * l * d, 16.0 * b * h * l * d + 4.0 * b * h * l)
-
-
-def dropout_bound(numel: int):
-    """Bytes only: bf16 in, bf16 out, one mask byte."""
-    return _bound(0.0, 5.0 * numel)
 
 
 def _rel_err(x, ref) -> float:
@@ -481,7 +466,7 @@ def kernel_phase(device, shapes, iters: int = 20) -> list:
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
         row["library_ms"] = time_ms(sdpa, device, iters)
         row["library_device_ms"] = device_ms(sdpa, iters) if on_card else None
-        row["bound_ms"], row["bound_by"] = attention_bound(b, h, l, d)
+        row["bound_ms"], row["bound_by"] = bound(yardstick.attention_fwd(b, h, l, d))
         print("[kernels] flash_attn_fwd " + json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, o, lse, o_ref, lse_ref
@@ -615,7 +600,7 @@ def bwd_kernel_phase(device, shapes, iters: int = 10) -> list:
         sdpa_bwd = lambda: torch.autograd.grad(out, (qs, ks, vs), do_hf, retain_graph=True)  # noqa: E731
         row["library_ms"] = time_ms(sdpa_bwd, device, iters)
         row["library_device_ms"] = device_ms(sdpa_bwd, iters) if on_card else None
-        row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, l, d)
+        row["bound_ms"], row["bound_by"] = bound(yardstick.attention_bwd(b, h, l, d))
         print("[kernels] flash_attn_bwd " + json.dumps(row), flush=True)
         results.append(row)
         del q, k, v, o, lse, do, qs, ks, vs, out, do_hf
@@ -746,7 +731,7 @@ def dropout_phase(device, shapes, p: float = 0.1, iters: int = 20) -> list:
         library = lambda: F.dropout(x, p, training=True)  # noqa: E731
         row["library_ms"] = time_ms(library, device, iters)
         row["library_device_ms"] = device_ms(library, iters) if on_card else None
-        row["bound_ms"], row["bound_by"] = dropout_bound(n)
+        row["bound_ms"], row["bound_by"] = bound(yardstick.dropout(n, x.element_size()))
         print("[kernels] fused_dropout " + json.dumps(row), flush=True)
         results.append(row)
         del x, out, mask
@@ -802,7 +787,7 @@ def norm_act_phase(device, shapes=NORM_ACT_SHAPES, iters: int = 20) -> list:
         if library is not None:
             row["library_ms"] = time_ms(library, device, iters)
             row["library_device_ms"] = device_ms(library, iters) if on_card else None
-        row["bound_ms"], row["bound_by"] = _bound(0.0, nbytes)
+        row["bound_ms"], row["bound_by"] = bound((0.0, nbytes))
         print("[kernels] norm_act " + json.dumps(row), flush=True)
         rows_out.append(row)
 
@@ -867,31 +852,45 @@ def norm_act_phase(device, shapes=NORM_ACT_SHAPES, iters: int = 20) -> list:
     return rows_out
 
 
-def _counters() -> dict:
-    from instageo_tpu_torch.ops import attention as tattn
-    from instageo_tpu_torch.ops import dropout as tdrop
-    from instageo_tpu_torch.ops import norm_act as tnorm
+def expected_launches(model, forwards: int = 0, backwards: int = 0,
+                      plain_forwards: int = 0) -> dict:
+    """Each kernel's launches (``ops.kernels()``'s names) that ``model``
+    makes on a card over ``forwards`` forwards, ``backwards`` of them
+    trained (train mode, then a backward), and ``plain_forwards`` in eval
+    mode with the attention on the plain route (``get_model_complexity``'s
+    FLOP count). Per block forward of a bf16 model: one attention forward on
+    its head dim's route (``ops/attention.py:fwd_route``) and two LayerNorm
+    forwards (norm1, norm2); per block backward: one attention backward
+    (``bwd_route``) and two LayerNorm backwards (each counts once for its
+    two kernels); per trained forward: one dropout launch per drawing
+    ``Dropout`` (0 < p < 1). A float32 model takes the xla attention and
+    the float32 LayerNorm, which launch nothing. Read from the model's
+    structure, never from the counters."""
+    import torch
 
-    return {"flash_attn_fwd": tattn.launches, "flash_attn_fwd_mma": tattn.fwd_mma_launches,
-            "flash_attn_bwd": tattn.bwd_launches, "flash_attn_bwd_mma": tattn.bwd_mma_launches,
-            "fused_dropout": tdrop.launches, "ln_rows_bf16_fwd": tnorm.ln_launches,
-            "ln_rows_bf16_bwd": tnorm.ln_bwd_launches}
+    from instageo_tpu_torch.models.seg import Dropout
+    from instageo_tpu_torch.ops import attention, kernels
 
-
-def with_norms(want: dict, fwd: int, bwd: int = 0) -> dict:
-    """``want`` with the LayerNorm kernels' launches of ``fwd`` block
-    forwards and ``bwd`` block backwards: each bf16 block's norm1 and norm2
-    (a backward counts once for its two kernels)."""
-    return dict(want, ln_rows_bf16_fwd=2 * fwd, ln_rows_bf16_bwd=2 * bwd)
+    want = dict.fromkeys(kernels(), 0)
+    if model.dtype == torch.bfloat16:
+        for block in model.prithvi_encoder.blocks:
+            d = block.attn.head_dim
+            want[attention.FWD_KERNELS[attention.fwd_route(d)]] += forwards
+            want[attention.BWD_KERNELS[attention.bwd_route(d)]] += backwards
+            want["ln_rows_bf16_fwd"] += 2 * (forwards + plain_forwards)
+            want["ln_rows_bf16_bwd"] += 2 * backwards
+    drops = sum(isinstance(m, Dropout) and 0.0 < m.p < 1.0 for m in model.modules())
+    want["fused_dropout"] = drops * backwards
+    return want
 
 
 def reset_counts() -> None:
     from instageo_tpu_torch import native
     from instageo_tpu_torch.models import prithvi
-    from instageo_tpu_torch.ops import _build
+    from instageo_tpu_torch.ops import _build, kernels
 
-    for counter in (*_counters().values(), _build.graph_replays, native.decodes,
-                    native.fallback_decodes, prithvi.xla_attn_calls):
+    for counter in (*(k.counter for k in kernels().values()), _build.graph_replays,
+                    native.decodes, native.fallback_decodes, prithvi.xla_attn_calls):
         counter.reset()
 
 
@@ -899,17 +898,18 @@ def read_counts() -> dict:
     """Each kernel's launches on the device since the reset: made directly
     (``count``) plus those that graph replays made (``replayed``: the
     launches each graph recorded at its capture, once per replay)."""
-    return {name: counter.total() for name, counter in _counters().items()}
+    from instageo_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def read_graph_counts() -> dict:
     """What CUDA graphs did since the reset: their replays, and per kernel
     the launches recorded at capture and those that replays made."""
-    from instageo_tpu_torch.ops import _build
+    from instageo_tpu_torch.ops import _build, launch_counts
 
     return {"graph_replays": _build.graph_replays.count,
-            "captured": {n: c.captured for n, c in _counters().items()},
-            "replayed": {n: c.replayed for n, c in _counters().items()}}
+            "captured": launch_counts("captured"), "replayed": launch_counts("replayed")}
 
 
 def _write_chips(root: str, n: int, raw: np.ndarray) -> list:
@@ -1035,7 +1035,6 @@ def slice_phase(device, cfg, model_kw: dict, data: dict, n_requests: int = 24,
     online requests + a batch run over chip files."""
     import torch
 
-    from instageo_tpu_torch.ops import attention as tattn
     from instageo_tpu_torch.ops.preprocess import make_fused_predict_fn
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
     from instageo_tpu_torch.serve.server import ModelServer
@@ -1074,8 +1073,7 @@ def slice_phase(device, cfg, model_kw: dict, data: dict, n_requests: int = 24,
         online_s = time.perf_counter() - t0
         check(not any(th.is_alive() for th in threads), "an online client hung")
         run = server.chip_inference_from_paths(paths, out_dir, batch_size=batch)
-        launches = tattn.launches.count
-        others = read_counts()
+        launches = read_counts()
         forwards = batcher.batches_run + math.ceil(n_files / batch)
         health = server.health_check()
         # ------------------------------------------------------------------
@@ -1093,21 +1091,13 @@ def slice_phase(device, cfg, model_kw: dict, data: dict, n_requests: int = 24,
             check(pred.shape == (1, size, size) and pred.dtype == np.int8,
                   f"{name}: {pred.shape} {pred.dtype}")
             check(int(pred.min()) >= 0 and int(pred.max()) < classes, f"{name}: class range")
-        check(launches == depth * forwards,
-              f"{launches} kernel launches for {forwards} forwards of {depth} blocks")
-        check(others["flash_attn_bwd"] == 0 and others["fused_dropout"] == 0,
-              f"serving launched training kernels: {others}")
-        check(others["flash_attn_fwd_mma"] == 0,
-              f"serving took the mma.sync forward: {others}")
-        check(others["ln_rows_bf16_fwd"] == 2 * depth * forwards
-              and others["ln_rows_bf16_bwd"] == 0,
-              f"serving: {others['ln_rows_bf16_fwd']} LayerNorm launches for {forwards} "
-              f"forwards of {depth} blocks, {others['ln_rows_bf16_bwd']} backward")
+        want = expected_launches(model, forwards=forwards)
+        check(launches == want, f"serving launched {launches} in {forwards} forwards of "
+              f"{depth} blocks, expected {want}")
         print(f"[slice] served {n_requests} online requests from {n_threads} threads in "
               f"{batcher.batches_run} batches ({online_s:.3f} s) and {n_files} chip files "
               f"({run['chips_per_sec']:.2f} chips/s incl. decode+write); "
-              f"{launches} attention launches = {depth} x {forwards} forwards, "
-              f"{others['flash_attn_fwd_mma']} of them on mma.sync; "
+              f"launches {json.dumps(launches)} in {forwards} forwards; "
               f"health {json.dumps(health['device'])}", flush=True)
         server.close()
 
@@ -1136,7 +1126,7 @@ def slice_phase(device, cfg, model_kw: dict, data: dict, n_requests: int = 24,
     finally:
         server.close()
         tmp.cleanup()
-    return dict(launches=launches, other_launches=others, forwards=forwards, agreement=agree,
+    return dict(launches=launches, forwards=forwards, agreement=agree,
                 max_logit_diff=diff, chips_per_s=rates, build_s=t_build)
 
 
@@ -1262,7 +1252,6 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
     batch = cfg["train"]["batch_size"]
     model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
                                device=device, seed=0)
-    depth = len(model.prithvi_encoder.blocks)
     trainer = Trainer(cfg, model, device=device)
     x, y = _crop_batch(max(throughput_batches + (3 * batch,)), t, size, classes, seed=1,
                        data=data)
@@ -1281,9 +1270,7 @@ def train_phase(device, model_kw: dict, cfg: dict, data: dict, fixed_steps: int 
     check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     per_step = {name: n / fixed_steps for name, n in counts.items()}
-    expected = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0,
-                           "flash_attn_bwd": depth, "flash_attn_bwd_mma": 0,
-                           "fused_dropout": 5}, depth, depth)
+    expected = expected_launches(model, forwards=1, backwards=1)
     if device.type == "cuda":
         check(per_step == expected, f"launches per step {per_step}, expected {expected}")
     print(f"[train] {fixed_steps} steps at batch {batch} on one batch: losses "
@@ -1367,7 +1354,6 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
     batch = cfg["train"]["batch_size"]
     model = create_prithvi_seg(**model_kw, dtype=torch.bfloat16, param_dtype=torch.float32,
                                device=device, seed=0)
-    depth = len(model.prithvi_encoder.blocks)
     init = {n: v.detach().clone() for n, v in model.state_dict().items()}
     x, y = _crop_batch(max(2 * batch, max(rate_batches)), t, size, classes, seed=4, data=data)
     rng = np.random.default_rng(5)
@@ -1401,9 +1387,7 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
     def four_runs():
         """Eager, captured, captured, eager: each run's launches per step
         (every attention launch on the wgmma route)."""
-        expected = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0,
-                               "flash_attn_bwd": depth, "flash_attn_bwd_mma": 0,
-                               "fused_dropout": 5}, depth, depth)
+        expected = expected_launches(model, forwards=1, backwards=1)
         runs = {}
         for name, spc in (("eager", 1), ("captured", "auto"), ("captured_2", "auto"),
                           ("eager_2", 1)):
@@ -1463,9 +1447,8 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
           f"{json.dumps(det_per_step)}; ops without a deterministic CUDA version in the "
           f"step: {json.dumps(ops) if ops else 'none'}", flush=True)
     if on_card:
-        check(det_per_step["flash_attn_bwd"] == depth and det_per_step["flash_attn_bwd_mma"] == 0
-              and det_per_step["ln_rows_bf16_bwd"] == 2 * depth,
-              f"deterministic mode: backward launches per step {det_per_step}")
+        check(det_per_step == expected_launches(model, forwards=1, backwards=1),
+              f"deterministic mode: launches per step {det_per_step}")
     check(det_parted is None, f"captured vs eager differ under deterministic mode: "
           f"{det_parted} (ops that warned: {ops or 'none'})")
     for r in det.values():
@@ -1603,8 +1586,7 @@ def graph_phase(device, model_kw: dict, cfg: dict, data: dict, n_batches: int = 
           flush=True)
     check(max(eval_gap, auc_gap) <= GRAPH_EVAL_TOL, f"captured eval differs by {eval_gap}")
     if on_card:
-        check(evals["captured"]["counts"]["flash_attn_fwd"] == 2 * depth * n_batches
-              and evals["captured"]["counts"]["ln_rows_bf16_fwd"] == 4 * depth * n_batches,
+        check(evals["captured"]["counts"] == expected_launches(model, forwards=2 * n_batches),
               f"eval launches {evals['captured']['counts']}")
     # ms per eval batch, eager vs captured, in turns (host clock, synchronised
     # by the epoch's metrics; both graphs of the val epoch are captured).
@@ -1893,10 +1875,10 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
 
     from instageo_tpu_torch.configs.config import load_config_from_argv
     from instageo_tpu_torch.data.geotiff import GeoTiffReader
-    from instageo_tpu_torch.models.registry import get_arch
     from instageo_tpu_torch.ops.preprocess import preprocess_chips, raw_to_device
     from instageo_tpu_torch.serve.server import ModelServer
     from instageo_tpu_torch.train import run
+    from instageo_tpu_torch.train.factory import build_model
 
     on_card = device.type == "cuda"
     tmp = tempfile.TemporaryDirectory()
@@ -1912,7 +1894,6 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
     dl = cfg.dataloader
     size, t, classes = int(dl.img_size), int(dl.temporal_dim), int(cfg.model.num_classes)
     batch = int(cfg.train.batch_size)
-    depth = get_arch(str(cfg.model.model_name), depth=int(cfg.model.depth)).depth
     try:
         t0 = time.perf_counter()
         val_paths = _write_dataset(root, n_train, n_val, len(dl.bands), size, classes)
@@ -1949,18 +1930,14 @@ def run_phase(device, extra=(), n_train: int = 128, n_val: int = 16) -> dict:
               f"{hist['val_loss']:.6f}; the epoch (train + validation) took "
               f"{hist['epoch_time_s']:.3f} s of the mode's {wall['train']:.3f} s wall", flush=True)
         steps, val_batches = -(-n_train // batch), -(-n_val // batch)
-        # The train mode's FLOP count is one more forward, its attention on
-        # the plain route (``get_model_complexity``).
-        expected = {
-            "train": with_norms({"flash_attn_fwd": depth * (steps + val_batches),
-                                 "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth * steps,
-                                 "flash_attn_bwd_mma": 0, "fused_dropout": 5 * steps},
-                                depth * (steps + val_batches + 1), depth * steps),
-            "eval": with_norms({"flash_attn_fwd": depth * val_batches, "flash_attn_fwd_mma": 0,
-                                "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0,
-                                "fused_dropout": 0}, depth * val_batches),
+        model = build_model(cfg, device)
+        expected = {  # the train mode's FLOP count: one forward on the plain attention
+            "train": expected_launches(model, forwards=steps + val_batches, backwards=steps,
+                                       plain_forwards=1),
+            "eval": expected_launches(model, forwards=val_batches),
+            "chip_inference": expected_launches(model, forwards=val_batches),
         }
-        expected["chip_inference"] = expected["eval"]
+        del model
         if on_card:
             for mode, want in expected.items():
                 check(counts[mode] == want, f"mode={mode}: launches {counts[mode]}, "
@@ -2210,8 +2187,8 @@ def replica_phase(device, smi: str, extra=(), n_train: int = 128, n_val: int = 1
     import torch
 
     from instageo_tpu_torch.configs.config import load_config_from_argv
-    from instageo_tpu_torch.models.registry import get_arch
     from instageo_tpu_torch.train import replica, run
+    from instageo_tpu_torch.train.factory import build_model
 
     on_card = device.type == "cuda"
     clock = Clock("replica")
@@ -2229,7 +2206,6 @@ def replica_phase(device, smi: str, extra=(), n_train: int = 128, n_val: int = 1
     dl = cfg.dataloader
     size, classes = int(dl.img_size), int(cfg.model.num_classes)
     batch = int(cfg.train.batch_size)
-    depth = get_arch(str(cfg.model.model_name), depth=int(cfg.model.depth)).depth
     try:
         _write_dataset(root, n_train, n_val, len(dl.bands), size, classes, n_test=n_test)
         clock.lap(f"wrote {n_train} + {n_val} + {n_test} chips")
@@ -2268,18 +2244,15 @@ def replica_phase(device, smi: str, extra=(), n_train: int = 128, n_val: int = 1
 
         steps, val_batches = -(-n_train // batch), -(-n_val // batch)
         test_batches = -(-n_test // batch)
-        none = with_norms({"flash_attn_fwd": 0, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
-                           "flash_attn_bwd_mma": 0, "fused_dropout": 0}, 0)
-        expected = {  # the train stage's FLOP count: one more forward's norms
-            "stats": none,
-            "train": with_norms(dict(none, flash_attn_fwd=depth * (steps + val_batches),
-                                     flash_attn_bwd=depth * steps, fused_dropout=5 * steps),
-                                depth * (steps + val_batches + 1), depth * steps),
-            "eval_val": with_norms(dict(none, flash_attn_fwd=depth * val_batches),
-                                   depth * val_batches),
-            "eval_test": with_norms(dict(none, flash_attn_fwd=depth * test_batches),
-                                    depth * test_batches),
+        model = build_model(cfg, device)
+        expected = {  # the train stage's FLOP count: one forward on the plain attention
+            "stats": expected_launches(model),
+            "train": expected_launches(model, forwards=steps + val_batches, backwards=steps,
+                                       plain_forwards=1),
+            "eval_val": expected_launches(model, forwards=val_batches),
+            "eval_test": expected_launches(model, forwards=test_batches),
         }
+        del model
         if on_card:
             for name, want in expected.items():
                 check(stages[name]["counts"] == want,
@@ -2338,22 +2311,19 @@ def _predict_turns(predicts: dict, raw, turns: int, iters: int) -> dict:
             for name, v in per_turn.items()}
 
 
-def _predict_launches(predict, raw, depth: int, tag: str, on_card: bool) -> dict:
-    """Launch counts of one fused predict, from 0: on the card ``depth``
-    attention forward launches, all on the wgmma route, ``2 depth``
-    LayerNorm forward launches, nothing else."""
+def _predict_launches(predict, raw, model, tag: str, on_card: bool) -> dict:
+    """Launch counts of one fused predict of ``model``, from 0: on the card
+    those of one forward (``expected_launches``)."""
     reset_counts()
     predict(raw).cpu()
     counts = read_counts()
-    want = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
-                       "flash_attn_bwd_mma": 0, "fused_dropout": 0}, depth)
+    want = expected_launches(model, forwards=1)
     if on_card:
         check(counts == want, f"{tag}: launches per predict {counts}, expected {want}")
     return counts
 
 
-def _artifact_prepare(server, x, root: str, depth: int, on_card: bool,
-                      batches=(64, 7)) -> dict:
+def _artifact_prepare(server, x, root: str, on_card: bool, batches=(64, 7)) -> dict:
     """``server``'s export artifact (``ModelServer.export_artifact``) written
     into ``root`` (its size under 4 bytes per parameter) with what a fresh
     interpreter needs to run it on the first ``b`` chips of ``x`` for each of
@@ -2374,8 +2344,9 @@ def _artifact_prepare(server, x, root: str, depth: int, on_card: bool,
     check(nbytes < 4 * n_params, f"artifact {nbytes} bytes for {n_params} parameters")
     job = dict(path=path, state=os.path.join(root, "state.pt"), x=os.path.join(root, "x.pt"),
                out=os.path.join(root, "y"), want=os.path.join(root, "want"),
-               decided=os.path.join(root, "decided.pt"), batches=list(batches), depth=depth,
-               on_card=on_card, export_s=export_s, bytes=nbytes, params=n_params)
+               decided=os.path.join(root, "decided.pt"), batches=list(batches),
+               launches=expected_launches(server.model, forwards=1), on_card=on_card,
+               export_s=export_s, bytes=nbytes, params=n_params)
     torch.save(server.model.state_dict(), job["state"])
     torch.save(x.cpu(), job["x"])
     live = make_predict_fn(server.model)
@@ -2392,11 +2363,10 @@ def _artifact_prepare(server, x, root: str, depth: int, on_card: bool,
 def _artifact_child(jobs: list) -> dict:
     """What a fresh interpreter runs for ``_artifact_prepare``'s jobs: each
     artifact loaded with ``load_predict``, called on each batch (the
-    forward launches of each call counted), the outputs saved; then which
-    of the port's model modules the interpreter imported (none may be)."""
+    launches of each call counted), the outputs saved; then which of the
+    port's model modules the interpreter imported (none may be)."""
     import torch
 
-    from instageo_tpu_torch.ops import attention, norm_act
     from instageo_tpu_torch.serve.export import load_predict
 
     recs = []
@@ -2405,15 +2375,13 @@ def _artifact_child(jobs: list) -> dict:
         predict, meta = load_predict(job["path"])
         state = torch.load(job["state"], weights_only=True)
         x = torch.load(job["x"], weights_only=True)
-        launches, ln_launches = {}, {}
+        launches = {}
         for b in job["batches"]:
-            before = attention.launches.count, norm_act.ln_launches.count
+            before = read_counts()
             y = predict(state, x[:b])
-            launches[b] = attention.launches.count - before[0]
-            ln_launches[b] = norm_act.ln_launches.count - before[1]
+            launches[b] = {k: n - before[k] for k, n in read_counts().items()}
             torch.save(y.cpu(), f"{job['out']}.{b}.pt")
-        recs.append(dict(launches=launches, ln_launches=ln_launches, meta=meta,
-                         seconds=time.perf_counter() - t0))
+        recs.append(dict(launches=launches, meta=meta, seconds=time.perf_counter() - t0))
     return dict(artifacts=recs, models_imported=[
         m for m in sys.modules if m.startswith("instageo_tpu_torch.models")])
 
@@ -2439,8 +2407,7 @@ def _artifact_fresh(jobs: list, root: str) -> dict:
 def _artifact_verify(job: dict, child: dict, models_imported: list) -> dict:
     """A job's artifact as the fresh interpreter ran it: no model module
     imported, class ids equal to the server's on decided pixels
-    (>= ARTIFACT_AGREEMENT), ``depth`` attention and ``2 depth`` LayerNorm
-    forward launches per call on the card."""
+    (>= ARTIFACT_AGREEMENT), one forward's launches per call on the card."""
     import torch
 
     check(not models_imported, f"load_predict imported {models_imported}")
@@ -2453,10 +2420,9 @@ def _artifact_verify(job: dict, child: dict, models_imported: list) -> dict:
         check(agreement[b] >= ARTIFACT_AGREEMENT,
               f"artifact vs server at batch {b}: {agreement[b]} of decided pixels")
         if job["on_card"]:
-            check(child["launches"][str(b)] == job["depth"],
-                  f"artifact at batch {b}: {child['launches'][str(b)]} forward launches")
-            check(child["ln_launches"][str(b)] == 2 * job["depth"],
-                  f"artifact at batch {b}: {child['ln_launches'][str(b)]} LayerNorm launches")
+            check(child["launches"][str(b)] == job["launches"],
+                  f"artifact at batch {b}: launches {child['launches'][str(b)]}, "
+                  f"expected {job['launches']}")
     return dict(bytes=job["bytes"], params=job["params"], agreement=agreement,
                 export_s=job["export_s"], fresh_interpreter_s=child["seconds"], child=child)
 
@@ -2583,10 +2549,9 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     cfg = config()
     servers = {head: ModelServer(config(**{"model.head_impl": head}), device=device)
                for head in ("torch", "fast")}
-    depth = len(servers["torch"].model.prithvi_encoder.blocks)
     raw = raw_chips(batch, cfg)
     predicts = {head: _server_predict(sv) for head, sv in servers.items()}
-    launches = {head: _predict_launches(fn, raw, depth, f"{head} head", on_card)
+    launches = {head: _predict_launches(fn, raw, servers[head].model, f"{head} head", on_card)
                 for head, fn in predicts.items()}
     timing = _predict_turns(predicts, raw, turns, iters)
     gap = kernel_vs_plain_logits(servers["fast"].model,
@@ -2598,8 +2563,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
                    batch=batch, ms_per_predict=timing[head]["ms"],
                    turns_ms=timing[head]["turns"],
                    chips_per_s=batch * 1e3 / timing[head]["ms"],
-                   fwd_launches_per_predict=launches[head]["flash_attn_fwd"],
-                   mma_sync_launches=launches[head]["flash_attn_fwd_mma"],
+                   launches_per_predict=launches[head],
                    **({k: v for k, v in gap.items() if k != "logits"} if head == "fast" else {}))
     out["heads"] = dict(timing=timing, launches=launches,
                         gap={k: v for k, v in gap.items() if k != "logits"})
@@ -2626,8 +2590,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
     reset_counts()
     losses = [float(trainer.train_step(xb, yb, gen)) for _ in range(fixed_steps)]
     counts = {k: v / fixed_steps for k, v in read_counts().items()}
-    want = with_norms({"flash_attn_fwd": depth, "flash_attn_fwd_mma": 0, "flash_attn_bwd": depth,
-                       "flash_attn_bwd_mma": 0, "fused_dropout": 4}, depth, depth)
+    want = expected_launches(model, forwards=1, backwards=1)
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
           f"fast-head train steps: losses {losses}")
     if on_card:
@@ -2651,7 +2614,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
         enc = server.model.prithvi_encoder
         vdepth, heads = len(enc.blocks), enc.blocks[0].attn.num_heads
         raw = raw_chips(b, vcfg)
-        counts = _predict_launches(_server_predict(server), raw, vdepth, variant, on_card)
+        counts = _predict_launches(_server_predict(server), raw, server.model, variant, on_card)
         xv = _server_chips(server, raw, device)
         years = torch.from_numpy(rng.integers(2015, 2025, (b, t)).astype(np.float32))
         days = torch.from_numpy(rng.integers(1, 366, (b, t)).astype(np.float32))
@@ -2665,9 +2628,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
         row = dict(part="variant", variant=variant, temporal_dim=t, batch=b,
                    tokens=int(enc.patch_embed(xv[:1]).shape[1]) + 1,
                    head_dim=enc.embed_dim // heads, depth=vdepth,
-                   fwd_launches_per_predict=counts["flash_attn_fwd"],
-                   mma_sync_launches=counts["flash_attn_fwd_mma"],
-                   ln_launches_per_predict=counts["ln_rows_bf16_fwd"],
+                   launches_per_predict=counts,
                    no_coords={k: v for k, v in plain.items() if k != "logits"},
                    no_coords_features={k: v for k, v in feats.items() if k != "features"})
         if variant.endswith("_600_tl"):
@@ -2768,7 +2729,7 @@ def serve_models_phase(device, smi: str, overrides=None, batch: int = 64, train_
                    chip_inference_vs_online_agree=True)
         # Run later, in a fresh interpreter shared with other phases.
         out["artifact_job"] = _artifact_prepare(
-            server, x64, os.path.join(artifact_dir, "serve_models"), depth, on_card)
+            server, x64, os.path.join(artifact_dir, "serve_models"), on_card)
         out["serving_row"] = row
         pipe.cleanup()
     finally:
@@ -2862,7 +2823,8 @@ def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: in
         raw = rng.integers(0, 10000, (batch, len(dl.bands), int(dl.img_size),
                                       int(dl.img_size)), dtype=np.uint16)
         predicts = {name: _server_predict(sv) for name, sv in servers.items()}
-        launches = {name: _predict_launches(fn, raw, depth, f"{name} predict", on_card)
+        launches = {name: _predict_launches(fn, raw, servers[name].model, f"{name} predict",
+                                            on_card)
                     for name, fn in predicts.items()}
         timing = _predict_turns(predicts, raw, turns, iters)
         x = _server_chips(servers["int8"], raw, device)
@@ -2905,8 +2867,7 @@ def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: in
         # --- 3. the export artifact in a fresh interpreter, at one batch ----
         # Run later, in a fresh interpreter shared with other phases.
         out["artifact_job"] = _artifact_prepare(
-            servers["int8"], x, os.path.join(artifact_dir, "quant"), depth, on_card,
-            batches=(batch,))
+            servers["int8"], x, os.path.join(artifact_dir, "quant"), on_card, batches=(batch,))
         clock.lap("int8 artifact")
 
         # --- 4. training refused --------------------------------------------
@@ -2947,9 +2908,10 @@ def quant_phase(device, smi: str, overrides=None, batch: int = 64, f32_batch: in
             rel = ((int8_matmul(xa, w, b, torch.float32, wq) - ref).norm() / ref.norm()).item()
         gemm = {name: float(np.mean(v)) for name, v in per.items()}
         ops = 2.0 * m * k * n
+        bf16_bytes = 2.0 * (m * k + k * n + m * n)
         gemm_bounds = {"int8_ops_ms": ops / PEAK_INT8_OPS * 1e3,
-                       "bf16_ops_ms": ops / PEAK_BF16_FLOPS * 1e3,
-                       "bf16_bytes_ms": 2.0 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S * 1e3}
+                       "bf16_ops_ms": yardstick.bound_s(ops, 0.0) * 1e3,
+                       "bf16_bytes_ms": yardstick.bound_s(0.0, bf16_bytes) * 1e3}
         check(rel < 0.02, f"int8_matmul vs the float32 product: relative error {rel}")
         print(f"[quant] {smi}: ({m} x {k}) @ ({k} x {n}), ms per call in turns: "
               + ", ".join(f"{name} {ms:.4f} {[round(t, 4) for t in per[name]]}"
@@ -3170,7 +3132,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
     column, the corners, the nodata block), where each chip is the last to
     write; the kernel route against the plain attention over the whole
     granule (argmax agreement on pixels whose plain top-2 gap is at least
-    GRANULE_GAP); forward launches = depth x batches, none on mma.sync; one
+    GRANULE_GAP); one forward's launches per batch (``expected_launches``); one
     run with ``overlap``, full coverage and the kernel against the plain
     attention there too. Reports per run the decode, host-to-device,
     device (CUDA events), first-batch and wall seconds of the granule,
@@ -3216,7 +3178,7 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         ckpt = BestCheckpointer(os.path.join(root, "run")).save(model_variables(model))
         base.append(f"checkpoint_path={ckpt}")
         dl = cfg.dataloader
-        depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
+        classes = int(cfg.model.num_classes)
         chip = int(dl.img_size)
         kw = dict(chip_size=chip, temporal_size=int(dl.temporal_dim), bands=list(dl.bands),
                   constant_multiplier=float(dl.constant_multiplier),
@@ -3231,12 +3193,6 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         for i, ((x, y), (y0, y1, x0, x1)) in enumerate(zip(coords, bounds)):
             owner[y + y0:y + y1, x + x0:x + x1] = i
         pred_path = os.path.join(root, "predictions", "prediction_T33TUN_2023152.tif")
-
-        def expected_launches(batch: int, chips: int = n) -> dict:
-            return with_norms({"flash_attn_fwd": depth * -(-chips // batch),
-                               "flash_attn_fwd_mma": 0, "flash_attn_bwd": 0,
-                               "flash_attn_bwd_mma": 0, "fused_dropout": 0},
-                              depth * -(-chips // batch))
 
         runs, preds = {}, {}
         for batch in batches:
@@ -3265,9 +3221,9 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
             check(bool((pred[nodata] == -1).all()), "nodata block not -1")
             check(bool(((pred[~nodata] >= 0) & (pred[~nodata] < classes)).all()),
                   "classes outside [0, classes) or -1 outside the nodata block")
+            want = expected_launches(model, forwards=-(-n // batch))
             if on_card:
-                check(counts == expected_launches(batch),
-                      f"batch {batch}: launches {counts}, expected {expected_launches(batch)}")
+                check(counts == want, f"batch {batch}: launches {counts}, expected {want}")
             stats = rec["stats"]
             granule_s = rec["decode_s"] + rec["file_s"]
             runs[batch] = dict(
@@ -3355,8 +3311,8 @@ def granule_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOC
         check(bool((o_pred[nodata] == -1).all()) and bool(
             ((o_pred[~nodata] >= 0) & (o_pred[~nodata] < classes)).all()),
             f"overlap {overlap}: nodata or classes out of place")
+        want = expected_launches(model, forwards=-(-len(o_coords) // big))
         if on_card:
-            want = expected_launches(big, len(o_coords))
             check(o_counts == want, f"overlap {overlap}: launches {o_counts}, expected {want}")
         with plain_attention(model):
             o_plain, _ = granule.granule_inference(bands, model, mean, std, batch_size=big,
@@ -3808,9 +3764,8 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
             cfg = load_config_from_argv(base)
             model = create_model(cfg, seed=0, device=device)
             ckpt = BestCheckpointer(os.path.join(root, "run")).save(model_variables(model))
-            depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
-            batch = int(cfg.train.batch_size)
-            del model
+            classes, batch = int(cfg.model.num_classes), int(cfg.train.batch_size)
+            model = model.to("meta")  # its structure only: the weights leave the card
             # --- one run of the CLI: counts from 0, read right after ----------
             reset_counts()
             t0 = time.perf_counter()
@@ -3828,16 +3783,14 @@ def chip_creator_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE
                     pred = r.read(1)
                 check(pred.dtype == np.int8 and bool(((pred >= 0) & (pred < classes)).all()),
                       f"prediction {p}: {pred.dtype}, classes {np.unique(pred)[:8]}")
-            want = with_norms({"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
-                               "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0},
-                              depth * -(-n // batch))
+            want = expected_launches(model, forwards=-(-n // batch))
             if on_card:
                 check(infer_counts == want, f"chip_inference launches {infer_counts}, "
                       f"expected {want}")
             print(f"[chip_creator] mode=chip_inference over the card run's manifest: {n} "
                   f"predictions in {infer_wall:.3f} s wall ({n / infer_wall:.2f} chips/s) at "
-                  f"batch {batch}; launches {json.dumps(infer_counts)} ({depth} per chip "
-                  f"batch)", flush=True)
+                  f"batch {batch}; launches {json.dumps(infer_counts)} over "
+                  f"{-(-n // batch)} chip batches", flush=True)
             clock.lap("chip_inference")
 
             # --- the raster chip creator over a bbox in the tile ---------------
@@ -4390,9 +4343,9 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
         save_config(cfg, run_dir)
         model = create_model(cfg, seed=0, device=device)
         BestCheckpointer(run_dir).save(model_variables(model))
-        depth, classes = len(model.prithvi_encoder.blocks), int(cfg.model.num_classes)
+        classes = int(cfg.model.num_classes)
         batch, dl = int(cfg.train.batch_size), cfg.dataloader
-        del model
+        model = model.to("meta")  # its structure only: the weights leave the card
         records = os.path.join(root, "job_records")
         os.makedirs(records)
         # The compose file's services as a host runs them: its volumes in this
@@ -4503,9 +4456,7 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
         check(len(os.listdir(os.path.join(task_dir, "predictions"))) == n,
               "one prediction per chip")
         stage2 = parts["process_model_prediction_with_task"]
-        want = with_norms({"flash_attn_fwd": depth * -(-n // batch), "flash_attn_fwd_mma": 0,
-                           "flash_attn_bwd": 0, "flash_attn_bwd_mma": 0, "fused_dropout": 0},
-                          depth * -(-n // batch))
+        want = expected_launches(model, forwards=-(-n // batch))
         if on_card:
             check(stage2.get("launches") == want,
                   f"stage 2 in its job process launched {stage2.get('launches')}, expected {want}")
@@ -4513,7 +4464,7 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
               f"{dl.img_size}x{dl.img_size} over the tile's pixels {bbox_px}, completed in "
               f"{wall:.3f} s wall; stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
               + "; stage 2's job process launched " + json.dumps(stage2.get("launches"))
-              + f" ({depth} per chip batch of {batch})", flush=True)
+              + f" over {-(-n // batch)} chip batches of {batch}", flush=True)
         for func, rec in parts.items():
             cold = ", ".join(f"{what} {rec[key]:.3f} s" for key, what in (
                 ("import_torch_s", "import torch"), ("cuda_context_s", "CUDA context"),
@@ -4643,7 +4594,8 @@ def webapp_phase(device, smi: str, size: int = GRANULE_SIZE, block=GRANULE_BLOCK
             check(inproc["kernel"]["launches"] == want,
                   f"in-process stage 2 launched {inproc['kernel']['launches']}, expected {want}")
         # Plain attention: the blocks' LayerNorms are still the kernel's.
-        check(not on_card or inproc["plain"]["launches"] == dict(want, flash_attn_fwd=0),
+        check(not on_card or inproc["plain"]["launches"]
+              == expected_launches(model, plain_forwards=-(-n // batch)),
               f"the plain run launched {inproc['plain']['launches']}")
         check(on_card or not any(inproc["plain"]["launches"].values()),
               f"the plain run launched {inproc['plain']['launches']}")
@@ -4829,18 +4781,16 @@ def _remat_check(device, model_kw: dict, cfg: dict, data: dict, batch: int, step
         runs[name] = dict(
             losses=[float(v) for v in losses], counts=counts,
             params={n: p.detach().clone() for n, p in model.named_parameters()},
-            peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+            peak_bytes=torch.cuda.max_memory_allocated() if on_card else None,
+            # remat runs each block's forward again in the backward
+            want=expected_launches(model, forwards=(1 + remat) * steps, backwards=steps))
         del model, trainer
         gc.collect()
     plain, remat = runs["plain"], runs["remat"]
-    depth = len([k for k in plain["params"] if k.endswith("attn.qkv.weight")])
     if on_card:
-        for name, fwd in (("plain", 1), ("remat", 2)):
-            want = with_norms({"flash_attn_fwd": fwd * depth * steps, "flash_attn_fwd_mma": 0,
-                               "flash_attn_bwd": depth * steps, "flash_attn_bwd_mma": 0},
-                              fwd * depth * steps, depth * steps)
-            got = {k: runs[name]["counts"][k] for k in want}
-            check(got == want, f"{name}: launches {got} over {steps} steps, expected {want}")
+        for name, r in runs.items():
+            check(r["counts"] == r["want"],
+                  f"{name}: launches {r['counts']} over {steps} steps, expected {r['want']}")
     difference = _first_difference(remat, plain)
     check(difference is None, f"remat vs no remat: {difference}")
     return dict(launches={k: r["counts"] for k, r in runs.items()},
@@ -4912,7 +4862,7 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
     import torch
 
     from instageo_tpu_torch.configs.config import load_config_from_argv
-    from instageo_tpu_torch.models.registry import get_arch
+    from instageo_tpu_torch.train.factory import build_model
 
     on_card = device.type == "cuda"
     nproc = nproc or torch.cuda.device_count()
@@ -4930,7 +4880,6 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
     cfg = load_config_from_argv(base)
     dl = cfg.dataloader
     size, classes = int(dl.img_size), int(cfg.model.num_classes)
-    depth = get_arch(str(cfg.model.model_name), depth=int(cfg.model.depth)).depth
     k = int(cfg.tpu.steps_per_call)
     try:
         t0 = time.perf_counter()
@@ -4978,23 +4927,15 @@ def parallel_phase(device, smi: str, model_kw: dict, train_cfg: dict, data: dict
     out["bit_equal"] = out["recipe"]["losses"] == out["twin"]["losses"]
     print(f"[parallel] recipe vs twin: each step's loss within {max(rel):.3g} relative "
           f"(<= {PARALLEL_LOSS_RTOL}); bit-equal: {out['bit_equal']}", flush=True)
+    accum = int(cfg.train.grad_accum)  # micro-batches per step
+    want = expected_launches(build_model(cfg, device), forwards=accum, backwards=accum)
     for name in ("recipe", "twin"):
         losses = out[name]["losses"]
         check(len(losses) == PARALLEL_STEPS and all(math.isfinite(v) for v in losses),
               f"{name}: step losses {losses}")
         if on_card:
-            accum = int(cfg.train.grad_accum)
-            drops = 5 if str(cfg.model.head_impl) == "torch" else 4  # the head's Dropouts
             for r, c in enumerate(out[name]["launches_per_step"]):
-                check(c["flash_attn_fwd_sm90"] == c["flash_attn_bwd_sm90"] == depth * accum
-                      and c["flash_attn_fwd"] == c["flash_attn_bwd"] == 0,
-                      f"{name} rank {r}: launches per step {c}, expected {depth * accum} "
-                      "forward and backward on the sm90 route")
-                check(c["fused_dropout"] == drops * accum,
-                      f"{name} rank {r}: {c['fused_dropout']} dropout launches per step")
-                check(c["ln_rows_bf16_fwd"] == c["ln_rows_bf16_bwd"] == 2 * depth * accum,
-                      f"{name} rank {r}: launches per step {c}, expected {2 * depth * accum} "
-                      "LayerNorm forward and backward")
+                check(c == want, f"{name} rank {r}: launches per step {c}, expected {want}")
     check(out["recipe"]["placement"] == ("fsdp" if nproc else "single")
           and out["twin"]["placement"] == "single",
           f"placements {out['recipe']['placement']}, {out['twin']['placement']}")
@@ -5145,8 +5086,14 @@ def examples_phase(device, smi: str, nproc=None) -> dict:
 
     import torch
 
+    from instageo_tpu_torch.models.seg import create_prithvi_seg
+
     dev = device.type
     nproc = torch.cuda.device_count() if nproc is None else nproc
+    # The walkthroughs' model, prithvi_eo_tiny at 32 px: bf16 in the quickstart
+    # and the notebook, float32 in the multichip walkthrough.
+    tiny = {dtype: create_prithvi_seg("prithvi_eo_tiny", image_size=32, dtype=dtype, device="cpu")
+            for dtype in (torch.bfloat16, torch.float32)}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         # Every walkthrough runs side by side with the others: their results
@@ -5193,23 +5140,17 @@ def examples_phase(device, smi: str, nproc=None) -> dict:
             check(all(math.isfinite(v) for v in res["test_metrics"].values())
                   and res["test_metrics"] and res["predictions"] == 16,
                   f"{name} results {res}")
-            # Forwards through the depth-4 encoder: each train step, a
-            # validation pass over the chips after each of the 3 epochs, the
-            # eval and chip inference passes, and the export's eager call
-            # (the complexity count runs on the plain route).
+            # Forwards: each train step, a validation pass over the chips
+            # after each of the 3 epochs, the eval and chip inference passes,
+            # and the export's eager call; the complexity count's runs on the
+            # plain attention.
             batches = math.ceil(res["predictions"] / 8)
             forwards = steps + 3 * batches + 2 * batches + 1
+            want = expected_launches(tiny[torch.bfloat16], forwards=forwards, backwards=steps,
+                                     plain_forwards=1)
             if dev == "cuda":
-                check(launches["flash_attn_fwd_sm90"] == 4 * forwards
-                      and launches["flash_attn_bwd_sm90"] == 4 * steps
-                      and launches["fused_dropout"] == 5 * steps
-                      and launches["flash_attn_fwd"] == 0 and launches["flash_attn_bwd"] == 0
-                      and launches["ln_rows_bf16_fwd"] == 8 * (forwards + 1)
-                      and launches["ln_rows_bf16_bwd"] == 8 * steps,
-                      f"the {name}'s launches {launches}: #1 4 per forward over {forwards} "
-                      f"forwards, #7 8 per forward over them and the FLOP count's, #8 8 "
-                      f"per step, #3 4 per step and #6 5 per step (the head's dropouts) over "
-                      f"{steps} steps, all on wgmma, none on mma.sync")
+                check(launches == want, f"the {name}'s launches {launches}, expected {want} "
+                      f"over {forwards} forwards and {steps} steps")
             out[name] = dict(wall_s=seconds, launches=launches, steps=steps,
                              test_metrics=res["test_metrics"],
                              artifact=_quickstart_artifact_check(device, root, res))
@@ -5230,12 +5171,10 @@ def examples_phase(device, smi: str, nproc=None) -> dict:
               and all(len(p["step_losses"]) == 2 for p in placed.values()),
               f"multichip step losses off data parallelism's: {gaps}")
         mc_steps = sum(len(p["step_losses"]) for p in placed.values())
-        check(dev != "cuda" or mres["launches"] == {
-            "flash_attn_fwd_sm90": 0, "flash_attn_fwd": 0, "flash_attn_bwd_sm90": 0,
-            "flash_attn_bwd": 0, "fused_dropout": 5 * mc_steps, "ln_rows_bf16_fwd": 0,
-            "ln_rows_bf16_bwd": 0},
-              f"the float32 walkthrough's launches {mres['launches']}: no attention kernel "
-              f"(the xla route), #6 5 per step over {mc_steps} steps (the head's dropouts)")
+        want = expected_launches(tiny[torch.float32], forwards=mc_steps, backwards=mc_steps)
+        check(dev != "cuda" or mres["launches"] == want,
+              f"the float32 walkthrough's launches {mres['launches']}, expected {want} over "
+              f"{mc_steps} steps")
         check(len(placed) + len(mres["skipped"]) == 4, f"placements {list(placed)}")
         out["multichip"] = dict(wall_s=wall, world=mres["world"], gaps=gaps,
                                 losses={t: p["step_losses"] for t, p in placed.items()},
@@ -5471,45 +5410,38 @@ def main() -> int:
     prev = lambda rows: [dict(r, ms=r["prev_ms"], device_ms=r["prev_device_ms"],  # noqa: E731
                               max_abs_err=r["prev_max_abs_err"]) for r in rows]
     fwd = at(rows, (8, 12, 589, 64))
-    fwd_mma = {"serve": served["other_launches"]["flash_attn_fwd_mma"],
-               "train": trained["launches"]["flash_attn_fwd_mma"]}
     wgmma_rows = [r for r in rows if r["route"] == "wgmma"]
     bwd = at(bwd_rows, (8, 12, 589, 64))
-    bwd_mma = {"serve": served["other_launches"]["flash_attn_bwd_mma"],
-               "train": trained["launches"]["flash_attn_bwd_mma"]}
     bwd_wgmma_rows = [r for r in bwd_rows if r["route"] == "wgmma"]
     drop = at(drop_rows, DROPOUT_SHAPES[-1])
-    drop_launches = {"serve": served["other_launches"]["fused_dropout"],
-                     "train": trained["launches"]["fused_dropout"]}
+    # Each kernel's launches on the serving slice and the training phase.
+    served_trained = lambda n: {"serve": served["launches"][n],  # noqa: E731
+                                "train": trained["launches"][n]}
     # The LayerNorm kernels replace no TPU kernel: the JAX package leaves
     # LayerNorm to XLA. Their rows are at the crop training step's shape.
     ln_by_kernel = {n: [r for r in ln_rows if r["kernel"] == n]
                     for n in ("ln_rows_bf16_fwd", "ln_rows_bf16_bwd")}
     ln_kernels = [
         _kernel_row(n, csrc + "norm_act.cu", "none: XLA's LayerNorm", None,
-                    next(r for r in rs if r["cell"] == "crop_train"),
-                    {"serve": served["other_launches"][n], "train": trained["launches"][n]}, rs)
+                    next(r for r in rs if r["cell"] == "crop_train"), served_trained(n), rs)
         for n, rs in ln_by_kernel.items()]
     bwd_replaces = ("instageo_tpu/ops/attention.py:260",
                     ["instageo_tpu/ops/attention.py:187", "instageo_tpu/ops/attention.py:390"])
     kernels = [
         _kernel_row("flash_attn_fwd_sm90", csrc + "flash_attn_fwd_sm90.cu",
                     "instageo_tpu/ops/attention.py:225", "instageo_tpu/ops/attention.py:162",
-                    fwd, {"serve": served["launches"] - fwd_mma["serve"],
-                          "train": trained["launches"]["flash_attn_fwd"] - fwd_mma["train"]},
-                    wgmma_rows),
+                    fwd, served_trained("flash_attn_fwd_sm90"), wgmma_rows),
         _kernel_row("flash_attn_fwd", csrc + "flash_attn_fwd.cu",
                     "instageo_tpu/ops/attention.py:225", "instageo_tpu/ops/attention.py:162",
-                    prev(wgmma_rows)[wgmma_rows.index(fwd)], fwd_mma, prev(wgmma_rows)),
+                    prev(wgmma_rows)[wgmma_rows.index(fwd)], served_trained("flash_attn_fwd"),
+                    prev(wgmma_rows)),
         _kernel_row("flash_attn_bwd_sm90", csrc + "flash_attn_bwd_sm90.cu", *bwd_replaces,
-                    bwd, {"serve": served["other_launches"]["flash_attn_bwd"] - bwd_mma["serve"],
-                          "train": trained["launches"]["flash_attn_bwd"] - bwd_mma["train"]},
-                    bwd_wgmma_rows),
+                    bwd, served_trained("flash_attn_bwd_sm90"), bwd_wgmma_rows),
         _kernel_row("flash_attn_bwd", csrc + "flash_attn_bwd.cu", *bwd_replaces,
-                    prev(bwd_wgmma_rows)[bwd_wgmma_rows.index(bwd)], bwd_mma,
-                    prev(bwd_wgmma_rows)),
+                    prev(bwd_wgmma_rows)[bwd_wgmma_rows.index(bwd)],
+                    served_trained("flash_attn_bwd"), prev(bwd_wgmma_rows)),
         _kernel_row("fused_dropout", csrc + "dropout.cu", "instageo_tpu/ops/dropout.py:33",
-                    None, drop, drop_launches, drop_rows),
+                    None, drop, served_trained("fused_dropout"), drop_rows),
         *ln_kernels,
     ]
     by_shape = ("shape", "device_ms", "prev_device_ms", "library_device_ms", "ms", "prev_ms",
@@ -5520,50 +5452,34 @@ def main() -> int:
                   (kernels[6], ln_by_kernel["ln_rows_bf16_bwd"])):
         k["by_shape"] = [{key: r.get(key) for key in by_shape + ("inputs", "entry", "cell")
                           if key in r} for r in rs]
-    # The run CLI's launches, by mode and kernel (the same counters).
-    by_route = {"flash_attn_fwd_sm90": lambda c: c["flash_attn_fwd"] - c["flash_attn_fwd_mma"],
-                "flash_attn_fwd": lambda c: c["flash_attn_fwd_mma"],
-                "flash_attn_bwd_sm90": lambda c: c["flash_attn_bwd"] - c["flash_attn_bwd_mma"],
-                "flash_attn_bwd": lambda c: c["flash_attn_bwd_mma"],
-                "fused_dropout": lambda c: c["fused_dropout"],
-                "ln_rows_bf16_fwd": lambda c: c["ln_rows_bf16_fwd"],
-                "ln_rows_bf16_bwd": lambda c: c["ln_rows_bf16_bwd"]}
-    graph_by_route = {k["name"]: by_route[k["name"]](graphed["launches"]) for k in kernels}
+    # Every path's launches, by mode and kernel (the same counters).
     for k in kernels:
+        name, by_path = k["name"], k["launches_by_path"]
         k["card"] = smi
-        k["launches_by_path"]["graph"] = graph_by_route[k["name"]]
+        by_path["graph"] = graphed["launches"][name]
         for mode, c in ran["counts"].items():
-            k["launches_by_path"][f"run_{mode}"] = by_route[k["name"]](c)
-        route = by_route[k["name"]]
-        k["launches_by_path"]["serve_fast_head"] = route(models["heads"]["launches"]["fast"])
-        k["launches_by_path"]["train_fast_head"] = route(models["train_step"]["launches"])
+            by_path[f"run_{mode}"] = c[name]
+        by_path["serve_fast_head"] = models["heads"]["launches"]["fast"][name]
+        by_path["train_fast_head"] = models["train_step"]["launches"][name]
         for b, r in granuled["runs"].items():
-            k["launches_by_path"][f"granule_batch{b}"] = route(r["launches"])
-        k["launches_by_path"][f"granule_overlap{GRANULE_OVERLAP}"] = route(
-            granuled["overlap"]["launches"])
-        k["launches_by_path"]["chip_creator"] = 0  # checked: chip creation launches none
-        k["launches_by_path"]["chip_creator_chip_inference"] = route(
-            created["chip_inference"]["launches"])
+            by_path[f"granule_batch{b}"] = r["launches"][name]
+        by_path[f"granule_overlap{GRANULE_OVERLAP}"] = granuled["overlap"]["launches"][name]
+        by_path["chip_creator"] = 0  # checked: chip creation launches none
+        by_path["chip_creator_chip_inference"] = created["chip_inference"]["launches"][name]
         for stage, st in replicated["stages"].items():
-            k["launches_by_path"][f"replica_{stage}"] = route(st["counts"])
-        k["launches_by_path"]["quant_int8_predict"] = route(quantized["launches"]["int8"])
-        k["launches_by_path"]["quant_f32_predict"] = route(quantized["f32"]["launches"])
-        k["launches_by_path"]["webapp"] = route(web["launches"])
-        k["launches_by_path"]["webapp_job_process"] = route(web["worker_launches"])
-        for name in ("recipe", "twin"):  # rank 0's train epoch
-            k["launches_by_path"][f"parallel_{name}"] = para[name]["train_launches"][0][k["name"]]
-        for name in ("plain", "remat"):
-            k["launches_by_path"][f"parallel_{name}_crop"] = route(
-                para["remat"]["launches"][name])
-        k["launches_by_path"]["examples_quickstart"] = walked["quickstart"]["launches"][k["name"]]
-        k["launches_by_path"]["examples_notebook"] = walked["notebook"]["launches"][k["name"]]
-        k["launches_by_path"]["examples_multichip"] = walked["multichip"]["launches"][k["name"]]
+            by_path[f"replica_{stage}"] = st["counts"][name]
+        by_path["quant_int8_predict"] = quantized["launches"]["int8"][name]
+        by_path["quant_f32_predict"] = quantized["f32"]["launches"][name]
+        by_path["webapp"] = web["launches"][name]
+        by_path["webapp_job_process"] = web["worker_launches"][name]
+        for part in ("recipe", "twin"):  # rank 0's train epoch
+            by_path[f"parallel_{part}"] = para[part]["train_launches"][0][name]
+        for part in ("plain", "remat"):
+            by_path[f"parallel_{part}_crop"] = para["remat"]["launches"][part][name]
+        for walk in ("quickstart", "notebook", "multichip"):
+            by_path[f"examples_{walk}"] = walked[walk]["launches"][name]
         for variant, row in models["variants"].items():
-            k["launches_by_path"][f"serve_{variant}"] = (
-                row["fwd_launches_per_predict"] - row["mma_sync_launches"]
-                if k["name"] == "flash_attn_fwd_sm90" else
-                row["mma_sync_launches"] if k["name"] == "flash_attn_fwd" else
-                row["ln_launches_per_predict"] if k["name"] == "ln_rows_bf16_fwd" else 0)
+            by_path[f"serve_{variant}"] = row["launches_per_predict"][name]
     print(json.dumps({"kernels": kernels, "norm_act": ln_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

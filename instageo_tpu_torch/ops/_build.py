@@ -9,10 +9,11 @@ alone (no PyTorch headers, so a build takes seconds) into
 otherwise). A changed source gets a new directory; an unchanged one is
 loaded from the existing build.
 
-``LaunchCounter`` counts each kernel's launches; ``CapturedGraph`` captures
-a function into a CUDA graph and keeps those counts true through capture
-and replays. ``HostCounter`` counts work done on the host (graph replays,
-decoded files).
+``LaunchCounter`` counts each kernel's launches; ``Kernel`` names a kernel
+and reads its launches from them (``ops.kernels()`` gathers every kernel's
+``Kernel``); ``CapturedGraph`` captures a function into a CUDA graph and
+keeps those counts true through capture and replays. ``HostCounter``
+counts work done on the host (graph replays, decoded files).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import threading
 import time
 import weakref
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, NamedTuple, Optional
 
 from instageo_tpu_torch.utils.compile_cache import build_root
 
@@ -88,6 +89,27 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self.count = self.captured = self.replayed = 0
+
+
+class Kernel(NamedTuple):
+    """One hand-written kernel: ``name``, which its launches are counted
+    under, built from ``csrc/<source>.cu``, and launched ``counter``'s
+    launches less ``less``'s (another route's, which ``counter`` counts
+    too)."""
+
+    name: str
+    source: str
+    counter: LaunchCounter
+    less: Optional[LaunchCounter] = None
+
+    def read(self, field: str = "total") -> int:
+        """Its launches made directly (``"count"``), recorded into CUDA
+        graphs (``"captured"``), made by graph replays (``"replayed"``), or
+        run on the device (``"total"``: made directly plus replayed)."""
+        if field == "total":
+            return self.read("count") + self.read("replayed")
+        less = getattr(self.less, field) if self.less is not None else 0
+        return getattr(self.counter, field) - less
 
 
 graph_replays = HostCounter()  # replays of every CapturedGraph

@@ -46,7 +46,7 @@ from typing import Tuple
 
 import torch
 
-from instageo_tpu_torch.ops._build import LaunchCounter, call_on_device
+from instageo_tpu_torch.ops._build import Kernel, LaunchCounter, call_on_device
 
 LAYOUTS = ("merged", "heads_first")
 IMPLS = ("kernel", "plain")
@@ -58,6 +58,15 @@ launches = LaunchCounter()          # forward kernel, either route
 fwd_mma_launches = LaunchCounter()  # forward kernel, mma.sync route only
 bwd_launches = LaunchCounter()      # backward kernels, either route (one per call)
 bwd_mma_launches = LaunchCounter()  # backward kernels, mma.sync route only
+# Each route's kernels, named after their sources (csrc/<name>.cu).
+FWD_KERNELS = {"wgmma": "flash_attn_fwd_sm90", "mma_sync": "flash_attn_fwd"}
+BWD_KERNELS = {"wgmma": "flash_attn_bwd_sm90", "mma_sync": "flash_attn_bwd"}
+KERNELS = (
+    Kernel("flash_attn_fwd_sm90", "flash_attn_fwd_sm90", launches, less=fwd_mma_launches),
+    Kernel("flash_attn_fwd", "flash_attn_fwd", fwd_mma_launches),
+    Kernel("flash_attn_bwd_sm90", "flash_attn_bwd_sm90", bwd_launches, less=bwd_mma_launches),
+    Kernel("flash_attn_bwd", "flash_attn_bwd", bwd_mma_launches),
+)
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:

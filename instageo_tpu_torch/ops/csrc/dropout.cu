@@ -24,8 +24,8 @@
 // load is issued before the Philox rounds, which hide its latency. One unit
 // per thread, up to 2^20 blocks (a grid-stride loop beyond); a grid of one
 // wave striding over the tensor was slower at the largest tensor on an H100.
-// (tools/profile_dropout_designs.py times the earlier design, 4 elements per
-// thread, beside it.)
+// (The earlier design, 4 elements per thread, was timed beside it; its source
+// is tools/dropout_x4.cu at commit 0cdc76a.)
 // The seed arrives by value, or, for a launch recorded into a CUDA graph,
 // as a pointer to a 64-bit word in device memory that the kernel reads when
 // it starts: each replay of the graph then takes the seed the host wrote

@@ -43,12 +43,13 @@ from typing import Tuple, Union
 
 import torch
 
-from instageo_tpu_torch.ops._build import LaunchCounter, call_on_device
+from instageo_tpu_torch.ops._build import Kernel, LaunchCounter, call_on_device
 
 IMPLS = ("kernel", "plain")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounter()
+KERNELS = (Kernel("fused_dropout", "dropout", launches),)
 
 Seed = Union[int, Tuple[torch.Tensor, int]]
 

@@ -36,12 +36,14 @@ from typing import Tuple
 
 import torch
 
-from instageo_tpu_torch.ops._build import LaunchCounter, call_on_device
+from instageo_tpu_torch.ops._build import Kernel, LaunchCounter, call_on_device
 
 MAX_WIDTH = 2048  # the row kernels keep a row in one warp's registers
 
 ln_launches = LaunchCounter()        # LayerNorm forward kernel
 ln_bwd_launches = LaunchCounter()    # LayerNorm backward (row kernel + column sums)
+KERNELS = (Kernel("ln_rows_bf16_fwd", "norm_act", ln_launches),
+           Kernel("ln_rows_bf16_bwd", "norm_act", ln_bwd_launches))
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from instageo_tpu_torch.ops import kernels
+
 ARTIFACT_VERSION = 1
 OPS_NAMESPACE = "instageo_tpu_torch"
 
@@ -108,7 +110,7 @@ def load_predict(path: str) -> Tuple[Callable[[Dict[str, torch.Tensor], Any], to
     device and returns the program's output there. Needs no model code;
     raises when the ``.json`` sidecar is missing (it names the device) or
     the artifact was exported for a device type this process cannot run."""
-    from instageo_tpu_torch.ops import attention, norm_act  # noqa: F401  (registers the ops)
+    kernels()  # imports the kernel modules, which registers their custom ops
 
     if not os.path.exists(path + ".json"):
         raise FileNotFoundError(

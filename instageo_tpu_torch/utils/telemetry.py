@@ -196,18 +196,13 @@ def _local_bytes(t: torch.Tensor) -> int:
 
 
 def kernel_launches() -> Dict[str, int]:
-    """Launches of each Hopper kernel in this process (direct and through
-    CUDA graph replays), by route; a LayerNorm backward counts once for its
-    two kernels."""
-    from instageo_tpu_torch.ops import attention, dropout, norm_act
+    """Launches of each hand-written kernel in this process (direct and
+    through CUDA graph replays), by the names of ``ops.kernels()``, the
+    attention's by route; a LayerNorm backward counts once for its two
+    kernels."""
+    from instageo_tpu_torch.ops import launch_counts
 
-    fwd, bwd = attention.launches.total(), attention.bwd_launches.total()
-    fwd_mma, bwd_mma = attention.fwd_mma_launches.total(), attention.bwd_mma_launches.total()
-    return {"flash_attn_fwd_sm90": fwd - fwd_mma, "flash_attn_fwd": fwd_mma,
-            "flash_attn_bwd_sm90": bwd - bwd_mma, "flash_attn_bwd": bwd_mma,
-            "fused_dropout": dropout.launches.total(),
-            "ln_rows_bf16_fwd": norm_act.ln_launches.total(),
-            "ln_rows_bf16_bwd": norm_act.ln_bwd_launches.total()}
+    return launch_counts()
 
 
 def rank_footprint(model: nn.Module, optimizer: Optional[torch.optim.Optimizer],

@@ -10,7 +10,9 @@ shapes and dtypes for fake CUDA tensors, and a bf16 CUDA tensor dispatches
 to them while a float32 one stays on the plain path. On a (fake) CUDA
 tensor ``Mlp``'s exact GELU is one GELU in the compute dtype, with no
 float32 cast. The kernels' symbols fall in the benchmark's elementwise
-class, and the training CLI's launch counts name them. The wrappers'
+class, and the training CLI's launch counts name them. The table of the
+port's kernels (``ops.kernels()``) covers every ``csrc/*.cu`` source, and a
+route's kernel reads its counter less the other route's. The wrappers'
 refusals need no card. On the card: ``tests/test_torch_cuda.py``.
 """
 
@@ -224,6 +226,33 @@ def test_training_launch_counts_name_the_layer_norm_kernels():
     block = Block(64, 4, dtype=BF16)
     block(_randn((2, 9, 64), 1)).float().sum().backward()
     assert kernel_launches() == before
+
+
+def test_kernel_table_covers_every_source():
+    """Each ``csrc/*.cu`` that ``_build.sources()`` builds is the source of
+    a kernel of ``ops.kernels()`` (declared in its module's ``KERNELS``),
+    and each kernel's source is one of them."""
+    from instageo_tpu_torch.ops import _build, kernels
+
+    table = kernels()
+    assert all(name == k.name for name, k in table.items())
+    assert {k.source for k in table.values()} == set(_build.sources())
+
+
+@pytest.mark.parametrize("field,want", [("count", 3), ("captured", 2), ("replayed", 4),
+                                        ("total", 7)])
+def test_a_route_reads_its_counter_less_the_other_route(field, want):
+    """``Kernel.read``: the wgmma route's launches are its counter's (both
+    routes) less the mma.sync route's, made directly, captured into a graph
+    or replayed; ``total`` is direct plus replayed."""
+    from instageo_tpu_torch.ops._build import Kernel, LaunchCounter
+
+    both, other = LaunchCounter(), LaunchCounter()
+    both.count, both.captured, both.replayed = 5, 3, 6
+    other.count, other.captured, other.replayed = 2, 1, 2
+    assert Kernel("k", "k", both, less=other).read(field) == want
+    assert Kernel("k", "k", other).read(field) == {"count": 2, "captured": 1, "replayed": 2,
+                                                  "total": 4}[field]
 
 
 def _global_kernels() -> list:

@@ -17,6 +17,10 @@ reading from a Chrome trace (``tools/trace_spans.py``), on the CPU.
   summary's memcpy seconds by kind.
 * The benchmark's own summary (``h100bench/tracing.py:summarize``) reads
   the same numbers with and without the program's spans in the trace.
+* Telemetry, the span tool and the card smoke run (``chip_smoke.py``) read
+  each kernel's launches from the one table (``ops.kernels()``), under
+  telemetry's names; the smoke's expected launches come from the model's
+  structure (depth, head dim, compute dtype, the head's dropouts).
 """
 
 import contextlib
@@ -43,6 +47,11 @@ ROOT = Path(__file__).resolve().parent.parent
 SERVE_SPANS = ["instageo.serve.upload", "instageo.serve.preprocess", "instageo.model.encoder",
                "instageo.model.head", "instageo.serve.argmax"]
 trace_spans = load_module(ROOT / "tools" / "trace_spans.py", "trace_spans")
+chip_smoke = load_module(ROOT / "chip_smoke.py", "chip_smoke")
+# ``utils/telemetry.py:kernel_launches``'s keys, which users read in the
+# quickstart's JSON, ``train_launches`` and the multichip walkthrough.
+KERNEL_NAMES = ["flash_attn_fwd_sm90", "flash_attn_fwd", "flash_attn_bwd_sm90", "flash_attn_bwd",
+                "fused_dropout", "ln_rows_bf16_fwd", "ln_rows_bf16_bwd"]
 
 
 def _tiny(num_classes=3, param_dtype=None):
@@ -283,3 +292,79 @@ def test_benchmark_summary_is_blind_to_program_spans(drop):
     bare = [e for e in full if not (e["cat"] == "user_annotation"
                                     and e["name"].startswith(drop))]
     assert tracing.summarize(full) == tracing.summarize(bare)
+
+
+# The table of the port's kernels and what reads it
+
+
+@pytest.mark.parametrize("read", [telemetry.kernel_launches,
+                                  trace_spans.COUNTER_GROUPS["launch_counters"],
+                                  chip_smoke.read_counts],
+                         ids=["telemetry", "trace_spans", "chip_smoke"])
+def test_launch_readers_take_the_kernel_table(read):
+    """Each reader gives ``ops.launch_counts()``: the table's names, in its
+    order, with a forward on the mma.sync route counted there and not on
+    the wgmma route (whose counter counts both)."""
+    from instageo_tpu_torch.ops import attention, kernels, launch_counts
+
+    before = read()
+    assert list(before) == list(kernels()) == KERNEL_NAMES
+    attention.launches.add(3)
+    attention.fwd_mma_launches.add(1)
+    try:
+        after = read()
+        assert after == launch_counts()
+        assert {k: n - before[k] for k, n in after.items() if n != before[k]} == {
+            "flash_attn_fwd_sm90": 2, "flash_attn_fwd": 1}
+    finally:
+        attention.launches.add(-3)
+        attention.fwd_mma_launches.add(-1)
+
+
+def test_smoke_resets_and_reads_every_counter_of_the_table():
+    """``chip_smoke.reset_counts`` sets every kernel's launches to 0, and
+    ``read_graph_counts`` reads every kernel's captured and replayed
+    launches."""
+    from instageo_tpu_torch.ops import kernels
+
+    for k in kernels().values():
+        k.counter.add(2)
+        k.counter.add_replayed(1)
+    graphs = chip_smoke.read_graph_counts()
+    assert list(graphs["captured"]) == list(graphs["replayed"]) == KERNEL_NAMES
+    chip_smoke.reset_counts()
+    graphs = chip_smoke.read_graph_counts()
+    zeros = dict.fromkeys(KERNEL_NAMES, 0)
+    assert chip_smoke.read_counts() == graphs["captured"] == graphs["replayed"] == zeros
+
+
+@pytest.mark.parametrize("dtype,head_impl,head_dim,runs,want", [
+    (torch.bfloat16, "torch", 64, dict(forwards=1),
+     dict(flash_attn_fwd_sm90=2, ln_rows_bf16_fwd=4)),
+    (torch.bfloat16, "torch", 64, dict(forwards=3, backwards=2),
+     dict(flash_attn_fwd_sm90=6, flash_attn_bwd_sm90=4, ln_rows_bf16_fwd=12,
+          ln_rows_bf16_bwd=8, fused_dropout=10)),
+    (torch.bfloat16, "torch", 64, dict(forwards=2, plain_forwards=1),
+     dict(flash_attn_fwd_sm90=4, ln_rows_bf16_fwd=12)),
+    (torch.bfloat16, "torch", 32, dict(forwards=1, backwards=1),
+     dict(flash_attn_fwd=2, flash_attn_bwd=2, ln_rows_bf16_fwd=4, ln_rows_bf16_bwd=4,
+          fused_dropout=5)),
+    (torch.bfloat16, "fast", 64, dict(forwards=1, backwards=1),
+     dict(flash_attn_fwd_sm90=2, flash_attn_bwd_sm90=2, ln_rows_bf16_fwd=4,
+          ln_rows_bf16_bwd=4, fused_dropout=4)),
+    (torch.float32, "torch", 64, dict(forwards=3, plain_forwards=1), {}),
+    (torch.float32, "torch", 64, dict(forwards=2, backwards=2), dict(fused_dropout=10)),
+])
+def test_expected_launches_follow_the_model(dtype, head_impl, head_dim, runs, want):
+    """``chip_smoke.expected_launches`` on the tiny model (depth 2): per
+    bf16 block forward one attention forward on its head dim's route and
+    two LayerNorm forwards, per block backward one attention backward and
+    two LayerNorm backwards, per trained forward one launch per drawing
+    dropout of the head (5, the fast head's 4); a float32 model launches
+    only its dropouts."""
+    model = create_prithvi_seg("prithvi_eo_tiny", depth=2, image_size=32, num_bands=6,
+                               dtype=dtype, head_impl=head_impl, device="cpu", seed=0)
+    for block in model.prithvi_encoder.blocks:
+        block.attn.head_dim = head_dim  # the structure the routes are read from
+    assert chip_smoke.expected_launches(model, **runs) == dict(dict.fromkeys(KERNEL_NAMES, 0),
+                                                                **want)

@@ -170,6 +170,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     import chip_smoke as cs
+    from h100bench import counts
     from instageo_tpu_torch.ops import attention as tattn
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -215,7 +216,7 @@ def main() -> int:
              wgmma_ms=wgmma, wgmma_total_ms=sum(wgmma.values()),
              mma_sync_total_ms=sum(mean["mma_sync"].values()),
              sdpa_total_ms=sum(mean["sdpa"].values()), sdpa_kernels=mean["sdpa"],
-             bound_ms=cs.attention_bwd_bound(b, h, l, d)[0])
+             bound_ms=cs.bound(counts.attention_bwd(b, h, l, d))[0])
         del q, k, v, o, do, lse, qs, ks, vs, out, do_hf, calls
 
     for n in range(1, 6):

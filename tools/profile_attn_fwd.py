@@ -101,6 +101,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     import chip_smoke as cs
+    from h100bench import counts
     from instageo_tpu_torch.ops import attention as tattn
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -133,7 +134,7 @@ def main() -> int:
             times[name].append(cs.device_ms(fn, args.iters, match=match))
         emit(kind="shape", shape=[b, h, l, d], layout=layout, inputs=inputs,
              device_ms={n: sum(t) / len(t) for n, t in times.items()}, turns=times,
-             bound_ms=cs.attention_bound(b, h, l, d)[0])
+             bound_ms=cs.bound(counts.attention_fwd(b, h, l, d))[0])
         del q, k, v
 
     for n in range(1, 6):

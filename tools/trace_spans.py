@@ -36,9 +36,9 @@ summary (``h100bench/tracing.py:summarize``) does not read:
   ``pageable_uploads``, ``upload_slot_waits``) and the ``_tl`` coords'
   (``models/prithvi.py``: ``coord_embeds``, ``coords_missing``); those the
   program lacks are left out;
-* ``launch_counters``: the same for the encoder's LayerNorm kernels
-  (``ops/norm_act.py``: ``ln_launches``, ``ln_bwd_launches``), graph
-  replays included; also printed.
+* ``launch_counters``: the same for every hand-written kernel's launches
+  (``instageo_tpu_torch/ops:launch_counts``, graph replays included); also
+  printed.
 
 Run from the root of a checkout (of the program with or without spans);
 on a card only, as ``h100bench/run.py`` is.
@@ -55,12 +55,12 @@ from typing import Dict, List, Optional, Tuple
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from instageo_tpu_torch.ops import launch_counts  # noqa: E402
+
 PROGRAM_PREFIX = "instageo."   # the program's spans
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 COUNTERS = {"ops.preprocess": ("pinned_uploads", "pageable_uploads", "upload_slot_waits"),
             "models.prithvi": ("coord_embeds", "coords_missing")}
-LAUNCH_COUNTERS = {"ops.norm_act": ("ln_launches", "ln_bwd_launches")}
-COUNTER_GROUPS = {"upload_counters": COUNTERS, "launch_counters": LAUNCH_COUNTERS}
 SERVE_TOP = ("instageo.serve.upload", "instageo.serve.preprocess", "instageo.model.encoder",
              "instageo.model.head", "instageo.serve.argmax")
 TRAIN_TOP = ("instageo.train.replay", "instageo.train.stage", "instageo.train.seeds")
@@ -221,6 +221,10 @@ def counters_now(counters: Dict[str, Tuple[str, ...]]) -> Dict[str, int]:
     return out
 
 
+COUNTER_GROUPS = {"upload_counters": lambda: counters_now(COUNTERS),
+                  "launch_counters": launch_counts}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workload", required=True)
@@ -250,21 +254,21 @@ def main() -> int:
     start, stop = tracing.Tracer.start, tracing.Tracer.stop
 
     def start_marked(self):
-        marks["start"] = {k: counters_now(c) for k, c in COUNTER_GROUPS.items()}
+        marks["start"] = {k: read() for k, read in COUNTER_GROUPS.items()}
         start(self)
 
     def stop_marked(self, **units):
         stop(self, **units)
-        marks["stop"] = {k: counters_now(c) for k, c in COUNTER_GROUPS.items()}
+        marks["stop"] = {k: read() for k, read in COUNTER_GROUPS.items()}
 
     tracing.Tracer.start, tracing.Tracer.stop = start_marked, stop_marked
     rc = harness.main(["--workload", args.workload, "--seed", str(args.seed),
                        "--seconds", str(args.seconds), "--trace", "1"], t_process=t0)
-    for key, counters in COUNTER_GROUPS.items():
+    for key, read in COUNTER_GROUPS.items():
         found[key] = {
             name: {"stretch": (marks["stop"][key][name] - marks["start"][key][name]
                                if "stop" in marks else None),
-                   "process": n} for name, n in counters_now(counters).items()}
+                   "process": n} for name, n in read().items()}
     print("launch_counters " + json.dumps(found["launch_counters"]), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
